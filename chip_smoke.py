@@ -1,0 +1,477 @@
+"""Smoke run of gphocs_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order (each prints its lines; any failure raises, and the
+script then exits non-zero without the final line):
+
+  1. versions of torch, CUDA and nvcc, and the card's name and power limit;
+  2. the build of the four CUDA kernels from gphocs_tpu_torch/csrc/;
+  3. each kernel against its plain PyTorch version on the card at f64, on
+     a warmed 64-locus x 300 bp state of SAMPLE_CTL with a hot migration
+     band, at blocks of 64 loci and of 24 (SPR against its plain version
+     at sync_group = the block): equal counter advance and accept counts,
+     equal SPR topology and migration integer arrays, ages within 1e-12,
+     lnld/lnp within 1e-9, conditionals within 1e-10; then one f32 pass
+     per kernel (finite outputs, carried lnld within 1e-3 relative of a
+     plain rebuild);
+  4. the main path on the standard workload (SAMPLE_CTL, 1000 loci x
+     1000 bp simulated with seed 20260817) at f32: Sampler.initialize,
+     run() with a trace file for 50 iterations, 3 warm-up iterations and a
+     timed step_chunk(25); launch counts checked against the schedule;
+     carried lnld checked against a from-scratch rebuild; then (4b) each
+     kernel against its plain version on the main path's own state at
+     f32, with the criteria of phase 3 at F32_TOL, and each kernel's time
+     beside its plain version's on that state; then (4c) the same
+     sampler made hot (band rate 2e5, stepped until migrations are
+     present) and the kernels held against their plain versions again at
+     f32 (F32_TOL) and on an f64 copy (F64_TOL), every sweep now required
+     to accept moves;
+  5. one JSON line with the kernels, then the result line.
+
+It needs one CUDA card; without one it exits with status 1 and prints no
+result.
+"""
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORKLOAD_LOCI = 1000
+WORKLOAD_BP = 1000
+WORKLOAD_SEED = 20260817
+RUN_ITERS = 50
+WARMUP = 3
+TIMED = 25
+TAU_PROPOSALS = 3  # ancestral populations of SAMPLE_CTL
+
+# kernel-vs-plain tolerances (max abs difference).  F64_TOL are the
+# Pallas-vs-XLA tolerances of the JAX package's tests; F32_TOL allow ~100
+# f32 ulps at the values' sizes (ages ~1e-3, per-locus lnld ~1e3,
+# conditionals O(1)).  A wrong move shifts a value far beyond either,
+# and the counters, accept counts and integer arrays must be equal.
+F64_TOL = {"age": 1e-12, "lnld": 1e-9, "cond": 1e-10, "tau": 1e-15}
+F32_TOL = {"age": 1e-7, "lnld": 1e-2, "cond": 1e-5, "tau": 1e-9}
+
+
+def log(msg=""):
+    print(msg, flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def maxdiff(a, b):
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+class Compare:
+    """Collects kernel-vs-plain comparisons; raises on the first miss."""
+
+    def __init__(self):
+        self.err = {}
+
+    def close(self, kernel, name, a, b, tol):
+        d = maxdiff(a, b)
+        self.err[kernel] = max(self.err.get(kernel, 0.0), d)
+        log(f"    {name:12s} max |kernel - plain| = {d:.3e} (tol {tol:g})")
+        check(d <= tol, f"{kernel}: {name} differs by {d:.3e} > {tol:g}")
+
+    def equal(self, kernel, name, a, b):
+        import torch
+
+        same = bool(torch.equal(a, b))
+        log(f"    {name:12s} equal: {same}")
+        check(same, f"{kernel}: {name} differs")
+
+
+def warm_state(device, dtype, path, num_loci=64):
+    """A warmed num_loci x 300 bp Sampler with a hot band and migrations
+    present (also the fixture of tests/test_torch_csrc_host.py)."""
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.io.simulate import simulate_seq_file
+    from gphocs_tpu_torch.model import build_poptree
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    cfg = parse_control_text(SAMPLE_CTL)
+    simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=num_loci,
+                      seq_len=300, seed=11)
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 17
+    cfg.mcmc.start_mig = 0
+    s = Sampler(cfg, seq_path=path, dtype=dtype, device=device)
+    s.initialize()
+    s._sample_mig_rates_device()
+    heat(s)
+    return s
+
+
+def heat(s):
+    """Set s's band rates hot (2e5) and step until migrations are present."""
+    import torch
+    from gphocs_tpu_torch.kernels.common import gen_log_prior
+
+    s.params = s.params._replace(
+        mig_rate=torch.full_like(s.params.mig_rate, 2e5))
+    s.lnp = gen_log_prior(s.gen, s.params, s.ctx)
+    for _ in range(8):
+        s.step_chunk(5, do_migrate=True)
+        if int((s.gen.mig_branch >= 0).sum()) > 0:
+            break
+    check(int((s.gen.mig_branch >= 0).sum()) > 0, "no migrations in warmup")
+
+
+def tau_bounds(s, pop):
+    """(taub0, taub1, tauold, taunew) of a rubber-band proposal for pop."""
+    import torch
+
+    pr, c = s.params, s.ctx
+    s0, s1 = c.pop_sons[pop, 0], c.pop_sons[pop, 1]
+    taub0 = torch.maximum(pr.tau[s0], pr.tau[s1])
+    taub1 = (torch.full_like(taub0, c.oldage)
+             if pop == s.tree.num_pops - 1 else pr.tau[c.father_pop[pop]])
+    tauold = pr.tau[pop]
+    return taub0, taub1, tauold, tauold + 0.3 * (tauold - taub0)
+
+
+def kernel_checks(s, cmp, tol, need_moves=True):
+    """Each kernel against its plain version on the same inputs.
+
+    `s` holds a state (a Sampler, or a cast_state copy); `tol` is F64_TOL
+    or F32_TOL.  With need_moves, every sweep must accept some moves, so
+    that the comparison covers accepted moves and not only rejections."""
+    from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
+    from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
+    from gphocs_tpu_torch.kernels.spr import update_spr
+    from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
+                                              update_taus, update_taus_fused)
+    from gphocs_tpu_torch.ops import sweeps
+
+    g, pr, sq, r, c = s.gen, s.params, s.seq, s.lrng, s.ctx
+    ld, lp, cond = s.lnld, s.lnp, s.cond
+    t_age, t_ld, t_cond = tol["age"], tol["lnld"], tol["cond"]
+
+    log("  node_age")
+    k = sweeps.node_age_sweep(g, pr, sq, r, c, s.ft.coal_time, ld, lp, cond)
+    q = update_internal_node_ages(g, pr, sq, r, c, s.ft.coal_time, ld, lp,
+                                  cond)
+    check(int(k[1].ctr) == int(q[1].ctr), "node_age: counter")
+    check(int(k[5]) == int(q[5]), f"node_age: accepts {k[5]} {q[5]}")
+    check(int(k[5]) > 0 or not need_moves, "node_age: no accepts")
+    log(f"    accepts {int(k[5])}, counter {int(k[1].ctr)}")
+    cmp.close("node_age", "age", k[0].age, q[0].age, t_age)
+    cmp.close("node_age", "lnld", k[2], q[2], t_ld)
+    cmp.close("node_age", "lnp", k[3], q[3], t_ld)
+    cmp.close("node_age", "cond", k[4], q[4], t_cond)
+
+    log("  mig_age")
+    k = sweeps.mig_age_sweep(g, pr, r, c, s.ft.mig_time, lp)
+    q = update_mig_ages(g, pr, r, c, s.ft.mig_time, lp)
+    check(int(k[1].ctr) == int(q[1].ctr), "mig_age: counter")
+    check(int(k[3]) == int(q[3]), f"mig_age: accepts {k[3]} {q[3]}")
+    check(int(k[3]) > 0 or not need_moves, "mig_age: no accepts")
+    log(f"    accepts {int(k[3])}, counter {int(k[1].ctr)}")
+    cmp.close("mig_age", "mig_age", k[0].mig_age, q[0].mig_age, t_age)
+    cmp.close("mig_age", "lnp", k[2], q[2], t_ld)
+
+    log(f"  spr (plain at sync_group={sweeps.BLOCK})")
+    k = sweeps.spr_sweep(g, pr, sq, r, c, ld, cond)
+    q = update_spr(g, pr, sq, r, c, ld, cond, sync_group=sweeps.BLOCK)
+    check(int(k[1].ctr) == int(q[1].ctr),
+          f"spr: counter {int(k[1].ctr)} {int(q[1].ctr)}")
+    check(int(k[4]) == int(q[4]), f"spr: accepts {k[4]} {q[4]}")
+    check(int(k[4]) > 0 or not need_moves, "spr: no accepts")
+    log(f"    accepts {int(k[4])}, counter {int(k[1].ctr)}")
+    for f in ("father", "lson", "rson", "root", "node_pop", "mig_branch",
+              "mig_band"):
+        cmp.equal("spr", f, getattr(k[0], f), getattr(q[0], f))
+    cmp.close("spr", "age", k[0].age, q[0].age, t_age)
+    cmp.close("spr", "mig_age", k[0].mig_age, q[0].mig_age, t_age)
+    cmp.close("spr", "lnld", k[2], q[2], t_ld)
+    cmp.close("spr", "cond", k[3], q[3], t_cond)
+
+    log("  rubber_band")
+    for pop in range(s.tree.num_cur_pops, s.tree.num_pops):
+        b = tau_bounds(s, pop)
+        k = sweeps.rubber_band_eval(g, pr, sq, c, pop, False, *b, cond)
+        q = rubber_band_eval_plain(g, pr, sq, c, pop, False, *b, cond)
+        check(float(k[5]) == float(q[5]) and float(k[6]) == float(q[6]),
+              f"rubber_band: Jacobian counts, pop {pop}")
+        check(bool(k[7]) == bool(q[7]), f"rubber_band: conflict, pop {pop}")
+        log(f"    pop {pop}: ntj0 {float(k[5]):.0f} ntj1 {float(k[6]):.0f} "
+            f"conflict {bool(k[7])}")
+        cmp.close("rubber_band", "age", k[0], q[0], t_age)
+        cmp.close("rubber_band", "mig_age", k[1], q[1], t_age)
+        cmp.close("rubber_band", "cond", k[2], q[2], t_cond)
+        cmp.close("rubber_band", "lnld", k[3], q[3], t_ld)
+        cmp.close("rubber_band", "lnp", k[4], q[4], t_ld)
+    args = (g, pr, sq, s.grng, c, s.ft.taus, ld, lp, cond,
+            s.tree.num_pops, s.tree.num_cur_pops)
+    k = update_taus_fused(*args)
+    q = update_taus(*args)
+    cmp.equal("rubber_band", "tau accepts", k[6], q[6])
+    check(int(k[2].ctr) == int(q[2].ctr), "tau sweep: counter")
+    cmp.close("rubber_band", "tau", k[1].tau, q[1].tau, tol["tau"])
+    cmp.close("rubber_band", "sweep lnld", k[3], q[3], t_ld)
+
+
+def cast_state(s, dtype):
+    """A copy of s's state at `dtype`, with the conditionals, lnld and lnp
+    rebuilt from scratch at that dtype."""
+    import types
+
+    from gphocs_tpu_torch.kernels.common import gen_log_prior, make_context
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+
+    def cast(nt):
+        return type(nt)(*(x.to(dtype) if x is not None
+                          and x.is_floating_point() else x for x in nt))
+
+    g, pr = cast(s.gen), cast(s.params)
+    sq = cast(s.seq)
+    c = make_context(s.tree, dtype, g.age.device)
+    cond, ld = full_rebuild_and_lnld(g, sq)
+    return types.SimpleNamespace(
+        gen=g, params=pr, seq=sq, ctx=c, ft=cast(s.ft), lrng=s.lrng,
+        grng=s.grng, tree=s.tree, cond=cond, lnld=ld,
+        lnp=gen_log_prior(g, pr, c))
+
+
+def f32_checks(s):
+    """Phase 3b: one f32 pass per kernel on the same state, cast."""
+    import torch
+    from gphocs_tpu_torch.kernels.common import gen_log_prior
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+
+    t = cast_state(s, torch.float32)
+    g, pr, sq, c = t.gen, t.params, t.seq, t.ctx
+
+    def rel_ok(name, got, want):
+        check(bool(torch.isfinite(got).all()), f"f32 {name}: not finite")
+        rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+        log(f"  f32 {name:12s} finite; max rel err vs plain rebuild "
+            f"{rel:.2e}")
+        check(rel <= 1e-3, f"f32 {name}: {rel:.2e} > 1e-3")
+
+    k = sweeps.node_age_sweep(g, pr, sq, t.lrng, c, t.ft.coal_time, t.lnld,
+                              t.lnp, t.cond)
+    rel_ok("node_age", k[2], full_rebuild_and_lnld(k[0], sq)[1])
+    rel_ok("node_age lnp", k[3], gen_log_prior(k[0], pr, c))
+    k = sweeps.mig_age_sweep(g, pr, t.lrng, c, t.ft.mig_time, t.lnp)
+    rel_ok("mig_age lnp", k[2], gen_log_prior(k[0], pr, c))
+    k = sweeps.spr_sweep(g, pr, sq, t.lrng, c, t.lnld, t.cond)
+    rel_ok("spr", k[2], full_rebuild_and_lnld(k[0], sq)[1])
+    pop = s.tree.num_pops - 1
+    b = tau_bounds(t, pop)
+    k = sweeps.rubber_band_eval(g, pr, sq, c, pop, False, *b, t.cond)
+    gp = g._replace(age=k[0], mig_age=k[1])
+    rel_ok("rubber_band", k[3], full_rebuild_and_lnld(gp, sq)[1])
+
+
+def time_cuda(fn, reps):
+    import torch
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 1
+    sys.path.insert(0, ROOT)
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.io.simulate import simulate_seq_file
+    from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
+    from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
+    from gphocs_tpu_torch.kernels.spr import update_spr
+    from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
+    from gphocs_tpu_torch.model import build_poptree
+    from gphocs_tpu_torch.ops import cuda_lib, sweeps
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    dev = torch.device("cuda")
+    card = card_line()
+    log("== phase 1: versions")
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}")
+    nvcc = subprocess.run([cuda_lib._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout
+    log("nvcc: " + nvcc.strip().splitlines()[-1])
+    log(f"card: {card}")
+
+    log("== phase 2: kernel build")
+    t0 = time.perf_counter()
+    lib = cuda_lib.build()
+    cuda_lib.library()
+    log(f"built {lib.name} and loaded it in {time.perf_counter() - t0:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    log("== phase 3: kernels vs plain versions (f64, 64 loci x 300 bp)")
+    cmp = Compare()
+    s64 = warm_state(dev, torch.float64, os.path.join(tmp, "small.txt"))
+    # the block size is also the SPR trip-sync group: blocks of 24 split
+    # the 64 loci into three groups, the last one partial
+    main_block = sweeps.BLOCK
+    for block in (main_block, 24):
+        sweeps.BLOCK = block
+        log(f" -- blocks of {block} loci")
+        kernel_checks(s64, cmp, F64_TOL)
+    sweeps.BLOCK = main_block
+    torch.cuda.synchronize()
+    log("== phase 3b: f32 pass")
+    f32_checks(s64)
+    torch.cuda.synchronize()
+
+    log(f"== phase 4: main path, standard workload ({WORKLOAD_LOCI} loci x "
+        f"{WORKLOAD_BP} bp, f32)")
+    data = os.path.join(tmp, "workload.txt")
+    t0 = time.perf_counter()
+    cfg = parse_control_text(SAMPLE_CTL)
+    simulate_seq_file(cfg, build_poptree(cfg), data,
+                      num_loci=WORKLOAD_LOCI, seq_len=WORKLOAD_BP,
+                      seed=WORKLOAD_SEED)
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 111
+    cfg.mcmc.start_mig = 0
+    cfg.mcmc.burn_in = 0
+    cfg.mcmc.mcmc_iterations = RUN_ITERS
+    cfg.mcmc.iterations_per_log = 25
+    s = Sampler(cfg, seq_path=data, dtype=torch.float32, device="cuda")
+    log(f"data + sampler set-up {time.perf_counter() - t0:.1f} s "
+        f"(L={s.num_loci}, P={s.seq.group_id.shape[1]})")
+
+    sweeps.reset_launch_counts()
+    t0 = time.perf_counter()
+    cols, rows = s.run(trace_path=os.path.join(tmp, "trace.log"),
+                       progress=True)
+    torch.cuda.synchronize()
+    log(f"run(): {RUN_ITERS} iterations in {time.perf_counter() - t0:.2f} s")
+    check(rows.shape == (RUN_ITERS, len(cols)), f"trace shape {rows.shape}")
+    check(bool(math.isfinite(float(abs(rows).sum()))), "trace not finite")
+    s.step_chunk(WARMUP, do_migrate=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, tr = s.step_chunk(TIMED, do_migrate=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(sweeps.LAUNCHES)
+    iters = RUN_ITERS + WARMUP + TIMED
+    want = {"node_age": iters, "mig_age": iters, "spr": iters,
+            "rubber_band": TAU_PROPOSALS * iters}
+    log(f"launches {launches} (expected {want})")
+    check(launches == want, "launch counts do not match the schedule")
+    its = TIMED / dt
+    log(f"main path: {its:.3f} it/s at f32 ({TIMED} iterations in "
+        f"{dt:.3f} s) on {card}")
+    log(f"  accepts in the timed chunk: coal {int(st.acc_coal_time)} "
+        f"mig {int(st.acc_mig_time)} spr {int(st.acc_spr)} "
+        f"taus {st.acc_taus.tolist()} mixing {int(st.acc_mixing)}")
+    _, ld = full_rebuild_and_lnld(s.gen, s.seq)
+    rel = float(((ld - s.lnld).abs() / ld.abs()).max())
+    log(f"carried lnld vs rebuild: max rel err {rel:.2e}; "
+        f"lnld sum {float(s.lnld.sum()):.3f}")
+    check(bool(torch.isfinite(s.lnld).all()) and rel <= 1e-3,
+          "carried lnld disagrees with a rebuild")
+
+    log("== phase 4b: kernels vs plain versions on the main path's state "
+        f"({WORKLOAD_LOCI} loci, f32)")
+    kernel_checks(s, cmp, F32_TOL, need_moves=False)
+    torch.cuda.synchronize()
+
+    log("== kernel times at the main path's shapes (f32, CUDA events)")
+    g, pr, sq, c = s.gen, s.params, s.seq, s.ctx
+    b = tau_bounds(s, s.tree.num_pops - 1)
+    pop = s.tree.num_pops - 1
+    pairs = {
+        "node_age": (
+            lambda: sweeps.node_age_sweep(g, pr, sq, s.lrng, c,
+                                          s.ft.coal_time, s.lnld, s.lnp,
+                                          s.cond),
+            lambda: update_internal_node_ages(g, pr, sq, s.lrng, c,
+                                              s.ft.coal_time, s.lnld, s.lnp,
+                                              s.cond)),
+        "mig_age": (
+            lambda: sweeps.mig_age_sweep(g, pr, s.lrng, c, s.ft.mig_time,
+                                         s.lnp),
+            lambda: update_mig_ages(g, pr, s.lrng, c, s.ft.mig_time, s.lnp)),
+        "rubber_band": (
+            lambda: sweeps.rubber_band_eval(g, pr, sq, c, pop, False, *b,
+                                            s.cond),
+            lambda: rubber_band_eval_plain(g, pr, sq, c, pop, False, *b,
+                                           s.cond)),
+        "spr": (
+            lambda: sweeps.spr_sweep(g, pr, sq, s.lrng, c, s.lnld, s.cond),
+            lambda: update_spr(g, pr, sq, s.lrng, c, s.lnld, s.cond,
+                               sync_group=sweeps.BLOCK)),
+    }
+    times = {}
+    for name, (kern, plain) in pairs.items():
+        k1 = time_cuda(kern, 10)
+        p1 = time_cuda(plain, 2)
+        k2 = time_cuda(kern, 10)
+        times[name] = (min(k1, k2), p1)
+        log(f"  {name:12s} kernel {k1:.3f} / {k2:.3f} ms   plain {p1:.3f} ms")
+
+    log("== phase 4c: the main path's sampler with a hot band "
+        f"({WORKLOAD_LOCI} loci, f32, then cast to f64)")
+    heat(s)
+    log(f"  {int((s.gen.mig_branch >= 0).sum())} migrations present")
+    kernel_checks(s, cmp, F32_TOL)
+    log(" -- the same state cast to f64")
+    kernel_checks(cast_state(s, torch.float64), cmp, F64_TOL)
+    torch.cuda.synchronize()
+
+    src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
+           "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
+           "rubber_band": ("rubber_band.cu",
+                           "gphocs_tpu/ops/sweeps_pallas.py:891"),
+           "spr": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413")}
+    kernels = [{"name": n, "route": "cuda",
+                "source": f"gphocs_tpu_torch/csrc/{src[n][0]}",
+                "replaces": src[n][1], "launches": launches[n],
+                "max_abs_err": cmp.err[n], "ms": times[n][0],
+                "plain_ms": times[n][1]} for n in src]
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({"it_per_s": its, "card": card}))
+    log(card_line())
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,264 @@
+"""UpdateTau: rubber-band updates of population ages (twin of
+gphocs_tpu/kernels/tau.py, fast-RNG mode, ancestral pops only).
+
+UpdateTau, per ancestral pop `anc` with sons (s0, s1):
+  bounds:  taub0 = max(son ages, son sample ages,
+                       start of bands touching a son)
+           taub1 = min(father age | OLDAGE, end of bands touching anc)
+  factors: f0 = (taunew-taub0)/(tauold-taub0) stretches the region below,
+           f1 = (taunew-taub1)/(tauold-taub1) squeezes above (f1 := f0 for
+           the root, which scales around taub0)
+  remap:   coal nodes in anc -> around taub1 by f1 (root: taub0/f0);
+           coal nodes in sons above taub0 -> around taub0 by f0;
+           migration events with an endpoint in {anc} -> f1; in {sons}
+           (above taub0) or between both sons -> f0
+  conflict: a remapped migration event must stay strictly inside its
+           band's new window and keep its order against neighbour events
+           on its branch; any conflict rejects the whole proposal
+  accept:  lnacc = Gamma-prior ratio + dlnP(G) + dlnld
+                 + ntj0*log(f0) + ntj1*log(f1)     (Jacobian)
+
+`rubber_band_eval_plain` is the plain PyTorch version of the rubber-band
+kernel (csrc/rubber_band.cu): the per-locus evaluation of one proposal
+with the outputs of gphocs_tpu's rubber_band_eval_pallas.  Jacobian counts
+and conflicts are masked by `gen.valid`, as the Pallas kernel does.
+
+The sample-age mode (UpdateSampleAge) is not ported yet (ROADMAP Queue 1
+item 17).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gphocs_tpu_torch import rng as R
+from gphocs_tpu_torch.kernels.common import (Context, band_windows,
+                                             gen_log_prior, scalar_mh_accept)
+from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+from gphocs_tpu_torch.state import GenState, Params, SeqData
+from gphocs_tpu_torch.utils import reflect
+
+SAMPLE_AGE_TODO = ("sample-age rubber band: ROADMAP Queue 1 item 17 "
+                   "(sample ages are not ported yet)")
+
+
+def _mig_neighbor_ages(gen: GenState):
+    """For every mig slot: age of nearest mig below/above on the same branch
+    (+-inf if none), and their slot ids (first slot among equal ages)."""
+    M = gen.max_migs
+    active = gen.mig_branch >= 0
+    same = (active[:, :, None] & active[:, None, :]
+            & (gen.mig_branch[:, :, None] == gen.mig_branch[:, None, :]))
+    ai = gen.mig_age[:, :, None]
+    aj = gen.mig_age[:, None, :]
+    idx = torch.arange(M, device=ai.device)
+    above = same & ((aj > ai) | ((aj == ai)
+                                 & (idx[None, None, :] > idx[None, :, None])))
+    below = same & ((aj < ai) | ((aj == ai)
+                                 & (idx[None, None, :] < idx[None, :, None])))
+    inf = float("inf")
+    up = torch.where(above, aj, torch.full_like(aj, inf)).min(dim=2)
+    dn = torch.where(below, aj, torch.full_like(aj, -inf)).max(dim=2)
+    return up.values, up.indices, dn.values, dn.indices
+
+
+def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
+                          ctx: Context, pop: int, is_sample_age: bool,
+                          taub0, taub1, tauold, taunew):
+    """Build the remapped state, count Jacobian terms per locus, detect
+    conflicts per locus, and rebuild likelihood and prior on the proposal.
+
+    Returns (gen_prop, params_prop, cond_prop, lnld_prop, lnp_prop,
+    ntj0 [L], ntj1 [L], conflict [L]) with the per-locus counts not yet
+    reduced."""
+    if is_sample_age:
+        raise NotImplementedError(SAMPLE_AGE_TODO)
+    S = gen.num_samples
+    N = gen.num_nodes
+    dev = gen.age.device
+    is_root = pop == ctx.root_pop
+
+    f0 = (taunew - taub0) / (tauold - taub0)
+    f1 = f0 if is_root else (taunew - taub1) / (tauold - taub1)
+
+    s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
+    in_anc = gen.node_pop == pop
+    in_sons = (gen.node_pop == s0) | (gen.node_pop == s1)
+    age = gen.age
+    internal = (torch.arange(N, device=dev) >= S)[None, :]
+
+    # the event-chain walk scales only events strictly inside the window
+    # (reference patch.c:632-698: loop breaks at end_time)
+    if is_root:
+        anc_map = taub0 + f0 * (age - taub0)
+        moved_anc = in_anc & internal
+    else:
+        anc_map = taub1 + f1 * (age - taub1)
+        moved_anc = in_anc & internal & (age < taub1)
+    moved_sons = in_sons & (age > taub0) & (age < tauold) & internal
+    new_age = torch.where(moved_anc, anc_map, age)
+    new_age = torch.where(moved_sons, taub0 + f0 * (age - taub0), new_age)
+    ntj0 = moved_sons.sum(dim=1)
+    ntj1 = moved_anc.sum(dim=1)
+
+    new_tau = params.tau.clone()
+    new_tau[pop] = taunew
+    params_prop = params._replace(tau=new_tau)
+    conflict = torch.zeros_like(gen.valid)
+    if ctx.num_bands == 0:
+        gen_prop = gen._replace(age=new_age)
+    else:
+        active = gen.mig_branch >= 0
+        band = torch.where(active, gen.mig_band, 0)
+        msrc = ctx.band_source[band]
+        mtgt = ctx.band_target[band]
+        mage = gen.mig_age
+        in_window = active & (mage >= taub0) & (mage <= taub1)
+        both_sons = in_window & (((msrc == s0) & (mtgt == s1))
+                                 | ((msrc == s1) & (mtgt == s0)))
+        src_anc = in_window & ~both_sons & (msrc == pop)
+        tgt_anc = in_window & ~both_sons & ~src_anc & (mtgt == pop)
+        src_son = (in_window & ~both_sons & ~src_anc & ~tgt_anc
+                   & ((msrc == s0) | (msrc == s1)) & (mage > taub0))
+        tgt_son = (in_window & ~both_sons & ~src_anc & ~tgt_anc & ~src_son
+                   & ((mtgt == s0) | (mtgt == s1)) & (mage > taub0))
+        f1_sel = src_anc | tgt_anc
+        f0_sel = both_sons | src_son | tgt_son
+        new_mage = torch.where(f1_sel, taub1 + f1 * (mage - taub1), mage)
+        new_mage = torch.where(f0_sel, taub0 + f0 * (mage - taub0), new_mage)
+        checked = src_anc | tgt_anc | src_son | tgt_son  # both_sons unchecked
+        kind_out = src_anc | src_son
+        ntj0 = ntj0 + f0_sel.sum(dim=1)
+        ntj1 = ntj1 + f1_sel.sum(dim=1)
+
+        # conflicts: NEW band windows, OLD node ages, OLD neighbour mig ages
+        # (reference :3606-3680)
+        bs_new, be_new = band_windows(ctx, new_tau)
+        up_age, up_slot, dn_age, dn_slot = _mig_neighbor_ages(gen)
+        branch = torch.where(active, gen.mig_branch, 0)
+        fa = torch.gather(gen.father, 1, branch)
+        fa_age = torch.gather(gen.age, 1, fa.clamp(min=0))
+        child_age = torch.gather(gen.age, 1, branch)
+
+        conf = checked & ((new_mage >= be_new[band])
+                          | (new_mage <= bs_new[band]))
+        moving_up = checked & ~kind_out & (new_mage > mage)
+        up_src = ctx.band_source[torch.gather(band, 1, up_slot)]
+        up_exempt = (up_src == pop) | (up_src == s0) | (up_src == s1)
+        conf = conf | (moving_up & torch.isfinite(up_age) & ~up_exempt
+                       & (new_mage >= up_age))
+        conf = conf | (moving_up & (fa >= 0) & (new_mage >= fa_age))
+        moving_dn = checked & kind_out & (new_mage < mage)
+        dn_tgt = ctx.band_target[torch.gather(band, 1, dn_slot)]
+        dn_exempt = (dn_tgt == pop) | (dn_tgt == s0) | (dn_tgt == s1)
+        conf = conf | (moving_dn & torch.isfinite(dn_age) & ~dn_exempt
+                       & (new_mage <= dn_age))
+        conf = conf | (moving_dn & (new_mage <= child_age))
+        conflict = conf.any(dim=1)
+        gen_prop = gen._replace(age=new_age,
+                                mig_age=torch.where(active, new_mage, mage))
+    cond_prop, lnld_prop = full_rebuild_and_lnld(gen_prop, seq)
+    lnp_prop = gen_log_prior(gen_prop, params_prop, ctx)
+    return (gen_prop, params_prop, cond_prop, lnld_prop, lnp_prop,
+            ntj0, ntj1, conflict)
+
+
+def rubber_band_eval_plain(gen: GenState, params: Params, seq: SeqData,
+                           ctx: Context, pop: int, is_sample_age: bool,
+                           taub0, taub1, tauold, taunew, cond):
+    """Plain version of the rubber-band kernel: one population's proposal
+    evaluated for every locus.  Returns (age_prop [L,N], mag_prop [L,M],
+    cond_prop, lnld_prop [L], lnp_prop [L], ntj0 [], ntj1 [], any_conflict
+    []), with ntj and conflicts masked by gen.valid.  `cond` supplies the
+    leaf conditionals in the kernel; here they are rebuilt from seq."""
+    (gen_p, _params_p, cond_p, lnld_p, lnp_p, ntj0, ntj1,
+     conflict) = _rubber_band_proposal(gen, params, seq, ctx, pop,
+                                       is_sample_age, taub0, taub1, tauold,
+                                       taunew)
+    dt = gen.age.dtype
+    v = gen.valid
+    lnp_p = torch.where(v, lnp_p, torch.zeros_like(lnp_p))
+    ntj0 = torch.where(v, ntj0, 0).sum().to(dt)
+    ntj1 = torch.where(v, ntj1, 0).sum().to(dt)
+    return (gen_p.age, gen_p.mig_age, cond_p, lnld_p, lnp_p, ntj0, ntj1,
+            (conflict & v).any())
+
+
+def _tau_sweep(gen: GenState, params: Params, seq: SeqData, rng,
+               ctx: Context, finetunes_taus, lnld, lnp, cond,
+               num_pops: int, num_cur_pops: int, evaluate):
+    """Sweep over ancestral pops (reference UpdateTau) with the per-locus
+    proposal evaluation supplied by `evaluate` (rubber_band_eval's
+    signature).  Returns (gen, params, rng, lnld, lnp, cond, accepted[P],
+    conflicts)."""
+    dt = lnld.dtype
+    dev = lnld.device
+    accepted = torch.zeros((num_pops,), dtype=torch.int64, device=dev)
+    conflicts = torch.zeros((), dtype=torch.int64, device=dev)
+    for pop in range(num_cur_pops, num_pops):
+        is_root = pop == num_pops - 1
+        s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
+        tauold = params.tau[pop]
+        taub0 = torch.maximum(
+            torch.maximum(params.tau[s0], params.tau[s1]),
+            torch.maximum(params.sample_age[s0], params.sample_age[s1]))
+        taub1 = (torch.full((), ctx.oldage, dtype=dt, device=dev) if is_root
+                 else params.tau[ctx.father_pop[pop]])
+        # band liveness constraints (current windows; reference :3279-3294)
+        if ctx.num_bands > 0:
+            bs, be = band_windows(ctx, params.tau)
+            src, tgt = ctx.band_source, ctx.band_target
+            touch_anc = (src == pop) | (tgt == pop)
+            touch_son = (~touch_anc & ((src == s0) | (src == s1)
+                                       | (tgt == s0) | (tgt == s1)))
+            inf = float("inf")
+            taub1 = torch.minimum(taub1, torch.where(
+                touch_anc, be, torch.full_like(be, inf)).min())
+            taub0 = torch.maximum(taub0, torch.where(
+                touch_son, bs, torch.full_like(bs, -inf)).max())
+
+        z, rng = R.general_draw_2normal8(rng, dt)
+        taunew = reflect(tauold + finetunes_taus[pop] * z, taub0, taub1)
+
+        (age_p, mag_p, cond_p, lnld_p, lnp_p, ntj0, ntj1, conflict) = \
+            evaluate(gen, params, seq, ctx, pop, False, taub0, taub1,
+                     tauold, taunew, cond)
+        lnf0 = torch.log((taunew - taub0) / (tauold - taub0))
+        lnf1 = lnf0 if is_root else torch.log((taunew - taub1)
+                                              / (tauold - taub1))
+        lnacc = (torch.log(taunew / tauold) * (ctx.tau_alpha[pop] - 1.0)
+                 - (taunew - tauold) * ctx.tau_beta[pop]
+                 + torch.sum(lnld_p - lnld) + torch.sum(lnp_p - lnp)
+                 + ntj0 * lnf0 + ntj1 * lnf1)
+        accept, rng = scalar_mh_accept(rng, lnacc, conflict)
+
+        gen = gen._replace(age=torch.where(accept, age_p, gen.age),
+                           mig_age=torch.where(accept, mag_p, gen.mig_age))
+        tau = params.tau.clone()
+        tau[pop] = torch.where(accept, taunew, tauold)
+        params = params._replace(tau=tau)
+        cond = torch.where(accept, cond_p, cond)
+        lnld = torch.where(accept, lnld_p, lnld)
+        lnp = torch.where(accept, lnp_p, lnp)
+        accepted[pop] += accept.to(torch.int64)
+        conflicts = conflicts + conflict.to(torch.int64)
+    return gen, params, rng, lnld, lnp, cond, accepted, conflicts
+
+
+def update_taus(gen: GenState, params: Params, seq: SeqData, rng,
+                ctx: Context, finetunes_taus, lnld, lnp, cond,
+                num_pops: int, num_cur_pops: int):
+    """UpdateTau with the plain per-locus evaluation."""
+    return _tau_sweep(gen, params, seq, rng, ctx, finetunes_taus, lnld, lnp,
+                      cond, num_pops, num_cur_pops, rubber_band_eval_plain)
+
+
+def update_taus_fused(gen: GenState, params: Params, seq: SeqData, rng,
+                      ctx: Context, finetunes_taus, lnld, lnp, cond,
+                      num_pops: int, num_cur_pops: int):
+    """UpdateTau with the per-locus evaluation through
+    ops/sweeps.rubber_band_eval (the kernel on CUDA tensors)."""
+    from gphocs_tpu_torch.ops.sweeps import rubber_band_eval
+
+    return _tau_sweep(gen, params, seq, rng, ctx, finetunes_taus, lnld, lnp,
+                      cond, num_pops, num_cur_pops, rubber_band_eval)

@@ -1,0 +1,127 @@
+"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+
+The sources are compiled with nvcc into one shared library with a plain C
+interface (no PyTorch headers), at first use, keyed by a hash of the
+sources and flags:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC
+         -o build/gphocs_tpu_torch/libsweeps_<hash>.so
+         csrc/node_age.cu csrc/mig_age.cu csrc/rubber_band.cu csrc/spr.cu
+
+and loaded with ctypes.  -fmad=false keeps every multiply and add rounded
+on its own, as the plain versions' separate tensor ops are: the kernels
+then agree with them to the last bits at f64 (a contracted proposal moves
+ages by ~1e-13, and the prior, d lnP / d t ~ 2 n / theta ~ 1e5, by ~1e-8).  Every entry point takes a pointer to one
+`SweepArgs` struct (csrc/sweeps_common.cuh) and the CUDA stream, launches
+one kernel, and returns cudaGetLastError(); `launch` raises on non-zero.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gphocs_tpu_torch"
+SOURCES = ("node_age.cu", "mig_age.cu", "rubber_band.cu", "spr.cu")
+HEADERS = ("sweeps_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# bounds of the kernels' per-thread arrays (MAXN... in sweeps_common.cuh)
+MAXN, MAXM, MAXPP, MAXB = 63, 32, 16, 8
+
+# SweepArgs field order: must match struct SweepArgs in sweeps_common.cuh
+PTR_FIELDS = (
+    "age", "lson", "rson", "father", "node_pop", "root",
+    "mig_branch", "mig_band", "mig_age", "mut_rate", "valid",
+    "group_id", "group_count", "group_nphases", "pattern_valid",
+    "popf", "popi", "key", "ctr", "finetune", "rscal",
+    "lnld_in", "lnp_in", "cond_in",
+    "cond_out", "prop", "gsum",
+    "age_out", "lson_out", "rson_out", "father_out", "node_pop_out",
+    "root_out", "mig_branch_out", "mig_band_out", "mig_age_out",
+    "lnld_out", "lnp_out", "acc_out", "aux0_out", "aux1_out", "aux2_out",
+)
+INT_FIELDS = ("L", "N", "M", "B", "PP", "P", "root_pop", "pop", "is_root",
+              "block")
+
+
+class SweepArgs(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in PTR_FIELDS]
+                + [(f, ctypes.c_int) for f in INT_FIELDS]
+                + [("oldage", ctypes.c_double)])
+
+
+ENTRY_POINTS = tuple(f"{k}_{t}" for k in ("node_age", "mig_age",
+                                           "rubber_band", "spr")
+                     for t in ("f32", "f64"))
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if this source hash is not built yet) and
+    return the library path.  Raises on a failed build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"libsweeps_{source_hash()}.so"
+    if lib.exists():
+        return lib
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library():
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name in ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(SweepArgs), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def launch(entry: str, args: SweepArgs, stream: int) -> None:
+    """Call one C entry point; raise if the launch reported an error."""
+    err = getattr(library(), entry)(ctypes.byref(args),
+                                    ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
+                           f"cudaError {err}")

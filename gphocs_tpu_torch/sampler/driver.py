@@ -1,0 +1,392 @@
+"""Sampler driver: the performMCMC orchestration loop (twin of the
+fast-RNG, single-device, single-chain, unbucketed part of
+gphocs_tpu/sampler/driver.py).
+
+Initialization, burn-in + sampling loop with the per-iteration schedule
+(sampler/step.py), start-mig gating, trace emission, acceptance-rate
+logging and the finetune binary search (reference src/GPhoCS.c:1232-2267,
+constants src/GPhoCS.h:21-25).
+
+Not ported yet; asking for them raises NotImplementedError naming the
+ROADMAP item: the legacy Wichmann-Hill RNG, meshes, chains, pattern
+buckets, admixture, VAR locus rates, estimated sample ages, checkpoints
+and the coal-stats file.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gphocs_tpu_torch import rng as R
+from gphocs_tpu_torch.config.settings import RunConfig
+from gphocs_tpu_torch.constants import (FINETUNE_RESOLUTION, MAX_FINETUNE,
+                                        TARGET_ACCEPTANCE_PERCENT,
+                                        TARGET_ACCEPTANCE_RANGE)
+from gphocs_tpu_torch.io import trace as trace_io
+from gphocs_tpu_torch.io.sequences import build_seq_data, read_seq_file
+from gphocs_tpu_torch.kernels.common import gen_log_prior, make_context
+from gphocs_tpu_torch.model.poptree import PopTree, build_poptree
+from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+from gphocs_tpu_torch.rng_fast import init_fast
+from gphocs_tpu_torch.rng_host import HostRng
+from gphocs_tpu_torch.sampler.init import (init_gen_state_fast,
+                                           sample_locus_rates,
+                                           sample_pop_parameters)
+from gphocs_tpu_torch.sampler.step import Finetunes, mcmc_chunk
+from gphocs_tpu_torch.state import GenState, Params, SeqData, from_numpy
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to gphocs_tpu_torch yet (ROADMAP {item})")
+
+
+@dataclass
+class _FinetuneSearch:
+    """One binary-search tracker (reference src/GPhoCS.c:1898-2250)."""
+
+    value: float
+    lo: float = 0.0
+    hi: float = MAX_FINETUNE
+
+    def adjust(self, percent: float) -> float:
+        if percent > TARGET_ACCEPTANCE_PERCENT + TARGET_ACCEPTANCE_RANGE:
+            self.lo = self.value
+            if self.hi - self.lo < FINETUNE_RESOLUTION:
+                if self.hi >= MAX_FINETUNE:
+                    self.hi = self.lo = MAX_FINETUNE
+                else:
+                    self.hi *= 2.0
+        elif percent < TARGET_ACCEPTANCE_PERCENT - TARGET_ACCEPTANCE_RANGE:
+            self.hi = self.value
+            if self.hi - self.lo < FINETUNE_RESOLUTION:
+                self.lo /= 2.0
+        self.value = 0.5 * (self.hi + self.lo)
+        return self.value
+
+
+@dataclass
+class AcceptCounts:
+    coal_time: int = 0
+    mig_time: int = 0
+    spr: int = 0
+    theta: int = 0
+    mig_rate: int = 0
+    taus: Optional[np.ndarray] = None
+    mixing: int = 0
+    conflicts: int = 0
+
+    def reset(self, P: int):
+        self.coal_time = self.mig_time = self.spr = 0
+        self.theta = self.mig_rate = self.mixing = 0
+        self.conflicts = 0
+        self.taus = np.zeros(P, int)
+
+
+class Sampler:
+    """End-to-end sampler for one control-file configuration."""
+
+    def __init__(self, cfg: RunConfig, seq_path: Optional[str] = None,
+                 num_loci: Optional[int] = None, dtype=torch.float64,
+                 device="cuda", rng_mode: str = "fast",
+                 mesh=None, chains: int = 1, buckets: int = 1):
+        """device: where the state lives and the iteration runs ("cuda"
+        by default; asking for CUDA without a CUDA device raises).  The
+        host initialization stream is gphocs_tpu's default (legacy WH);
+        the device streams are the counter-based fast RNG."""
+        if rng_mode != "fast":
+            raise _todo("rng_mode='legacy' (Wichmann-Hill streams)",
+                        "Queue 1 item 17")
+        if mesh is not None:
+            raise _todo("multi-device loci sharding", "Queue 1 item 15")
+        if chains != 1:
+            raise _todo("chains > 1", "Queue 1 item 14")
+        if buckets != 1:
+            raise _todo("pattern buckets", "Queue 1 item 13")
+        if cfg.admixed:
+            raise _todo("admixture", "Queue 1 item 17")
+        if cfg.mcmc.mut_rate_mode == 1:
+            raise _todo("VAR locus rates", "Queue 1 item 17")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Sampler(device='cuda'): no CUDA device")
+        self.cfg = cfg
+        self.tree: PopTree = build_poptree(cfg)
+        if np.any(self.tree.update_sample_age):
+            raise _todo("estimated sample ages", "Queue 1 item 17")
+        self.ctx = make_context(self.tree, dtype, self.device)
+        self.dtype = dtype
+
+        seed = cfg.mcmc.random_seed
+        if seed < 0:
+            seed = int(time.time())
+        self.seed = seed
+
+        if seq_path is None and cfg.mcmc.seq_file != "NONE":
+            seq_path = cfg.mcmc.seq_file
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        if seq_path is not None:
+            raw = read_seq_file(seq_path, cfg.sample_names,
+                                cfg.mcmc.num_loci)
+            self.num_loci = raw.num_loci
+            seq = build_seq_data(raw, cfg.is_diploid(), dtype=np_dtype)
+        else:
+            # prior-only run (reference initLociWithoutData,
+            # src/GPhoCS.c:447-483)
+            if not (num_loci or cfg.mcmc.num_loci > 0):
+                raise ValueError("num-loci required without sequence data")
+            self.num_loci = num_loci or cfg.mcmc.num_loci
+            S = cfg.num_samples
+            seq = SeqData(
+                leaf_base=np.full((self.num_loci, S, 1), 4, np.int8),
+                group_id=np.zeros((self.num_loci, 1), np.int32),
+                group_count=np.zeros((self.num_loci, 1)),
+                group_nphases=np.ones((self.num_loci, 1)),
+                pattern_valid=np.zeros((self.num_loci, 1), bool))
+        self.seq: SeqData = from_numpy(seq, device=self.device, dtype=dtype)
+        self.host_rng = HostRng(self.num_loci + 1, seed, legacy=True)
+
+    # -- initialization (reference initializeMCMC, src/GPhoCS.c:1122) --
+    def initialize(self):
+        cfg = self.cfg
+        params = sample_pop_parameters(self.tree, self.host_rng)
+        fixed = None
+        if cfg.mcmc.mut_rate_mode == 2:
+            # per-locus rates normalized to mean 1 (readRateFile)
+            fixed = np.loadtxt(cfg.mcmc.rate_file).ravel()[:self.num_loci]
+            if len(fixed) < self.num_loci:
+                raise ValueError(f"rate file has {len(fixed)} rates, "
+                                 f"need {self.num_loci}")
+        rates, self.rate_var = sample_locus_rates(
+            self.num_loci, cfg.mcmc.mut_rate_mode, self.host_rng, fixed)
+        gen_np = init_gen_state_fast(self.tree, params,
+                                     self.seed ^ 0x243F6A88, self.num_loci,
+                                     rates)
+        self.gen = from_numpy(gen_np, GenState, device=self.device,
+                              dtype=self.dtype)
+        self.params = from_numpy(params._replace(admix_coeff=None), Params,
+                                 device=self.device, dtype=self.dtype)
+        # per-locus streams [L] and the general stream [1]
+        self.lrng = init_fast(self.num_loci, self.seed, self.device)
+        self.grng = init_fast(1, self.seed + 0x5F3759DF, self.device)
+        self.cond, self.lnld = full_rebuild_and_lnld(self.gen, self.seq)
+        self.lnp = gen_log_prior(self.gen, self.params, self.ctx)
+
+        ftc = cfg.mcmc.finetunes
+        if cfg.mcmc.find_finetunes:
+            # the reference seeds the search at 1.0 for unspecified ones
+            seedv = lambda v: v if v > 0 else 1.0  # noqa: E731
+        else:
+            seedv = lambda v: v  # noqa: E731
+        self.ft_search = {
+            k: _FinetuneSearch(seedv(getattr(ftc, k)))
+            for k in ("coal_time", "mig_time", "theta", "mig_rate",
+                      "mixing", "locus_rate", "admix")}
+        self.ft_taus = [
+            _FinetuneSearch(seedv(v) if v > 0 or cfg.mcmc.find_finetunes
+                            else v)
+            for v in ftc.taus]
+        self._update_ft_device()
+
+    def _update_ft_device(self):
+        def t(v):
+            return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+
+        self.ft = Finetunes(
+            **{k: t(s.value) for k, s in self.ft_search.items()},
+            taus=t([s.value for s in self.ft_taus]))
+
+    def _sample_mig_rates_device(self):
+        """m ~ U[0.9, 1.1] * prior mean via the general stream
+        (reference sampleMigRates, src/PopulationTree.c:414-433)."""
+        B = self.tree.num_bands
+        means = torch.as_tensor(self.tree.mig_alpha / self.tree.mig_beta,
+                                dtype=self.dtype, device=self.device)
+        rates = []
+        for b in range(B):
+            u, self.grng = R.general_draw_u(self.grng, self.dtype)
+            rates.append(means[b] * (0.9 + 0.2 * u))
+        if B:
+            self.params = self.params._replace(mig_rate=torch.stack(rates))
+        self.lnp = gen_log_prior(self.gen, self.params, self.ctx)
+
+    def step_chunk(self, n_iters: int, do_migrate: bool):
+        """Run n_iters iterations; returns (totals, trace)."""
+        cfg = self.cfg
+        (self.gen, self.params, self.lrng, self.grng, self.lnld, self.lnp,
+         self.cond, stats, trace) = mcmc_chunk(
+            self.gen, self.params, self.seq, self.lrng, self.grng,
+            self.lnld, self.lnp, self.cond, self.ft, ctx=self.ctx,
+            n_iters=n_iters,
+            genetree_samples=cfg.mcmc.genetree_samples,
+            do_migrate=do_migrate,
+            do_mixing=cfg.mcmc.do_mixing,
+            num_pops=self.tree.num_pops,
+            num_cur_pops=self.tree.num_cur_pops,
+            coal_time_on=self.ft_search["coal_time"].value > 0,
+            mig_time_on=self.ft_search["mig_time"].value > 0,
+            theta_on=self.ft_search["theta"].value > 0,
+            mig_rate_on=self.ft_search["mig_rate"].value > 0,
+            mixing_on=self.ft_search["mixing"].value > 0)
+        return stats, trace
+
+    def _log_header(self):
+        """Reference stdout header (src/GPhoCS.c:1357-1374)."""
+        tree = self.tree
+        cols = ["Samples", "CoalTimes", "MigTimes", "SPRs", "Thetas",
+                "MigRates"]
+        cols += [f"TAU_{pop:2d}" for pop in range(tree.num_cur_pops,
+                                                  tree.num_pops)]
+        cols += ["RbberBnd", "MutRates", "Mixing"]
+        line = "".join(f"{c:<10}" for c in cols)
+        return line + "| DATA-ln-ld |  TIME\n" + "-" * (len(line) + 25)
+
+    def _log_line(self, iteration, pct, lnld_avg, elapsed):
+        """Reference per-log acceptance row (src/GPhoCS.c:1823-1895)."""
+        tree = self.tree
+        parts = [f"{iteration + 1:7d}  "]
+        for key in ("coal_time", "mig_time", "spr", "theta", "mig_rate"):
+            parts.append(f"{pct[key]:5.1f}%    ")
+        for pop in range(tree.num_cur_pops, tree.num_pops):
+            parts.append(f"{pct['taus'][pop]:5.1f}%    ")
+        parts.append(f"{pct['rubberband']:6.1f}%    ")
+        parts.append(f"{0.0:5.1f}%    ")
+        parts.append(f"{pct['mixing']:5.1f}%    ")
+        h, rem = divmod(int(elapsed), 3600)
+        m, sec = divmod(rem, 60)
+        parts.append(f"|{lnld_avg:12.6f}| {h:02d}:{m:02d}:{sec:02d}")
+        return "".join(parts)
+
+    def run(self, trace_path: Optional[str] = None, progress: bool = False,
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 0, resume: bool = False):
+        """Full MCMC per the control file.  Returns the trace as
+        (header_cols, numpy array).  progress=True prints the
+        reference-format acceptance log to stderr."""
+        if checkpoint_path or checkpoint_every or resume:
+            raise _todo("checkpoints", "Queue 1 item 16")
+        cfg = self.cfg
+        if cfg.mcmc.coal_stats_file != "NONE":
+            raise _todo("the coal-stats file", "Queue 1 item 18")
+        self.initialize()
+        tree = self.tree
+        P = tree.num_pops
+        L = self.num_loci
+        total_coals = L * (tree.num_samples - 1)
+
+        header = trace_io.trace_header(tree, False)
+        factors = trace_io.print_factors(tree, False)
+        rows = []
+        counts = AcceptCounts()
+        counts.reset(P)
+        log_count = 0
+        mig_nodes_accum = 0
+        finding = cfg.mcmc.find_finetunes
+        spl = (cfg.mcmc.find_finetunes_samples_per_step if finding
+               else cfg.mcmc.iterations_per_log)
+        t0 = time.time()
+        if progress:
+            print(self._log_header(), file=sys.stderr)
+
+        tf = open(trace_path, "w") if trace_path else None
+        try:
+            if tf:
+                tf.write(header + "\n")
+            iteration = -cfg.mcmc.burn_in
+            while iteration < cfg.mcmc.mcmc_iterations:
+                # chunk until the next boundary: a log point, the
+                # start-mig switch, or the end of the run
+                next_log = ((iteration + spl) // spl) * spl \
+                    if spl > 0 else cfg.mcmc.mcmc_iterations
+                boundaries = [next_log, cfg.mcmc.mcmc_iterations]
+                if iteration <= cfg.mcmc.start_mig:
+                    boundaries.append(cfg.mcmc.start_mig + 1)
+                end = max(min(boundaries), iteration + 1)
+                n_iters = end - iteration
+                st, tr = self.step_chunk(
+                    n_iters, do_migrate=iteration > cfg.mcmc.start_mig)
+                counts.coal_time += int(st.acc_coal_time)
+                counts.mig_time += int(st.acc_mig_time)
+                counts.spr += int(st.acc_spr)
+                counts.theta += int(st.acc_theta)
+                counts.mig_rate += int(st.acc_mig_rate)
+                counts.taus += st.acc_taus.cpu().numpy()
+                counts.mixing += int(st.acc_mixing)
+                counts.conflicts += int(st.tau_conflicts)
+                mig_nodes_accum += int(st.num_migs_total)
+                log_count += n_iters
+
+                tr_np = [t.cpu().numpy() for t in tr]
+                theta, tau, sage, mrate, lnld_s, lnp_s = tr_np
+                for j in range(n_iters):
+                    it = iteration + j
+                    if it >= 0 and it % (cfg.mcmc.mcmc_sample_skip + 1) == 0:
+                        full = (float(lnld_s[j]) + float(lnp_s[j])) / L
+                        vals = trace_io.record_param_vals(
+                            tree, theta[j], tau[j], sage[j], mrate[j])
+                        rows.append([it] + [v * f for v, f in
+                                            zip(vals, factors)]
+                                    + [full, float(lnld_s[j])])
+                        if tf:
+                            tf.write(trace_io.format_row(
+                                it, vals, factors, full,
+                                float(lnld_s[j])) + "\n")
+                if tf:
+                    tf.flush()
+
+                iteration = end
+                if iteration == cfg.mcmc.start_mig + 1:
+                    self._sample_mig_rates_device()
+                if iteration % spl == 0:
+                    pct = self._percents(counts, log_count, total_coals,
+                                         mig_nodes_accum)
+                    if progress:
+                        lnld_avg = (float(lnld_s[-1])
+                                    + float(lnp_s[-1])) / L
+                        print(self._log_line(iteration - 1, pct, lnld_avg,
+                                             time.time() - t0),
+                              file=sys.stderr)
+                    if finding:
+                        self._adjust_finetunes(pct)
+                        if (iteration >= cfg.mcmc.find_finetunes_num_steps
+                                * cfg.mcmc.find_finetunes_samples_per_step):
+                            finding = False
+                            spl = cfg.mcmc.iterations_per_log
+                    counts.reset(P)
+                    log_count = 0
+                    mig_nodes_accum = 0
+        finally:
+            if tf:
+                tf.close()
+        return header.split("\t"), np.asarray(rows)
+
+    def _percents(self, c: AcceptCounts, log_count, total_coals,
+                  mig_nodes_accum):
+        gts = max(self.cfg.mcmc.genetree_samples, 1)
+        P = self.tree.num_pops
+        B = self.tree.num_bands
+        lc = max(log_count, 1)
+        n_anc = max(self.tree.num_pops - self.tree.num_cur_pops, 1)
+        return {
+            "coal_time": c.coal_time * 100.0 / (lc * total_coals * gts),
+            "mig_time": c.mig_time * 100.0 / (mig_nodes_accum + 1e-6),
+            "spr": c.spr * 100.0 / (lc * 2 * total_coals * gts),
+            "theta": c.theta * 100.0 / (lc * P),
+            "mig_rate": c.mig_rate * 100.0 / (lc * B + 1e-6),
+            "taus": c.taus * 100.0 / lc,
+            "mixing": c.mixing * 100.0 / lc,
+            "rubberband": c.conflicts * 100.0 / (lc * n_anc),
+        }
+
+    def _adjust_finetunes(self, pct):
+        for k in ("coal_time", "mig_time", "theta", "mig_rate", "mixing"):
+            self.ft_search[k].adjust(pct[k])
+        for p in range(self.tree.num_cur_pops, self.tree.num_pops):
+            self.ft_taus[p].adjust(pct["taus"][p])
+        self._update_ft_device()

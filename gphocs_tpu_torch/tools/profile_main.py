@@ -1,0 +1,150 @@
+"""Time and profile the port's main path on one CUDA card.
+
+    python -m gphocs_tpu_torch.tools.profile_main [--loci 1000] [--bp 1000]
+        [--iters 25] [--rounds 2] [--profile-iters 5] [--trace PATH]
+
+On the standard workload (SAMPLE_CTL, data simulated with seed 20260817)
+it builds one f32 and one f64 Sampler, warms each for 5 iterations, and
+times step_chunk(iters) on them in turns, f32 f64 f64 f32, `rounds` times,
+so that drift in the host's speed falls on both dtypes alike.  Every
+reading is printed, and so is the card's name and power limit.
+
+Then it runs `--profile-iters` f32 iterations under torch.profiler and
+prints the wall time, the device's busy time (the union of the device
+kernels' time ranges), the idle share 1 - busy / wall, the count and
+host time of cudaLaunchKernel, and the top ops by device and by host
+time.  The profiler's own overhead is inside that wall time.  `--trace`
+writes the Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import tempfile
+import time
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _sampler(path, dtype):
+    import torch
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 111
+    cfg.mcmc.start_mig = 0
+    s = Sampler(cfg, seq_path=path, dtype=dtype, device="cuda")
+    s.initialize()
+    s.step_chunk(5, do_migrate=True)
+    torch.cuda.synchronize()
+    return s
+
+
+def _its(s, iters) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.step_chunk(iters, do_migrate=True)
+    torch.cuda.synchronize()
+    return iters / (time.perf_counter() - t0)
+
+
+def _busy_ms(events) -> float:
+    """Union of the device kernels' time ranges, in ms.  (Summing the ops'
+    self device time would count each kernel twice: once under its aten
+    op and once under its own name.)"""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--loci", type=int, default=1000)
+    ap.add_argument("--bp", type=int, default=1000)
+    ap.add_argument("--iters", type=int, default=25)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--profile-iters", type=int, default=5)
+    ap.add_argument("--trace", default=None)
+    a = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.io.simulate import simulate_seq_file
+    from gphocs_tpu_torch.model import build_poptree
+
+    if not torch.cuda.is_available():
+        print("profile_main: no CUDA device")
+        return 1
+    card = _card()
+    print(f"card: {card}  torch {torch.__version__}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "workload.txt")
+        cfg = parse_control_text(SAMPLE_CTL)
+        simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=a.loci,
+                          seq_len=a.bp, seed=20260817)
+        samplers = {"f32": _sampler(path, torch.float32),
+                    "f64": _sampler(path, torch.float64)}
+
+    readings = {"f32": [], "f64": []}
+    for _ in range(a.rounds):
+        for name in ("f32", "f64", "f64", "f32"):
+            r = _its(samplers[name], a.iters)
+            readings[name].append(r)
+            print(f"{name} step_chunk({a.iters}): {r:.3f} it/s", flush=True)
+    for name, rs in readings.items():
+        print(f"{name}: readings {[round(r, 3) for r in rs]} it/s, "
+              f"median {sorted(rs)[len(rs) // 2]:.3f}, on {card}")
+
+    s = samplers["f32"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.step_chunk(a.profile_iters, do_migrate=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    busy_ms = _busy_ms(prof.events())
+    launch = [e for e in ka if e.key == "cudaLaunchKernel"]
+    n_launch = launch[0].count if launch else 0
+    launch_ms = launch[0].cpu_time_total / 1e3 if launch else 0.0
+    print(f"profiled f32: {a.profile_iters} iterations in {wall_ms:.1f} ms "
+          f"(profiler on); device busy {busy_ms:.1f} ms; idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; cudaLaunchKernel x{n_launch} "
+          f"({n_launch / a.profile_iters:.0f} per iteration) taking "
+          f"{launch_ms:.1f} ms of host time; on {card}")
+    print(ka.table(sort_by="self_device_time_total", row_limit=25,
+                   max_name_column_width=60))
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=25,
+                   max_name_column_width=60))
+    if a.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(a.trace)), exist_ok=True)
+        prof.export_chrome_trace(a.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

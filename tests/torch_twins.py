@@ -1,0 +1,78 @@
+"""Shared set-up for the gphocs_tpu_torch tests: a warmed JAX sampler
+(gphocs_tpu, f64, fast RNG) on SAMPLE_CTL with a hot migration band, and
+its state carried into the port with state.from_numpy.
+
+The warm-up follows tests/test_sweeps_pallas.py's fixture: 24 loci x
+300 bp, start-mig passed, migration rate 2e5 so that migration events
+exist and topologies differ between loci.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from gphocs_tpu.config import parse_control_text
+from gphocs_tpu.kernels.common import gen_log_prior
+from gphocs_tpu.sampler.driver import Sampler
+
+from gphocs_tpu_torch import state as TS
+from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+from gphocs_tpu_torch.kernels.common import make_context
+from gphocs_tpu_torch.rng_fast import FastRngState
+from gphocs_tpu_torch.sampler.step import Finetunes
+
+F64 = torch.float64
+
+
+def warm_jax_sampler(tmp_dir, num_loci=24, seq_len=300):
+    from gphocs_tpu.io.simulate import simulate_seq_file
+    from gphocs_tpu.model import build_poptree
+
+    cfg = parse_control_text(SAMPLE_CTL)
+    tree = build_poptree(cfg)
+    path = str(tmp_dir / "seqs.txt")
+    simulate_seq_file(cfg, tree, path, num_loci=num_loci, seq_len=seq_len,
+                      seed=11)
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 17
+    cfg.mcmc.start_mig = 0
+    s = Sampler(cfg, seq_path=path, dtype=jnp.float64, rng_mode="fast")
+    s.initialize()
+    s._sample_mig_rates_device()
+    s.params = s.params._replace(
+        mig_rate=jnp.full_like(s.params.mig_rate, 2e5))
+    s.lnp = gen_log_prior(s.gen, s.params, s.ctx)
+    for _ in range(8):
+        s.step_chunk(5, do_migrate=True)
+        if int(jnp.sum(s.gen.mig_branch >= 0)) > 0:
+            break
+    assert int(jnp.sum(s.gen.mig_branch >= 0)) > 0
+    s.seq_path = path
+    return s
+
+
+def carry(s) -> dict:
+    """The JAX sampler's state as port objects (CPU, f64)."""
+    conv = dict(device="cpu", dtype=F64)
+    return dict(
+        gen=TS.from_numpy(s.gen, TS.GenState, **conv),
+        params=TS.from_numpy(s.params._replace(admix_coeff=None), TS.Params,
+                             **conv),
+        seq=TS.from_numpy(s.seq, TS.SeqData, **conv),
+        lrng=TS.from_numpy(s.lrng, FastRngState, **conv),
+        grng=TS.from_numpy(s.grng, FastRngState, **conv),
+        lnld=TS.from_numpy(s.lnld, **conv),
+        lnp=TS.from_numpy(s.lnp, **conv),
+        cond=TS.from_numpy(s.cond, **conv),
+        ft=TS.from_numpy(s.ft, Finetunes, **conv),
+        ctx=make_context(s.tree, F64),
+    )
+
+
+def close(a, b, atol, rtol=0.0):
+    np.testing.assert_allclose(np.asarray(a), TS.to_numpy(b), rtol=rtol,
+                               atol=atol)
+
+
+def equal(a, b):
+    np.testing.assert_array_equal(np.asarray(a), TS.to_numpy(b))
