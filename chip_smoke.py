@@ -6,15 +6,21 @@ Phases, in order (each prints its lines; any failure raises, and the
 script then exits non-zero without the final line):
 
   1. versions of torch, CUDA and nvcc, and the card's name and power limit;
-  2. the build of the four CUDA kernels from gphocs_tpu_torch/csrc/;
+  2. the build of the CUDA kernels from gphocs_tpu_torch/csrc/ (one nvcc
+     per source, started together), and what ptxas reports for each
+     kernel (registers, stack frame, spills);
   3. each kernel against its plain PyTorch version on the card at f64, on
      a warmed 64-locus x 300 bp state of SAMPLE_CTL with a hot migration
      band, at blocks of 64 loci and of 24 (SPR against its plain version
      at sync_group = the block): equal counter advance and accept counts,
      equal SPR topology and migration integer arrays, ages within 1e-12,
-     lnld/lnp within 1e-9, conditionals within 1e-10; then one f32 pass
-     per kernel (finite outputs, carried lnld within 1e-3 relative of a
-     plain rebuild);
+     lnld/lnp within 1e-9, conditionals within 1e-10; the rubber band's
+     sample-age mode the same way on a warmed 64-locus state of
+     SAMPLE_AGE_CTL (population D has an estimated sample age), for new
+     ages below and above the old one, with proposals that do and do not
+     run into a conflict: equal Jacobian counts and conflict flag; then
+     one f32 pass per kernel and mode (finite outputs, carried lnld
+     within 1e-3 relative of a plain rebuild);
   4. the main path on the standard workload (SAMPLE_CTL, 1000 loci x
      1000 bp simulated with seed 20260817) at f32: Sampler.initialize,
      run() with a trace file for 50 iterations, 3 warm-up iterations and a
@@ -27,7 +33,39 @@ script then exits non-zero without the final line):
      present) and the kernels held against their plain versions again at
      f32 (F32_TOL) and on an f64 copy (F64_TOL), every sweep now required
      to accept moves;
-  5. one JSON line with the kernels, then the result line.
+  5. the ancient-sample path at the same size and on the same sequence
+     file (SAMPLE_AGE_CTL: `age 0.00002 e` on population D), driven as in
+     phase 4, with the launch counts of its schedule (the rubber band 3
+     times per iteration in tau mode and once in sample-age mode), the
+     sample age moved, D's leaves at the sample age in every locus, the
+     carried lnld equal to a rebuild; the sample-age kernel held against
+     its plain version on that state at f32 and timed there, then on the
+     heated state at f32 and on an f64 copy, together with the other
+     kernels; then (5b) the same path with `locus-mut-rate VAR 1.0`
+     (SAMPLE_AGE_VAR_CTL): rate moves accepted, mean rate 1, lnld equal to
+     a rebuild;
+  6. one JSON line per path with its it/s, the card's line, one JSON line
+     with the kernels (launches on the paths, error against the plain
+     version, time, the plain version's time, and the least time the card
+     could take: `bound_ms`), then the result line.
+
+The launch counts are set to 0 just before each path is driven and read
+just after; a kernel's `launches` is the sum over the three paths.
+
+`bound_ms` is the larger of two times: the bytes of the wrapper's input
+and output tensors (each once) over 3.35 TB/s, and a count of the
+floating-point operations (add, multiply, compare, divide, exp and log
+each as one) that the sweep does on this run's state over 67 TFLOP/s
+(f32 outside the tensor cores), both NVIDIA's published H100 SXM peaks.
+The operation count follows the kernels' loops with the data-dependent
+terms read from the state (root-path depths, migration events per locus,
+lineage segments per population, SPR walk trips from the counter
+advance); `op_models` below states it.  No single PyTorch call computes
+one of these sweeps, so `library_ms` is null for every kernel.
+
+What was cut to keep the run short: all three paths read one simulated
+sequence file, and phase 5b drives its path but does not repeat the
+kernel comparisons of phase 5 (the kernels do not read the VAR setting).
 
 It needs one CUDA card; without one it exits with status 1 and prints no
 result.
@@ -50,6 +88,14 @@ RUN_ITERS = 50
 WARMUP = 3
 TIMED = 25
 TAU_PROPOSALS = 3  # ancestral populations of SAMPLE_CTL
+SAMPLE_AGE_POP = 3  # population D of SAMPLE_AGE_CTL
+# sample-age proposals of the kernel checks: the share of the way from the
+# old age to 0 (negative) or to the upper bound (positive)
+SAMPLE_AGE_STEPS = (-0.9, -0.2, 0.01, 0.3)
+
+# published H100 SXM peaks (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 # kernel-vs-plain tolerances (max abs difference).  F64_TOL are the
 # Pallas-vs-XLA tolerances of the JAX package's tests; F32_TOL allow ~100
@@ -102,19 +148,21 @@ class Compare:
         check(same, f"{kernel}: {name} differs")
 
 
-def warm_state(device, dtype, path, num_loci=64):
-    """A warmed num_loci x 300 bp Sampler with a hot band and migrations
-    present (also the fixture of tests/test_torch_csrc_host.py)."""
+def warm_state(device, dtype, path, num_loci=64, ctl=None):
+    """A warmed num_loci x 300 bp Sampler on the control text `ctl`
+    (SAMPLE_CTL by default) with a hot band and migrations present (also
+    the fixture of tests/test_torch_csrc_host.py)."""
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import SAMPLE_CTL
     from gphocs_tpu_torch.io.simulate import simulate_seq_file
     from gphocs_tpu_torch.model import build_poptree
     from gphocs_tpu_torch.sampler.driver import Sampler
 
-    cfg = parse_control_text(SAMPLE_CTL)
+    ctl = ctl or SAMPLE_CTL
+    cfg = parse_control_text(ctl)
     simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=num_loci,
                       seq_len=300, seed=11)
-    cfg = parse_control_text(SAMPLE_CTL)
+    cfg = parse_control_text(ctl)
     cfg.mcmc.random_seed = 17
     cfg.mcmc.start_mig = 0
     s = Sampler(cfg, seq_path=path, dtype=dtype, device=device)
@@ -145,11 +193,27 @@ def tau_bounds(s, pop):
 
     pr, c = s.params, s.ctx
     s0, s1 = c.pop_sons[pop, 0], c.pop_sons[pop, 1]
-    taub0 = torch.maximum(pr.tau[s0], pr.tau[s1])
+    taub0 = torch.maximum(torch.maximum(pr.tau[s0], pr.tau[s1]),
+                          torch.maximum(pr.sample_age[s0],
+                                        pr.sample_age[s1]))
     taub1 = (torch.full_like(taub0, c.oldage)
              if pop == s.tree.num_pops - 1 else pr.tau[c.father_pop[pop]])
     tauold = pr.tau[pop]
     return taub0, taub1, tauold, tauold + 0.3 * (tauold - taub0)
+
+
+def sample_age_bounds(s, pop, step):
+    """(taub0, taub1, tauold, taunew) of a sample-age proposal for the
+    current population pop: the new age lies `step` of the way from the
+    old one to the upper bound (step > 0) or to 0 (step < 0)."""
+    import torch
+
+    pr, c = s.params, s.ctx
+    tauold = pr.sample_age[pop]
+    taub0 = torch.zeros_like(tauold)
+    taub1 = pr.tau[c.father_pop[pop]]
+    room = (taub1 - tauold) if step > 0 else tauold
+    return taub0, taub1, tauold, tauold + step * room
 
 
 def kernel_checks(s, cmp, tol, need_moves=True):
@@ -302,6 +366,260 @@ def time_cuda(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False):
+    """The rubber band's sample-age mode against its plain version on the
+    state `s` of a configuration with an estimated sample age, for the
+    proposals of SAMPLE_AGE_STEPS.  want_conflict / want_clean: some
+    proposal must (must not) run into a conflict, so that both outcomes
+    of the conflict scan are compared."""
+    from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
+    from gphocs_tpu_torch.ops import sweeps
+
+    g, pr, sq, c, cond = s.gen, s.params, s.seq, s.ctx, s.cond
+    pop = SAMPLE_AGE_POP
+    check(bool(s.tree.update_sample_age[pop]), "no estimated sample age")
+    name = "rubber_band_sample_age"
+    log(f"  {name} (pop {pop})")
+    S = g.num_samples
+    leaves = g.node_pop[:, :S] == pop
+    seen = set()
+    for step in SAMPLE_AGE_STEPS:
+        b = sample_age_bounds(s, pop, step)
+        k = sweeps.rubber_band_eval(g, pr, sq, c, pop, True, *b, cond)
+        q = rubber_band_eval_plain(g, pr, sq, c, pop, True, *b, cond)
+        check(float(k[5]) == float(q[5]) and float(k[6]) == float(q[6]),
+              f"{name}: Jacobian counts, step {step}")
+        check(bool(k[7]) == bool(q[7]), f"{name}: conflict, step {step}")
+        check(bool((k[0][:, :S][leaves] == b[3]).all()),
+              f"{name}: the pop's leaves are not at the new age")
+        seen.add(bool(k[7]))
+        log(f"    step {step:+.2f}: ntj0 {float(k[5]):.0f} ntj1 "
+            f"{float(k[6]):.0f} conflict {bool(k[7])}")
+        cmp.close(name, "age", k[0], q[0], tol["age"])
+        cmp.close(name, "mig_age", k[1], q[1], tol["age"])
+        cmp.close(name, "cond", k[2], q[2], tol["cond"])
+        cmp.close(name, "lnld", k[3], q[3], tol["lnld"])
+        cmp.close(name, "lnp", k[4], q[4], tol["lnld"])
+    check(True in seen or not want_conflict, f"{name}: no conflict covered")
+    check(False in seen or not want_clean,
+          f"{name}: no conflict-free proposal covered")
+
+
+def f32_sample_age_check(s):
+    """Phase 3b for the sample-age mode: one f32 pass on the state, cast."""
+    import torch
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+
+    t = cast_state(s, torch.float32)
+    b = sample_age_bounds(t, SAMPLE_AGE_POP, 0.3)
+    k = sweeps.rubber_band_eval(t.gen, t.params, t.seq, t.ctx,
+                                SAMPLE_AGE_POP, True, *b, t.cond)
+    gp = t.gen._replace(age=k[0], mig_age=k[1])
+    want = full_rebuild_and_lnld(gp, t.seq)[1]
+    check(bool(torch.isfinite(k[3]).all() and torch.isfinite(k[4]).all()),
+          "f32 rubber_band_sample_age: not finite")
+    rel = float(((k[3] - want).abs() / want.abs().clamp(min=1.0)).max())
+    log(f"  f32 rubber_band_sample_age finite; max rel err vs plain "
+        f"rebuild {rel:.2e}")
+    check(rel <= 1e-3, f"f32 rubber_band_sample_age: {rel:.2e} > 1e-3")
+
+
+def op_models(s, spr_draws, proposal=None):
+    """Bytes and floating-point operations of one call of each sweep on
+    the state `s` (add, multiply, compare, divide, exp, log: one each).
+
+    Per locus, with N nodes (S leaves), M migration slots of which m are
+    active, PP populations, B bands, P patterns:
+      node   one node's conditional: 38 P + 16 (two edge probabilities,
+             the 4-state combine of every pattern)
+      lnld   root log-likelihood: 9 P
+      node_age   per internal node: 60 (draws, bounds, reflect)
+                 + 6 (N + m) (prior delta over the segments)
+                 + depth * node (root-path refresh) + lnld
+      mig_age    50 per slot; per active event 2 M + 6 B
+                 + 6 (N + m) per population whose lineage set changes
+      rubber band  6 (N + M) (remap) + 2 m M (conflict scan)
+                 + (N - S) node + lnld
+                 + 4 PP (N + m) + 5 sum_r n_r^2 (pairwise prior, n_r
+                 segments present in population r) + 6 B (N + m)
+      spr        per non-root node: K log2 K (grid sort, K = N + M + PP
+                 + 2 B + 1) + 2 depth * node + lnld + 20; per walk trip:
+                 K (10 + 2 N) (hazards) + K log2 K (prefix) + 2 N + 40;
+                 trips per locus = (draws - N) / 2, `spr_draws` being the
+                 sweep's counter advance (the largest over blocks).
+    The rubber band's n_r are counted on `proposal` = (ages, migration
+    ages) where given, else on the state.  Returns {kernel: (bytes,
+    operations)} with the rubber band's two modes under one entry."""
+    import torch
+    from gphocs_tpu_torch.ops.coalstats import segments
+
+    g, c, cond = s.gen, s.ctx, s.cond
+    L, N, P, _ = cond.shape
+    S, M, PP, B = g.num_samples, g.max_migs, c.num_pops, c.num_bands
+    K = N + M + PP + 2 * B + 1
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    topo = (g.lson, g.rson, g.father, g.node_pop, g.root)
+    migs = (g.mig_branch, g.mig_band, g.mig_age)
+    seqs = (s.seq.group_id, s.seq.group_count, s.seq.group_nphases,
+            s.seq.pattern_valid)
+    per_locus = (g.mut_rate, g.valid)
+    real_l = s.lnld  # one real per locus
+    int_l = nbytes(real_l) // real_l.element_size() * 4  # one int32 each
+
+    node = 38.0 * P + 16.0
+    lnld = 9.0 * P
+    m = (g.mig_branch >= 0).sum(dim=1).double()          # [L]
+    # internal nodes on the path from each internal node to the root
+    depth = torch.zeros((L, N), dtype=torch.float64, device=cond.device)
+    cur = torch.arange(N, device=cond.device).expand(L, N)
+    for _ in range(N):
+        on = cur >= 0
+        depth += (on & (cur >= S)).double()
+        cur = torch.where(on, torch.gather(g.father, 1, cur.clamp(min=0)),
+                          cur)
+    depth_int = depth[:, S:]
+
+    out = {}
+    ops = (depth_int * node + (60.0 + lnld) + 6.0 * (N + m[:, None])).sum()
+    out["node_age"] = (
+        nbytes(g.age, *topo, *migs, *per_locus, *seqs, s.lrng.key, real_l,
+               real_l, cond)                       # in
+        + nbytes(cond, g.age, real_l, real_l) + int_l,  # out
+        float(ops))
+
+    if B > 0:
+        anc = c.is_ancestral.bool()                      # [PP, PP]
+        src, tgt = c.band_source, c.band_target
+        changed = (anc[:, src] != anc[:, tgt]).sum(dim=0).double()  # [B]
+        act = g.mig_branch >= 0
+        per_event = (2.0 * M + 6.0 * B
+                     + 6.0 * (N + m[:, None])
+                     * changed[torch.where(act, g.mig_band, 0)])
+        ops = 50.0 * M * L + torch.where(act, per_event, 0.0).sum()
+        out["mig_age"] = (
+            nbytes(g.age, g.father, g.node_pop, *migs, g.valid, s.lrng.key,
+                   real_l) + nbytes(g.mig_age, real_l) + int_l,
+            float(ops))
+
+    gp = g if proposal is None else g._replace(age=proposal[0],
+                                               mig_age=proposal[1])
+    sg = segments(gp, c.band_source)
+    tau = s.params.tau
+    pend = torch.where(c.father_pop < 0, torch.full_like(tau, c.oldage),
+                       tau[c.father_pop.clamp(min=0)])
+    lo = torch.maximum(sg.start[:, None, :], tau[None, :, None])
+    hi = torch.minimum(sg.end[:, None, :], pend[None, :, None])
+    present = (sg.valid[:, None, :] & (hi > lo)
+               & c.is_ancestral.bool()[:, sg.base_pop].permute(1, 0, 2))
+    n_r = present.sum(dim=2).double()                    # [L, PP]
+    ops = (L * (6.0 * (N + M) + (N - S) * node + lnld)
+           + (2.0 * m * M + (4.0 * PP + 6.0 * B) * (N + m)).sum()
+           + 5.0 * (n_r ** 2).sum())
+    out["rubber_band"] = (
+        nbytes(g.age, *topo, *migs, *per_locus, *seqs, cond)
+        + nbytes(g.age, g.mig_age, cond, real_l, real_l) + 3 * int_l,
+        float(ops))
+
+    trips = max(spr_draws - N, 0) / 2.0
+    lgk = math.log2(K)
+    not_root = torch.arange(N, device=cond.device)[None, :] != g.root[:, None]
+    # the refreshed paths start at the father and the grandfather
+    fdepth = torch.gather(depth, 1, g.father.clamp(min=0))
+    ops = (torch.where(not_root, K * lgk + 2.0 * fdepth * node + lnld + 20.0,
+                       0.0).sum()
+           + L * trips * (K * (10.0 + 2.0 * N) + K * lgk + 2.0 * N + 40.0))
+    out["spr"] = (
+        nbytes(g.age, *topo, *migs, *per_locus, *seqs, s.lrng.key, real_l,
+               cond)
+        + nbytes(cond, g.age, *topo, *migs, real_l) + 2 * int_l,
+        float(ops))
+    return out
+
+
+def bound(bytes_, ops):
+    """(bound_ms, bound_by) from a byte and an operation count."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def drive_path(label, ctl, data, tmp, card, sample_age):
+    """Drive one path through the Sampler's entry points at f32:
+    initialize and run() with a trace for RUN_ITERS iterations, WARMUP
+    iterations, then a timed step_chunk(TIMED).  The launch counts are set
+    to 0 just before and read just after, and must equal the schedule;
+    the carried lnld must equal a rebuild.  Returns (sampler, it/s,
+    launches, the timed chunk's totals)."""
+    import torch
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    t0 = time.perf_counter()
+    cfg = parse_control_text(ctl)
+    cfg.mcmc.random_seed = 111
+    cfg.mcmc.start_mig = 0
+    cfg.mcmc.burn_in = 0
+    cfg.mcmc.mcmc_iterations = RUN_ITERS
+    cfg.mcmc.iterations_per_log = 25
+    s = Sampler(cfg, seq_path=data, dtype=torch.float32, device="cuda")
+    log(f"sampler set-up {time.perf_counter() - t0:.1f} s "
+        f"(L={s.num_loci}, P={s.seq.group_id.shape[1]})")
+
+    sweeps.reset_launch_counts()
+    t0 = time.perf_counter()
+    cols, rows = s.run(trace_path=os.path.join(tmp, f"trace_{label}.log"),
+                       progress=True)
+    torch.cuda.synchronize()
+    log(f"run(): {RUN_ITERS} iterations in {time.perf_counter() - t0:.2f} s")
+    check(rows.shape == (RUN_ITERS, len(cols)), f"trace shape {rows.shape}")
+    check(bool(math.isfinite(float(abs(rows).sum()))), "trace not finite")
+    s.step_chunk(WARMUP, do_migrate=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = s.step_chunk(TIMED, do_migrate=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(sweeps.LAUNCHES)
+    iters = RUN_ITERS + WARMUP + TIMED
+    want = {"node_age": iters, "mig_age": iters, "spr": iters,
+            "rubber_band": TAU_PROPOSALS * iters,
+            "rubber_band_sample_age": iters if sample_age else 0}
+    log(f"launches {launches} (expected {want})")
+    check(launches == want, "launch counts do not match the schedule")
+    its = TIMED / dt
+    log(f"{label} path: {its:.3f} it/s at f32 ({TIMED} iterations in "
+        f"{dt:.3f} s) on {card}")
+    log(f"  accepts in the timed chunk: coal {int(st.acc_coal_time)} "
+        f"mig {int(st.acc_mig_time)} spr {int(st.acc_spr)} "
+        f"taus {st.acc_taus.tolist()} mixing {int(st.acc_mixing)} "
+        f"locus rates {int(st.acc_locus_rate)}")
+    _, ld = full_rebuild_and_lnld(s.gen, s.seq)
+    rel = float(((ld - s.lnld).abs() / ld.abs()).max())
+    log(f"carried lnld vs rebuild: max rel err {rel:.2e}; "
+        f"lnld sum {float(s.lnld.sum()):.3f}")
+    check(bool(torch.isfinite(s.lnld).all()) and rel <= 1e-3,
+          "carried lnld disagrees with a rebuild")
+    if sample_age:
+        pop = SAMPLE_AGE_POP
+        ages = rows[:, cols.index("tau_D")]
+        log(f"  sample age of D: {len(set(ages.tolist()))} distinct values "
+            f"in the trace, now {float(s.params.sample_age[pop]):.4e}; "
+            f"accepted {int(st.acc_taus[pop])} of {TIMED} in the timed chunk")
+        check(len(set(ages.tolist())) > 1, "the sample age never moved")
+        S = s.gen.num_samples
+        leaves = s.gen.age[:, :S][s.gen.node_pop[:, :S] == pop]
+        check(leaves.numel() == 2 * s.num_loci
+              and bool((leaves == s.params.sample_age[pop]).all()),
+              "D's leaves are not at the sample age")
+    return s, its, launches, st
+
+
 def main():
     import torch
 
@@ -310,7 +628,9 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from gphocs_tpu_torch.config import parse_control_text
-    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.config.samples import (SAMPLE_AGE_CTL,
+                                                 SAMPLE_AGE_VAR_CTL,
+                                                 SAMPLE_CTL)
     from gphocs_tpu_torch.io.simulate import simulate_seq_file
     from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
     from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
@@ -318,8 +638,6 @@ def main():
     from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
     from gphocs_tpu_torch.model import build_poptree
     from gphocs_tpu_torch.ops import cuda_lib, sweeps
-    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
-    from gphocs_tpu_torch.sampler.driver import Sampler
 
     dev = torch.device("cuda")
     card = card_line()
@@ -336,11 +654,15 @@ def main():
     lib = cuda_lib.build()
     cuda_lib.library()
     log(f"built {lib.name} and loaded it in {time.perf_counter() - t0:.1f} s")
+    for line in cuda_lib.resource_report():
+        log("  " + line)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     log("== phase 3: kernels vs plain versions (f64, 64 loci x 300 bp)")
     cmp = Compare()
     s64 = warm_state(dev, torch.float64, os.path.join(tmp, "small.txt"))
+    s64a = warm_state(dev, torch.float64, os.path.join(tmp, "small_age.txt"),
+                      ctl=SAMPLE_AGE_CTL)
     # the block size is also the SPR trip-sync group: blocks of 24 split
     # the 64 loci into three groups, the last one partial
     main_block = sweeps.BLOCK
@@ -348,10 +670,13 @@ def main():
         sweeps.BLOCK = block
         log(f" -- blocks of {block} loci")
         kernel_checks(s64, cmp, F64_TOL)
+        sample_age_checks(s64a, cmp, F64_TOL, want_conflict=True,
+                          want_clean=True)
     sweeps.BLOCK = main_block
     torch.cuda.synchronize()
     log("== phase 3b: f32 pass")
     f32_checks(s64)
+    f32_sample_age_check(s64a)
     torch.cuda.synchronize()
 
     log(f"== phase 4: main path, standard workload ({WORKLOAD_LOCI} loci x "
@@ -362,48 +687,11 @@ def main():
     simulate_seq_file(cfg, build_poptree(cfg), data,
                       num_loci=WORKLOAD_LOCI, seq_len=WORKLOAD_BP,
                       seed=WORKLOAD_SEED)
-    cfg = parse_control_text(SAMPLE_CTL)
-    cfg.mcmc.random_seed = 111
-    cfg.mcmc.start_mig = 0
-    cfg.mcmc.burn_in = 0
-    cfg.mcmc.mcmc_iterations = RUN_ITERS
-    cfg.mcmc.iterations_per_log = 25
-    s = Sampler(cfg, seq_path=data, dtype=torch.float32, device="cuda")
-    log(f"data + sampler set-up {time.perf_counter() - t0:.1f} s "
-        f"(L={s.num_loci}, P={s.seq.group_id.shape[1]})")
-
-    sweeps.reset_launch_counts()
-    t0 = time.perf_counter()
-    cols, rows = s.run(trace_path=os.path.join(tmp, "trace.log"),
-                       progress=True)
-    torch.cuda.synchronize()
-    log(f"run(): {RUN_ITERS} iterations in {time.perf_counter() - t0:.2f} s")
-    check(rows.shape == (RUN_ITERS, len(cols)), f"trace shape {rows.shape}")
-    check(bool(math.isfinite(float(abs(rows).sum()))), "trace not finite")
-    s.step_chunk(WARMUP, do_migrate=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, tr = s.step_chunk(TIMED, do_migrate=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(sweeps.LAUNCHES)
-    iters = RUN_ITERS + WARMUP + TIMED
-    want = {"node_age": iters, "mig_age": iters, "spr": iters,
-            "rubber_band": TAU_PROPOSALS * iters}
-    log(f"launches {launches} (expected {want})")
-    check(launches == want, "launch counts do not match the schedule")
-    its = TIMED / dt
-    log(f"main path: {its:.3f} it/s at f32 ({TIMED} iterations in "
-        f"{dt:.3f} s) on {card}")
-    log(f"  accepts in the timed chunk: coal {int(st.acc_coal_time)} "
-        f"mig {int(st.acc_mig_time)} spr {int(st.acc_spr)} "
-        f"taus {st.acc_taus.tolist()} mixing {int(st.acc_mixing)}")
-    _, ld = full_rebuild_and_lnld(s.gen, s.seq)
-    rel = float(((ld - s.lnld).abs() / ld.abs()).max())
-    log(f"carried lnld vs rebuild: max rel err {rel:.2e}; "
-        f"lnld sum {float(s.lnld.sum()):.3f}")
-    check(bool(torch.isfinite(s.lnld).all()) and rel <= 1e-3,
-          "carried lnld disagrees with a rebuild")
+    log(f"data simulated in {time.perf_counter() - t0:.1f} s")
+    paths = {}
+    s, paths["standard"], launches, _ = drive_path(
+        "standard", SAMPLE_CTL, data, tmp, card, sample_age=False)
+    all_launches = [launches]
 
     log("== phase 4b: kernels vs plain versions on the main path's state "
         f"({WORKLOAD_LOCI} loci, f32)")
@@ -437,12 +725,20 @@ def main():
                                sync_group=sweeps.BLOCK)),
     }
     times = {}
-    for name, (kern, plain) in pairs.items():
+
+    def time_pair(name, kern, plain):
         k1 = time_cuda(kern, 10)
         p1 = time_cuda(plain, 2)
         k2 = time_cuda(kern, 10)
         times[name] = (min(k1, k2), p1)
-        log(f"  {name:12s} kernel {k1:.3f} / {k2:.3f} ms   plain {p1:.3f} ms")
+        log(f"  {name:24s} kernel {k1:.3f} / {k2:.3f} ms   plain {p1:.3f} ms")
+
+    for name, (kern, plain) in pairs.items():
+        time_pair(name, kern, plain)
+    spr_draws = int(pairs["spr"][0]()[1].ctr) - int(s.lrng.ctr)
+    prop = pairs["rubber_band"][0]()
+    bounds = {k: bound(*v) + v
+              for k, v in op_models(s, spr_draws, prop[:2]).items()}
 
     log("== phase 4c: the main path's sampler with a hot band "
         f"({WORKLOAD_LOCI} loci, f32, then cast to f64)")
@@ -452,19 +748,77 @@ def main():
     log(" -- the same state cast to f64")
     kernel_checks(cast_state(s, torch.float64), cmp, F64_TOL)
     torch.cuda.synchronize()
+    del s, g, pr, sq, c, pairs, prop
+
+    log(f"== phase 5: ancient-sample path ({WORKLOAD_LOCI} loci x "
+        f"{WORKLOAD_BP} bp, f32, estimated sample age on D)")
+    s, paths["sample_age"], launches, _ = drive_path(
+        "sample_age", SAMPLE_AGE_CTL, data, tmp, card, sample_age=True)
+    all_launches.append(launches)
+    log(" -- the sample-age kernel vs its plain version on this state (f32)")
+    sample_age_checks(s, cmp, F32_TOL)
+    torch.cuda.synchronize()
+    sb = sample_age_bounds(s, SAMPLE_AGE_POP, 0.01)
+
+    def sa_kernel():
+        return sweeps.rubber_band_eval(s.gen, s.params, s.seq, s.ctx,
+                                       SAMPLE_AGE_POP, True, *sb, s.cond)
+
+    time_pair("rubber_band_sample_age", sa_kernel,
+              lambda: rubber_band_eval_plain(s.gen, s.params, s.seq, s.ctx,
+                                             SAMPLE_AGE_POP, True, *sb,
+                                             s.cond))
+    v = op_models(s, 0, sa_kernel()[:2])["rubber_band"]
+    bounds["rubber_band_sample_age"] = bound(*v) + v
+    log(" -- the same sampler with a hot band: every kernel, f32 then f64")
+    heat(s)
+    log(f"  {int((s.gen.mig_branch >= 0).sum())} migrations present")
+    kernel_checks(s, cmp, F32_TOL)
+    sample_age_checks(s, cmp, F32_TOL, want_conflict=True)
+    log(" -- the same state cast to f64")
+    s_f64 = cast_state(s, torch.float64)
+    kernel_checks(s_f64, cmp, F64_TOL)
+    sample_age_checks(s_f64, cmp, F64_TOL, want_conflict=True)
+    torch.cuda.synchronize()
+    del s, s_f64
+
+    log("== phase 5b: the same path with VAR locus rates")
+    s, paths["sample_age_var"], launches, st = drive_path(
+        "sample_age_var", SAMPLE_AGE_VAR_CTL, data, tmp, card,
+        sample_age=True)
+    all_launches.append(launches)
+    mean_rate = float(s.gen.mut_rate.double().mean())
+    log(f"  locus rates: {int(st.acc_locus_rate)} accepted in the timed "
+        f"chunk, mean rate {mean_rate:.8f}, variance {s.rate_var:.5f}")
+    check(int(st.acc_locus_rate) > 0, "no locus-rate move accepted")
+    # every pair keeps its sum up to f32 rounding, ~6e-8 a move
+    check(abs(mean_rate - 1.0) <= 1e-4, f"mean rate {mean_rate}")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
            "rubber_band": ("rubber_band.cu",
                            "gphocs_tpu/ops/sweeps_pallas.py:891"),
+           "rubber_band_sample_age": (
+               "rubber_band.cu", "gphocs_tpu/ops/sweeps_pallas.py:891"),
            "spr": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413")}
-    kernels = [{"name": n, "route": "cuda",
-                "source": f"gphocs_tpu_torch/csrc/{src[n][0]}",
-                "replaces": src[n][1], "launches": launches[n],
-                "max_abs_err": cmp.err[n], "ms": times[n][0],
-                "plain_ms": times[n][1]} for n in src]
+    kernels = []
+    for n in src:
+        by_path = dict(zip(paths, (la[n] for la in all_launches)))
+        check(sum(by_path.values()) > 0, f"{n}: never launched on a path")
+        b_ms, b_by, nbytes, nops = bounds[n]
+        kernels.append({
+            "name": n, "route": "cuda",
+            "source": f"gphocs_tpu_torch/csrc/{src[n][0]}",
+            "replaces": src[n][1], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": cmp.err[n],
+            "ms": times[n][0], "plain_ms": times[n][1], "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": nbytes, "bound_operations": nops,
+            "library_ms": None})
+        log(f"  {n:24s} {times[n][0]:.3f} ms; bound {b_ms * 1e3:.2f} us by "
+            f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)
-    log(json.dumps({"it_per_s": its, "card": card}))
+    for label, its in paths.items():
+        log(json.dumps({"path": label, "it_per_s": its, "card": card}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,6 +3,15 @@
 SAMPLE_CTL is the standard workload's configuration (the same text as
 gphocs_tpu's tests/test_control.py:SAMPLE_CTL): 4 diploid samples in 4
 current + 3 ancestral populations, one migration band D->B, CONST rates.
+
+SAMPLE_AGE_CTL is the ancient-sample configuration: SAMPLE_CTL with an
+estimated sample age on population D (`age 0.00002 e`; D's father is the
+root, tau 5e-5, so the age starts inside its bounds).  It is the
+population tree and age line of CTL_SAMPLE_AGE in gphocs_tpu's
+scripts/golden_compare.py, with SAMPLE_CTL's mixing left on.
+
+SAMPLE_AGE_VAR_CTL adds `locus-mut-rate VAR 1.0` with
+`finetune-locus-rate 0.3` (golden_compare.py's CTL_VAR_RATES settings).
 """
 
 SAMPLE_CTL = """
@@ -80,3 +89,13 @@ MIG-BANDS-START
 	BAND-END
 MIG-BANDS-END
 """
+
+_D_POP = "\t\tname\t\tD\n\t\tsamples\t\tfive d\n"
+SAMPLE_AGE_CTL = SAMPLE_CTL.replace(
+    _D_POP, _D_POP + "\t\tage\t\t0.00002\te\n")
+assert "age\t\t0.00002" in SAMPLE_AGE_CTL
+
+SAMPLE_AGE_VAR_CTL = SAMPLE_AGE_CTL.replace(
+    "\tlocus-mut-rate          CONST",
+    "\tlocus-mut-rate      VAR 1.0\n\tfinetune-locus-rate 0.3")
+assert "VAR 1.0" in SAMPLE_AGE_VAR_CTL

@@ -1,10 +1,10 @@
-// Rubber-band proposal evaluation (UpdateTau) for NVIDIA Hopper.
+// Rubber-band proposal evaluation (UpdateTau and UpdateSampleAge) for
+// NVIDIA Hopper.
 //
 // Replaces: gphocs_tpu/ops/sweeps_pallas.py _rubber_kernel (via
-// rubber_band_eval_pallas), with its _full_rebuild.  Plain version:
-// kernels/tau.py rubber_band_eval_plain; wrapper: ops/sweeps.py
-// rubber_band_eval.  The sample-age mode is not ported yet (the wrapper
-// raises for it).
+// rubber_band_eval_pallas), both of its modes, with its _full_rebuild.
+// Plain version: kernels/tau.py rubber_band_eval_plain; wrapper:
+// ops/sweeps.py rubber_band_eval.
 //
 // For each locus, one population's proposed tau: the affine remap of node
 // and migration ages (f0 below, f1 above), the conflict scan against the
@@ -13,6 +13,15 @@
 // root log-likelihood, and the genealogy log-prior from scratch (pairwise
 // overlaps of the segment set with the tight root cap).  Writes per-locus
 // Jacobian counts and conflicts for the wrapper's reduction.  No RNG.
+//
+// Sample-age mode (a.sample_age != 0): `pop` is a current population whose
+// sample age moves from tauold to taunew inside (taub0, taub1) = (0, its
+// father's tau).  Its coalescent nodes and the migration events that touch
+// it scale around taub0 by f0 when below the old age and around taub1 by f1
+// when above; its leaves move to taunew; every such event is conflict-
+// checked and only events of `pop` itself exempt a neighbour.  The
+// population tables are those of the unchanged tau.  The rebuild and the
+// prior read the moved leaf ages from new_age like any other node's.
 //
 // What bounds it on this card: the rebuild writes all N x P x 4 conditionals
 // of every locus, and with one thread per locus a warp's accesses are
@@ -33,6 +42,7 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
   const T taub0 = rs[0], taub1 = rs[1], tauold = rs[2], taunew = rs[3];
   const int pop = a.pop;
   const bool is_root = a.is_root != 0;
+  const bool sample_age = a.sample_age != 0;
 
   T age[MAXN], mag[MAXM], new_age[MAXN], new_mag[MAXM];
   int lson[MAXN], rson[MAXN], father[MAXN], npop[MAXN], mbr[MAXM],
@@ -50,6 +60,8 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
   const bool real = ((const bool*)a.valid)[l];
 
   // sons of the rubber-banded population: the two pops whose father it is
+  // (none for the current population of the sample-age mode: -1 matches no
+  // population below)
   int son0 = -1, son1 = -1;
   for (int q = 0; q < PP; ++q)
     if (pt.father_pop[q] == pop) {
@@ -64,17 +76,24 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
   for (int n = 0; n < N; ++n) {
     const T x = age[n];
     const bool internal = n >= S;
-    const bool in_anc = npop[n] == pop;
-    const bool in_sons = npop[n] == son0 || npop[n] == son1;
-    const bool moved_anc = in_anc && internal && (is_root || x < taub1);
-    const bool moved_sons = in_sons && x > taub0 && x < tauold && internal;
+    const bool in_pop = npop[n] == pop;
+    bool moved0, moved1;  // scaled around taub0 by f0 / around taub1 by f1
+    if (sample_age) {
+      moved0 = in_pop && internal && x > taub0 && x < tauold;
+      moved1 = in_pop && internal && x >= tauold && x < taub1;
+    } else {
+      const bool in_sons = npop[n] == son0 || npop[n] == son1;
+      moved1 = in_pop && internal && (is_root || x < taub1);
+      moved0 = in_sons && x > taub0 && x < tauold && internal;
+    }
     T y = x;
-    if (moved_anc) y = is_root ? taub0 + f0 * (x - taub0)
-                               : taub1 + f1 * (x - taub1);
-    if (moved_sons) y = taub0 + f0 * (x - taub0);
+    if (moved1) y = is_root ? taub0 + f0 * (x - taub0)
+                            : taub1 + f1 * (x - taub1);
+    if (moved0) y = taub0 + f0 * (x - taub0);
+    if (sample_age && in_pop && !internal) y = taunew;  // the pop's leaves
     new_age[n] = y;
-    ntj0 += moved_sons ? 1 : 0;
-    ntj1 += moved_anc ? 1 : 0;
+    ntj0 += moved0 ? 1 : 0;
+    ntj1 += moved1 ? 1 : 0;
   }
 
   // ---- migration-age remap + conflicts ----
@@ -90,25 +109,37 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
       mtgt[m] = (int)pt.btgt[band];
       const T x = mag[m];
       const bool in_window = act && x >= taub0 && x <= taub1;
-      const bool both_sons = in_window &&
-          ((msrc[m] == son0 && mtgt[m] == son1) ||
-           (msrc[m] == son1 && mtgt[m] == son0));
-      const bool src_anc = in_window && !both_sons && msrc[m] == pop;
-      const bool tgt_anc = in_window && !both_sons && !src_anc &&
-                           mtgt[m] == pop;
-      const bool src_son = in_window && !both_sons && !src_anc && !tgt_anc &&
-                           (msrc[m] == son0 || msrc[m] == son1) && x > taub0;
-      const bool tgt_son = in_window && !both_sons && !src_anc && !tgt_anc &&
-                           !src_son &&
-                           (mtgt[m] == son0 || mtgt[m] == son1) && x > taub0;
-      const bool f1_sel = src_anc || tgt_anc;
-      const bool f0_sel = both_sons || src_son || tgt_son;
+      bool f0_sel, f1_sel;
+      if (sample_age) {
+        const bool touches = in_window && (msrc[m] == pop || mtgt[m] == pop);
+        f1_sel = touches && x > tauold;
+        f0_sel = touches && x <= tauold;
+        checked[m] = touches;
+        kind_out[m] = msrc[m] == pop;
+      } else {
+        const bool both_sons = in_window &&
+            ((msrc[m] == son0 && mtgt[m] == son1) ||
+             (msrc[m] == son1 && mtgt[m] == son0));
+        const bool src_anc = in_window && !both_sons && msrc[m] == pop;
+        const bool tgt_anc = in_window && !both_sons && !src_anc &&
+                             mtgt[m] == pop;
+        const bool src_son = in_window && !both_sons && !src_anc &&
+                             !tgt_anc &&
+                             (msrc[m] == son0 || msrc[m] == son1) &&
+                             x > taub0;
+        const bool tgt_son = in_window && !both_sons && !src_anc &&
+                             !tgt_anc && !src_son &&
+                             (mtgt[m] == son0 || mtgt[m] == son1) &&
+                             x > taub0;
+        f1_sel = src_anc || tgt_anc;
+        f0_sel = both_sons || src_son || tgt_son;
+        checked[m] = src_anc || tgt_anc || src_son || tgt_son;
+        kind_out[m] = src_anc || src_son;
+      }
       T y = x;
       if (f1_sel) y = taub1 + f1 * (x - taub1);
       if (f0_sel) y = taub0 + f0 * (x - taub0);
       new_mag[m] = act ? y : x;
-      checked[m] = src_anc || tgt_anc || src_son || tgt_son;
-      kind_out[m] = src_anc || src_son;
       ntj0 += f0_sel ? 1 : 0;
       ntj1 += f1_sel ? 1 : 0;
     }

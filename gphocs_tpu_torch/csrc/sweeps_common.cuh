@@ -51,7 +51,8 @@ struct SweepArgs {
   void* mig_branch_out; void* mig_band_out; void* mig_age_out;
   void* lnld_out; void* lnp_out; void* acc_out;
   void* aux0_out; void* aux1_out; void* aux2_out;
-  int L, N, M, B, PP, P, root_pop, pop, is_root, block;
+  // sample_age: rubber band in its sample-age mode (pop is a current pop)
+  int L, N, M, B, PP, P, root_pop, pop, is_root, block, sample_age;
   double oldage;
 };
 

@@ -21,6 +21,7 @@ phase-group segment ids + counts).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -71,9 +72,11 @@ def _build_transformations() -> np.ndarray:
 _TRANSFORMS = _build_transformations()
 
 
+@functools.lru_cache(maxsize=1 << 16)
 def canonize_column(column: str) -> str:
     """Greedy JC canonization of one alignment column
-    (reference cannonizeJCpattern :1595-1660)."""
+    (reference cannonizeJCpattern :1595-1660).  Memoized: an alignment
+    repeats a few hundred distinct columns millions of times."""
     live = np.ones(24, bool)
     out = []
     for ch in column:

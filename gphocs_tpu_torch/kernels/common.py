@@ -123,7 +123,7 @@ def gen_log_prior_from_stats(stats, gen: GenState, params: Params,
 
     if ctx.num_admixed > 0:
         raise NotImplementedError(
-            "admixture: ROADMAP Queue 1 item 17 (conformance mode)")
+            "admixture: ROADMAP Queue 1 item 10b")
     return genealogy_log_prior(stats, params)
 
 

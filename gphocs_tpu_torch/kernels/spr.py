@@ -377,7 +377,7 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
     synchronization)."""
     if ctx.num_admixed > 0:
         raise NotImplementedError(
-            "SPR with admixture: ROADMAP Queue 1 item 17")
+            "SPR with admixture: ROADMAP Queue 1 item 10b")
     L, N = gen.father.shape
     dt = gen.age.dtype
     dev = gen.age.device

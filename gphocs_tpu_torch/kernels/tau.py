@@ -1,5 +1,6 @@
-"""UpdateTau: rubber-band updates of population ages (twin of
-gphocs_tpu/kernels/tau.py, fast-RNG mode, ancestral pops only).
+"""UpdateTau and UpdateSampleAge: rubber-band updates of population ages
+and of estimated sample ages (twin of gphocs_tpu/kernels/tau.py, fast-RNG
+mode).
 
 UpdateTau, per ancestral pop `anc` with sons (s0, s1):
   bounds:  taub0 = max(son ages, son sample ages,
@@ -23,8 +24,14 @@ kernel (csrc/rubber_band.cu): the per-locus evaluation of one proposal
 with the outputs of gphocs_tpu's rubber_band_eval_pallas.  Jacobian counts
 and conflicts are masked by `gen.valid`, as the Pallas kernel does.
 
-The sample-age mode (UpdateSampleAge) is not ported yet (ROADMAP Queue 1
-item 17).
+UpdateSampleAge, per current pop `pop` with an estimated sample age (the
+kernel's sample-age mode): the same machinery with taub0 = 0, taub1 = the
+father's tau, and `pop` itself in the sons' role.  Coal nodes of `pop`
+below the old sample age scale around 0 by f0, those above it around taub1
+by f1 (never the root form); the pop's leaves move to the new sample age;
+migration events touching `pop` scale by the side of the old age they are
+on, and all of them are conflict-checked.  tau, and with it the band
+windows, do not move.
 """
 
 from __future__ import annotations
@@ -37,9 +44,6 @@ from gphocs_tpu_torch.kernels.common import (Context, band_windows,
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 from gphocs_tpu_torch.utils import reflect
-
-SAMPLE_AGE_TODO = ("sample-age rubber band: ROADMAP Queue 1 item 17 "
-                   "(sample ages are not ported yet)")
 
 
 def _mig_neighbor_ages(gen: GenState):
@@ -71,39 +75,50 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
     Returns (gen_prop, params_prop, cond_prop, lnld_prop, lnp_prop,
     ntj0 [L], ntj1 [L], conflict [L]) with the per-locus counts not yet
     reduced."""
-    if is_sample_age:
-        raise NotImplementedError(SAMPLE_AGE_TODO)
     S = gen.num_samples
     N = gen.num_nodes
     dev = gen.age.device
-    is_root = pop == ctx.root_pop
+    is_root = pop == ctx.root_pop and not is_sample_age
 
     f0 = (taunew - taub0) / (tauold - taub0)
     f1 = f0 if is_root else (taunew - taub1) / (tauold - taub1)
 
-    s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
-    in_anc = gen.node_pop == pop
-    in_sons = (gen.node_pop == s0) | (gen.node_pop == s1)
     age = gen.age
     internal = (torch.arange(N, device=dev) >= S)[None, :]
-
-    # the event-chain walk scales only events strictly inside the window
-    # (reference patch.c:632-698: loop breaks at end_time)
-    if is_root:
-        anc_map = taub0 + f0 * (age - taub0)
-        moved_anc = in_anc & internal
+    if is_sample_age:
+        in_pop = gen.node_pop == pop
+        # below the old sample age: f0 around taub0; above: f1 around taub1
+        moved0 = in_pop & (age > taub0) & (age < tauold) & internal
+        moved1 = in_pop & (age >= tauold) & (age < taub1) & internal
+        new_age = torch.where(moved0, taub0 + f0 * (age - taub0), age)
+        new_age = torch.where(moved1, taub1 + f1 * (age - taub1), new_age)
+        # the pop's leaves sit at the sample age and move with it
+        new_age = torch.where(in_pop & ~internal, taunew, new_age)
+        new_tau = params.tau
+        sa = params.sample_age.clone()
+        sa[pop] = taunew
+        params_prop = params._replace(sample_age=sa)
     else:
-        anc_map = taub1 + f1 * (age - taub1)
-        moved_anc = in_anc & internal & (age < taub1)
-    moved_sons = in_sons & (age > taub0) & (age < tauold) & internal
-    new_age = torch.where(moved_anc, anc_map, age)
-    new_age = torch.where(moved_sons, taub0 + f0 * (age - taub0), new_age)
-    ntj0 = moved_sons.sum(dim=1)
-    ntj1 = moved_anc.sum(dim=1)
+        s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
+        in_anc = gen.node_pop == pop
+        in_sons = (gen.node_pop == s0) | (gen.node_pop == s1)
+        # the event-chain walk scales only events strictly inside the
+        # window (reference patch.c:632-698: loop breaks at end_time)
+        if is_root:
+            anc_map = taub0 + f0 * (age - taub0)
+            moved1 = in_anc & internal
+        else:
+            anc_map = taub1 + f1 * (age - taub1)
+            moved1 = in_anc & internal & (age < taub1)
+        moved0 = in_sons & (age > taub0) & (age < tauold) & internal
+        new_age = torch.where(moved1, anc_map, age)
+        new_age = torch.where(moved0, taub0 + f0 * (age - taub0), new_age)
+        new_tau = params.tau.clone()
+        new_tau[pop] = taunew
+        params_prop = params._replace(tau=new_tau)
+    ntj0 = moved0.sum(dim=1)
+    ntj1 = moved1.sum(dim=1)
 
-    new_tau = params.tau.clone()
-    new_tau[pop] = taunew
-    params_prop = params._replace(tau=new_tau)
     conflict = torch.zeros_like(gen.valid)
     if ctx.num_bands == 0:
         gen_prop = gen._replace(age=new_age)
@@ -114,20 +129,34 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
         mtgt = ctx.band_target[band]
         mage = gen.mig_age
         in_window = active & (mage >= taub0) & (mage <= taub1)
-        both_sons = in_window & (((msrc == s0) & (mtgt == s1))
-                                 | ((msrc == s1) & (mtgt == s0)))
-        src_anc = in_window & ~both_sons & (msrc == pop)
-        tgt_anc = in_window & ~both_sons & ~src_anc & (mtgt == pop)
-        src_son = (in_window & ~both_sons & ~src_anc & ~tgt_anc
-                   & ((msrc == s0) | (msrc == s1)) & (mage > taub0))
-        tgt_son = (in_window & ~both_sons & ~src_anc & ~tgt_anc & ~src_son
-                   & ((mtgt == s0) | (mtgt == s1)) & (mage > taub0))
-        f1_sel = src_anc | tgt_anc
-        f0_sel = both_sons | src_son | tgt_son
+        if is_sample_age:
+            touches = in_window & ((msrc == pop) | (mtgt == pop))
+            f1_sel = touches & (mage > tauold)
+            f0_sel = touches & (mage <= tauold)
+            checked = touches
+            kind_out = msrc == pop  # out-migration w.r.t. the pop
+
+            def exempt(p):  # a neighbour event of the pop itself
+                return p == pop
+        else:
+            both_sons = in_window & (((msrc == s0) & (mtgt == s1))
+                                     | ((msrc == s1) & (mtgt == s0)))
+            src_anc = in_window & ~both_sons & (msrc == pop)
+            tgt_anc = in_window & ~both_sons & ~src_anc & (mtgt == pop)
+            src_son = (in_window & ~both_sons & ~src_anc & ~tgt_anc
+                       & ((msrc == s0) | (msrc == s1)) & (mage > taub0))
+            tgt_son = (in_window & ~both_sons & ~src_anc & ~tgt_anc
+                       & ~src_son & ((mtgt == s0) | (mtgt == s1))
+                       & (mage > taub0))
+            f1_sel = src_anc | tgt_anc
+            f0_sel = both_sons | src_son | tgt_son
+            checked = src_anc | tgt_anc | src_son | tgt_son  # not both_sons
+            kind_out = src_anc | src_son
+
+            def exempt(p):  # a neighbour event of the trio
+                return (p == pop) | (p == s0) | (p == s1)
         new_mage = torch.where(f1_sel, taub1 + f1 * (mage - taub1), mage)
         new_mage = torch.where(f0_sel, taub0 + f0 * (mage - taub0), new_mage)
-        checked = src_anc | tgt_anc | src_son | tgt_son  # both_sons unchecked
-        kind_out = src_anc | src_son
         ntj0 = ntj0 + f0_sel.sum(dim=1)
         ntj1 = ntj1 + f1_sel.sum(dim=1)
 
@@ -144,14 +173,12 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
                           | (new_mage <= bs_new[band]))
         moving_up = checked & ~kind_out & (new_mage > mage)
         up_src = ctx.band_source[torch.gather(band, 1, up_slot)]
-        up_exempt = (up_src == pop) | (up_src == s0) | (up_src == s1)
-        conf = conf | (moving_up & torch.isfinite(up_age) & ~up_exempt
+        conf = conf | (moving_up & torch.isfinite(up_age) & ~exempt(up_src)
                        & (new_mage >= up_age))
         conf = conf | (moving_up & (fa >= 0) & (new_mage >= fa_age))
         moving_dn = checked & kind_out & (new_mage < mage)
         dn_tgt = ctx.band_target[torch.gather(band, 1, dn_slot)]
-        dn_exempt = (dn_tgt == pop) | (dn_tgt == s0) | (dn_tgt == s1)
-        conf = conf | (moving_dn & torch.isfinite(dn_age) & ~dn_exempt
+        conf = conf | (moving_dn & torch.isfinite(dn_age) & ~exempt(dn_tgt)
                        & (new_mage <= dn_age))
         conf = conf | (moving_dn & (new_mage <= child_age))
         conflict = conf.any(dim=1)
@@ -182,6 +209,36 @@ def rubber_band_eval_plain(gen: GenState, params: Params, seq: SeqData,
     ntj1 = torch.where(v, ntj1, 0).sum().to(dt)
     return (gen_p.age, gen_p.mig_age, cond_p, lnld_p, lnp_p, ntj0, ntj1,
             (conflict & v).any())
+
+
+def _mh_step(gen: GenState, params: Params, rng, ctx: Context, pop: int,
+             params_prop: Params, proposal, lnf0, lnf1, tauold, taunew, lnld,
+             lnp, cond):
+    """Accept or reject one evaluated rubber-band proposal (`proposal`:
+    rubber_band_eval's outputs) and commit it.  Returns (gen, params, rng,
+    lnld, lnp, cond, accept, conflict)."""
+    age_p, mag_p, cond_p, lnld_p, lnp_p, ntj0, ntj1, conflict = proposal
+    lnacc = (torch.log(taunew / tauold) * (ctx.tau_alpha[pop] - 1.0)
+             - (taunew - tauold) * ctx.tau_beta[pop]
+             + torch.sum(lnld_p - lnld) + torch.sum(lnp_p - lnp)
+             + ntj0 * lnf0 + ntj1 * lnf1)
+    accept, rng = scalar_mh_accept(rng, lnacc, conflict)
+    gen = gen._replace(age=torch.where(accept, age_p, gen.age),
+                       mig_age=torch.where(accept, mag_p, gen.mig_age))
+    # the proposal changed one of the two age vectors
+    params = params._replace(**{
+        f: torch.where(accept, getattr(params_prop, f), getattr(params, f))
+        for f in ("tau", "sample_age")
+        if getattr(params_prop, f) is not getattr(params, f)})
+    return (gen, params, rng, torch.where(accept, lnld_p, lnld),
+            torch.where(accept, lnp_p, lnp),
+            torch.where(accept, cond_p, cond), accept, conflict)
+
+
+def _with(t: torch.Tensor, pop: int, value) -> torch.Tensor:
+    out = t.clone()
+    out[pop] = value
+    return out
 
 
 def _tau_sweep(gen: GenState, params: Params, seq: SeqData, rng,
@@ -220,26 +277,15 @@ def _tau_sweep(gen: GenState, params: Params, seq: SeqData, rng,
         z, rng = R.general_draw_2normal8(rng, dt)
         taunew = reflect(tauold + finetunes_taus[pop] * z, taub0, taub1)
 
-        (age_p, mag_p, cond_p, lnld_p, lnp_p, ntj0, ntj1, conflict) = \
-            evaluate(gen, params, seq, ctx, pop, False, taub0, taub1,
-                     tauold, taunew, cond)
+        proposal = evaluate(gen, params, seq, ctx, pop, False, taub0, taub1,
+                            tauold, taunew, cond)
         lnf0 = torch.log((taunew - taub0) / (tauold - taub0))
         lnf1 = lnf0 if is_root else torch.log((taunew - taub1)
                                               / (tauold - taub1))
-        lnacc = (torch.log(taunew / tauold) * (ctx.tau_alpha[pop] - 1.0)
-                 - (taunew - tauold) * ctx.tau_beta[pop]
-                 + torch.sum(lnld_p - lnld) + torch.sum(lnp_p - lnp)
-                 + ntj0 * lnf0 + ntj1 * lnf1)
-        accept, rng = scalar_mh_accept(rng, lnacc, conflict)
-
-        gen = gen._replace(age=torch.where(accept, age_p, gen.age),
-                           mig_age=torch.where(accept, mag_p, gen.mig_age))
-        tau = params.tau.clone()
-        tau[pop] = torch.where(accept, taunew, tauold)
-        params = params._replace(tau=tau)
-        cond = torch.where(accept, cond_p, cond)
-        lnld = torch.where(accept, lnld_p, lnld)
-        lnp = torch.where(accept, lnp_p, lnp)
+        gen, params, rng, lnld, lnp, cond, accept, conflict = _mh_step(
+            gen, params, rng, ctx, pop,
+            params._replace(tau=_with(params.tau, pop, taunew)), proposal,
+            lnf0, lnf1, tauold, taunew, lnld, lnp, cond)
         accepted[pop] += accept.to(torch.int64)
         conflicts = conflicts + conflict.to(torch.int64)
     return gen, params, rng, lnld, lnp, cond, accepted, conflicts
@@ -262,3 +308,42 @@ def update_taus_fused(gen: GenState, params: Params, seq: SeqData, rng,
 
     return _tau_sweep(gen, params, seq, rng, ctx, finetunes_taus, lnld, lnp,
                       cond, num_pops, num_cur_pops, rubber_band_eval)
+
+
+def update_sample_ages_fused(gen: GenState, params: Params, seq: SeqData,
+                             rng, ctx: Context, finetunes_taus, lnld, lnp,
+                             cond, num_cur_pops: int, update_mask):
+    """UpdateSampleAge: one rubber-band proposal, in the sample-age mode,
+    per current pop whose entry of `update_mask` (a sequence of bools) is
+    set, in population order.  The per-locus evaluation goes through
+    ops/sweeps.rubber_band_eval (the kernel on CUDA tensors, the plain
+    version on CPU tensors).  The Gamma-prior ratio uses the pop's own
+    tau_alpha/tau_beta.  Returns (gen, params, rng, lnld, lnp, cond,
+    accepted[P], conflicts)."""
+    from gphocs_tpu_torch.ops.sweeps import rubber_band_eval
+
+    dt = lnld.dtype
+    dev = lnld.device
+    accepted = torch.zeros((params.tau.shape[0],), dtype=torch.int64,
+                           device=dev)
+    conflicts = torch.zeros((), dtype=torch.int64, device=dev)
+    for pop in range(num_cur_pops):
+        if not update_mask[pop]:
+            continue
+        tauold = params.sample_age[pop]
+        taub0 = torch.zeros((), dtype=dt, device=dev)
+        taub1 = params.tau[ctx.father_pop[pop]]
+        z, rng = R.general_draw_2normal8(rng, dt)
+        taunew = reflect(tauold + finetunes_taus[pop] * z, taub0, taub1)
+        proposal = rubber_band_eval(gen, params, seq, ctx, pop, True, taub0,
+                                    taub1, tauold, taunew, cond)
+        lnf0 = torch.log((taunew - taub0) / (tauold - taub0))
+        lnf1 = torch.log((taunew - taub1) / (tauold - taub1))
+        gen, params, rng, lnld, lnp, cond, accept, conflict = _mh_step(
+            gen, params, rng, ctx, pop,
+            params._replace(sample_age=_with(params.sample_age, pop,
+                                             taunew)),
+            proposal, lnf0, lnf1, tauold, taunew, lnld, lnp, cond)
+        accepted[pop] += accept.to(torch.int64)
+        conflicts = conflicts + conflict.to(torch.int64)
+    return gen, params, rng, lnld, lnp, cond, accepted, conflicts

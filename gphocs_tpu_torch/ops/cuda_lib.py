@@ -2,14 +2,16 @@
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface (no PyTorch headers), at first use, keyed by a hash of the
-sources and flags:
+sources and flags.  Each source is compiled by its own nvcc process, all
+started together, and the objects are then linked:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC
-         -o build/gphocs_tpu_torch/libsweeps_<hash>.so
-         csrc/node_age.cu csrc/mig_age.cu csrc/rubber_band.cu csrc/spr.cu
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<kernel>.cu -o <kernel>.o
+    nvcc -shared -o build/gphocs_tpu_torch/libsweeps_<hash>.so *.o
 
-and loaded with ctypes.  -fmad=false keeps every multiply and add rounded
+and the library is loaded with ctypes.  What ptxas reports (registers,
+stack frame and spills of every kernel) is kept beside the library as
+ptxas_<hash>.txt (`resource_report`).  -fmad=false keeps every multiply and add rounded
 on its own, as the plain versions' separate tensor ops are: the kernels
 then agree with them to the last bits at f64 (a contracted proposal moves
 ages by ~1e-13, and the prior, d lnP / d t ~ 2 n / theta ~ 1e5, by ~1e-8).  Every entry point takes a pointer to one
@@ -34,7 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gphocs_tpu_torch"
 SOURCES = ("node_age.cu", "mig_age.cu", "rubber_band.cu", "spr.cu")
 HEADERS = ("sweeps_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # bounds of the kernels' per-thread arrays (MAXN... in sweeps_common.cuh)
 MAXN, MAXM, MAXPP, MAXB = 63, 32, 16, 8
@@ -52,7 +54,7 @@ PTR_FIELDS = (
     "lnld_out", "lnp_out", "acc_out", "aux0_out", "aux1_out", "aux2_out",
 )
 INT_FIELDS = ("L", "N", "M", "B", "PP", "P", "root_pop", "pop", "is_root",
-              "block")
+              "block", "sample_age")
 
 
 class SweepArgs(ctypes.Structure):
@@ -87,22 +89,52 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _failed(proc, out, err) -> RuntimeError:
+    return RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}\n{err}")
+
+
 def build() -> Path:
     """Compile the kernels (if this source hash is not built yet) and
     return the library path.  Raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libsweeps_{source_hash()}.so"
+    tag = source_hash()
+    lib = BUILD_DIR / f"libsweeps_{tag}.so"
     if lib.exists():
         return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    try:
+        objs = [work / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for s, o in zip(SOURCES, objs)]
+        results = [(p, *p.communicate()) for p in procs]
+        for p, out, err in results:
+            if p.returncode != 0:
+                raise _failed(p, out, err)
+        tmp = work / lib.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise _failed(link, link.stdout, link.stderr)
+        (BUILD_DIR / f"ptxas_{tag}.txt").write_text(
+            "".join(err for _, _, err in results))
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
+
+
+def resource_report() -> list:
+    """ptxas's lines on each kernel of the built library: the entry's
+    name, its stack frame and spills, and its registers."""
+    text = (BUILD_DIR / f"ptxas_{source_hash()}.txt").read_text()
+    return [ln.strip() for ln in text.splitlines()
+            if "Compiling entry" in ln or "stack frame" in ln
+            or "Used" in ln]
 
 
 def library():

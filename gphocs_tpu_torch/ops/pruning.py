@@ -17,15 +17,28 @@ there, as in the JAX XLA path at f32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 EDGE_CLAMP = 1e-100
 
 
+@functools.lru_cache(maxsize=None)
+def _three(dtype, device) -> torch.Tensor:
+    """The divisor 3 as a 0-d tensor.  On CUDA, PyTorch divides by a Python
+    scalar as a multiplication by its rounded reciprocal, which can differ
+    from the division (that the CUDA kernels and gphocs_tpu do) in the last
+    bit; 1 - exp(-x) then turns that bit into ~1e-3 of p at f32.  By a
+    tensor divisor it divides."""
+    return torch.full((), 3.0, dtype=dtype, device=device)
+
+
 def edge_p(edge_len: torch.Tensor) -> torch.Tensor:
     """JC substitution probability for one of the 3 off-diagonal bases;
     tiny/negative lengths give p = 0 (src/LocusDataLikelihood.c:1843)."""
-    p = (1.0 - torch.exp(-4.0 * edge_len / 3.0)) / 4.0
+    three = _three(edge_len.dtype, edge_len.device)
+    p = (1.0 - torch.exp(-4.0 * edge_len / three)) / 4.0
     return torch.where(edge_len < EDGE_CLAMP, torch.zeros_like(p), p)
 
 

@@ -27,8 +27,7 @@ from gphocs_tpu_torch.kernels.common import Context, band_windows, pop_end
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
-from gphocs_tpu_torch.kernels.tau import (SAMPLE_AGE_TODO,
-                                          rubber_band_eval_plain)
+from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
 from gphocs_tpu_torch.ops import cuda_lib
 from gphocs_tpu_torch.rng_fast import MASK32, FastRngState
 from gphocs_tpu_torch.state import GenState, Params, SeqData
@@ -36,8 +35,10 @@ from gphocs_tpu_torch.state import GenState, Params, SeqData
 # loci per CUDA block; also the SPR trip-synchronization group on CUDA
 BLOCK = 64
 
-# kernel launches per wrapper since the last reset_launch_counts()
-LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0, "spr": 0}
+# kernel launches per wrapper since the last reset_launch_counts(); the
+# rubber-band kernel's two modes (tau, sample age) are counted apart
+LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0,
+            "rubber_band_sample_age": 0, "spr": 0}
 
 
 def reset_launch_counts() -> None:
@@ -215,26 +216,34 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
                      ctx: Context, pop: int, is_sample_age: bool,
                      taub0, taub1, tauold, taunew, cond):
     """Evaluate one population's rubber-band proposal for every locus
-    (gphocs_tpu's rubber_band_eval_pallas).  Returns (age_prop, mag_prop,
-    cond_prop, lnld_prop, lnp_prop, ntj0 [], ntj1 [], any_conflict [])."""
-    if is_sample_age:
-        raise NotImplementedError(SAMPLE_AGE_TODO)
+    (gphocs_tpu's rubber_band_eval_pallas).  With is_sample_age, `pop` is a
+    current population and the proposal moves its sample age; otherwise it
+    is an ancestral population and the proposal moves its tau.  Returns
+    (age_prop, mag_prop, cond_prop, lnld_prop, lnp_prop, ntj0 [], ntj1 [],
+    any_conflict [])."""
+    is_sample_age = bool(is_sample_age)
     if not _on_cuda(gen.age, cond):
-        return rubber_band_eval_plain(gen, params, seq, ctx, pop, False,
-                                      taub0, taub1, tauold, taunew, cond)
+        return rubber_band_eval_plain(gen, params, seq, ctx, pop,
+                                      is_sample_age, taub0, taub1, tauold,
+                                      taunew, cond)
     L, N, P, _ = cond.shape
     dt = gen.age.dtype
     dev = cond.device
     keep = []
-    new_tau = params.tau.clone()
-    new_tau[pop] = taunew
+    # the proposal's population tables: a sample-age move leaves tau, and
+    # with it the band windows and pop_end, as they are
+    new_tau = params.tau
+    if not is_sample_age:
+        new_tau = params.tau.clone()
+        new_tau[pop] = taunew
     a = _args(gen, params, ctx, seq, None, new_tau, keep)
     rscal = torch.stack([torch.as_tensor(x, dtype=dt, device=dev).reshape(())
                          for x in (taub0, taub1, tauold, taunew)])
     keep.append(rscal)
     a.rscal = rscal.data_ptr()
     a.pop = int(pop)
-    a.is_root = int(pop == ctx.root_pop)
+    a.is_root = int(pop == ctx.root_pop and not is_sample_age)
+    a.sample_age = int(is_sample_age)
     a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
     cond_out = torch.empty_like(cond)
     gsum = torch.empty((L, P), dtype=dt, device=dev)
@@ -251,7 +260,8 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
                                           aux[2].data_ptr())
     cuda_lib.launch(f"rubber_band_{_real_suffix(dt)}", a,
                     torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["rubber_band"] += 1
+    LAUNCHES["rubber_band_sample_age" if is_sample_age
+             else "rubber_band"] += 1
     v = gen.valid
     ntj0 = torch.where(v, aux[0], 0).sum().to(dt)
     ntj1 = torch.where(v, aux[1], 0).sum().to(dt)
@@ -269,7 +279,7 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
                           sync_group=gen.num_loci)
     if ctx.num_admixed > 0:
         raise NotImplementedError(
-            "SPR with admixture: ROADMAP Queue 1 item 17")
+            "SPR with admixture: ROADMAP Queue 1 item 10b")
     L, N, P, _ = cond.shape
     M = gen.max_migs
     dt = gen.age.dtype

@@ -12,11 +12,11 @@ Keys and counter are int64 tensors holding uint32 values; the counter is a
 0-d tensor on the sampler's device, so advancing it never synchronizes
 with the host.
 
-Deviation from the JAX package: `init_fast` derives the raw per-lane bits
-from the seed with numpy (jax.random is not available here), then applies
-the same `fmix32(bits ^ fmix32(lane * GOLDEN))` lane mix.  The same seed
-therefore gives other keys than gphocs_tpu; carry JAX keys over with
-state.from_numpy to reproduce a JAX chain.
+`init_fast` gives gphocs_tpu's keys for the same seed: the raw per-lane
+bits are jax.random.bits(jax.random.key(seed), (n,), uint32) under JAX's
+default generator (Threefry-2x32, partitionable counter layout), computed
+here in numpy (`threefry_bits`), followed by the same
+`fmix32(bits ^ fmix32(lane * GOLDEN))` lane mix.
 """
 
 from __future__ import annotations
@@ -58,10 +58,39 @@ def fmix32(z: torch.Tensor) -> torch.Tensor:
     return z
 
 
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry_bits(seed: int, n: int) -> np.ndarray:
+    """[n] uint32: jax.random.bits(jax.random.key(seed), (n,), uint32) for
+    the threefry2x32 generator with jax_threefry_partitionable set (the
+    defaults of the JAX that gphocs_tpu pins).
+
+    The key is the seed's 64-bit two's-complement pattern split into
+    (high, low) words, as JAX forms it with 64-bit integers enabled.
+    Element i hashes the counter pair (high, low) = (0, i) with the 20-round
+    Threefry-2x32 block function, and the output is the xor of its two
+    words."""
+    seed &= (1 << 64) - 1
+    k0 = np.uint32(seed >> 32)
+    k1 = np.uint32(seed & MASK32)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):  # uint32 arithmetic wraps by design
+        x0 = np.zeros(n, np.uint32) + ks[0]
+        x1 = np.arange(n, dtype=np.uint32) + ks[1]
+        for block in range(5):
+            for r in _THREEFRY_ROTATIONS[block % 2]:
+                x0 = x0 + x1
+                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+                x1 = x0 ^ x1
+            x0 = x0 + ks[(block + 1) % 3]
+            x1 = x1 + ks[(block + 2) % 3] + np.uint32(block + 1)
+    return x0 ^ x1
+
+
 def init_fast(num_slots: int, seed: int, device="cpu") -> FastRngState:
-    bits = np.random.default_rng(seed).integers(
-        0, 2 ** 32, size=num_slots, dtype=np.uint64).astype(np.int64)
-    bits = torch.as_tensor(bits, device=device)
+    bits = torch.as_tensor(threefry_bits(seed, num_slots).astype(np.int64),
+                           device=device)
     lane = torch.arange(num_slots, dtype=torch.int64, device=device)
     return FastRngState(key=fmix32(bits ^ fmix32(_mul32(lane, GOLDEN))),
                         ctr=torch.zeros((), dtype=torch.int64, device=device))

@@ -9,8 +9,7 @@ constants src/GPhoCS.h:21-25).
 
 Not ported yet; asking for them raises NotImplementedError naming the
 ROADMAP item: the legacy Wichmann-Hill RNG, meshes, chains, pattern
-buckets, admixture, VAR locus rates, estimated sample ages, checkpoints
-and the coal-stats file.
+buckets, admixture, checkpoints and the coal-stats file.
 """
 
 from __future__ import annotations
@@ -80,11 +79,12 @@ class AcceptCounts:
     mig_rate: int = 0
     taus: Optional[np.ndarray] = None
     mixing: int = 0
+    locus_rate: int = 0
     conflicts: int = 0
 
     def reset(self, P: int):
         self.coal_time = self.mig_time = self.spr = 0
-        self.theta = self.mig_rate = self.mixing = 0
+        self.theta = self.mig_rate = self.mixing = self.locus_rate = 0
         self.conflicts = 0
         self.taus = np.zeros(P, int)
 
@@ -110,16 +110,12 @@ class Sampler:
         if buckets != 1:
             raise _todo("pattern buckets", "Queue 1 item 13")
         if cfg.admixed:
-            raise _todo("admixture", "Queue 1 item 17")
-        if cfg.mcmc.mut_rate_mode == 1:
-            raise _todo("VAR locus rates", "Queue 1 item 17")
+            raise _todo("admixture", "Queue 1 item 10b")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Sampler(device='cuda'): no CUDA device")
         self.cfg = cfg
         self.tree: PopTree = build_poptree(cfg)
-        if np.any(self.tree.update_sample_age):
-            raise _todo("estimated sample ages", "Queue 1 item 17")
         self.ctx = make_context(self.tree, dtype, self.device)
         self.dtype = dtype
 
@@ -219,6 +215,9 @@ class Sampler:
     def step_chunk(self, n_iters: int, do_migrate: bool):
         """Run n_iters iterations; returns (totals, trace)."""
         cfg = self.cfg
+        tree = self.tree
+        sample_age_mask = tuple(
+            bool(x) for x in tree.update_sample_age[:tree.num_cur_pops])
         (self.gen, self.params, self.lrng, self.grng, self.lnld, self.lnp,
          self.cond, stats, trace) = mcmc_chunk(
             self.gen, self.params, self.seq, self.lrng, self.grng,
@@ -229,34 +228,44 @@ class Sampler:
             do_mixing=cfg.mcmc.do_mixing,
             num_pops=self.tree.num_pops,
             num_cur_pops=self.tree.num_cur_pops,
+            sample_age_mask=sample_age_mask,
             coal_time_on=self.ft_search["coal_time"].value > 0,
             mig_time_on=self.ft_search["mig_time"].value > 0,
             theta_on=self.ft_search["theta"].value > 0,
             mig_rate_on=self.ft_search["mig_rate"].value > 0,
-            mixing_on=self.ft_search["mixing"].value > 0)
+            mixing_on=self.ft_search["mixing"].value > 0,
+            var_rates=cfg.mcmc.mut_rate_mode == 1,
+            locus_rate_on=self.ft_search["locus_rate"].value > 0,
+            var_alpha=cfg.mcmc.var_rates_alpha)
+        if cfg.mcmc.mut_rate_mode == 1:
+            self.rate_var += float(stats.rate_var_delta)
         return stats, trace
+
+    def _tau_pops(self):
+        """Populations with a rubber-band proposal: current ones with an
+        estimated sample age, then the ancestral ones."""
+        tree = self.tree
+        return [pop for pop in range(tree.num_pops)
+                if pop >= tree.num_cur_pops or tree.update_sample_age[pop]]
 
     def _log_header(self):
         """Reference stdout header (src/GPhoCS.c:1357-1374)."""
-        tree = self.tree
         cols = ["Samples", "CoalTimes", "MigTimes", "SPRs", "Thetas",
                 "MigRates"]
-        cols += [f"TAU_{pop:2d}" for pop in range(tree.num_cur_pops,
-                                                  tree.num_pops)]
+        cols += [f"TAU_{pop:2d}" for pop in self._tau_pops()]
         cols += ["RbberBnd", "MutRates", "Mixing"]
         line = "".join(f"{c:<10}" for c in cols)
         return line + "| DATA-ln-ld |  TIME\n" + "-" * (len(line) + 25)
 
     def _log_line(self, iteration, pct, lnld_avg, elapsed):
         """Reference per-log acceptance row (src/GPhoCS.c:1823-1895)."""
-        tree = self.tree
         parts = [f"{iteration + 1:7d}  "]
         for key in ("coal_time", "mig_time", "spr", "theta", "mig_rate"):
             parts.append(f"{pct[key]:5.1f}%    ")
-        for pop in range(tree.num_cur_pops, tree.num_pops):
+        for pop in self._tau_pops():
             parts.append(f"{pct['taus'][pop]:5.1f}%    ")
         parts.append(f"{pct['rubberband']:6.1f}%    ")
-        parts.append(f"{0.0:5.1f}%    ")
+        parts.append(f"{pct['locus_rate']:5.1f}%    ")
         parts.append(f"{pct['mixing']:5.1f}%    ")
         h, rem = divmod(int(elapsed), 3600)
         m, sec = divmod(rem, 60)
@@ -280,8 +289,9 @@ class Sampler:
         L = self.num_loci
         total_coals = L * (tree.num_samples - 1)
 
-        header = trace_io.trace_header(tree, False)
-        factors = trace_io.print_factors(tree, False)
+        var_mut = cfg.mcmc.mut_rate_mode == 1
+        header = trace_io.trace_header(tree, var_mut)
+        factors = trace_io.print_factors(tree, var_mut)
         rows = []
         counts = AcceptCounts()
         counts.reset(P)
@@ -318,6 +328,7 @@ class Sampler:
                 counts.mig_rate += int(st.acc_mig_rate)
                 counts.taus += st.acc_taus.cpu().numpy()
                 counts.mixing += int(st.acc_mixing)
+                counts.locus_rate += int(st.acc_locus_rate)
                 counts.conflicts += int(st.tau_conflicts)
                 mig_nodes_accum += int(st.num_migs_total)
                 log_count += n_iters
@@ -329,7 +340,8 @@ class Sampler:
                     if it >= 0 and it % (cfg.mcmc.mcmc_sample_skip + 1) == 0:
                         full = (float(lnld_s[j]) + float(lnp_s[j])) / L
                         vals = trace_io.record_param_vals(
-                            tree, theta[j], tau[j], sage[j], mrate[j])
+                            tree, theta[j], tau[j], sage[j], mrate[j],
+                            self.rate_var if var_mut else None)
                         rows.append([it] + [v * f for v, f in
                                             zip(vals, factors)]
                                     + [full, float(lnld_s[j])])
@@ -371,6 +383,7 @@ class Sampler:
         gts = max(self.cfg.mcmc.genetree_samples, 1)
         P = self.tree.num_pops
         B = self.tree.num_bands
+        L = max(self.num_loci, 2)
         lc = max(log_count, 1)
         n_anc = max(self.tree.num_pops - self.tree.num_cur_pops, 1)
         return {
@@ -382,11 +395,15 @@ class Sampler:
             "taus": c.taus * 100.0 / lc,
             "mixing": c.mixing * 100.0 / lc,
             "rubberband": c.conflicts * 100.0 / (lc * n_anc),
+            # reference: accepted / (logCount * (numLoci-1) * genetreeSamples)
+            "locus_rate": c.locus_rate * 100.0 / (lc * (L - 1) * gts),
         }
 
     def _adjust_finetunes(self, pct):
         for k in ("coal_time", "mig_time", "theta", "mig_rate", "mixing"):
             self.ft_search[k].adjust(pct[k])
-        for p in range(self.tree.num_cur_pops, self.tree.num_pops):
+        if self.cfg.mcmc.mut_rate_mode == 1:
+            self.ft_search["locus_rate"].adjust(pct["locus_rate"])
+        for p in self._tau_pops():
             self.ft_taus[p].adjust(pct["taus"][p])
         self._update_ft_device()

@@ -2,6 +2,7 @@
 
     python -m gphocs_tpu_torch.tools.profile_main [--loci 1000] [--bp 1000]
         [--iters 25] [--rounds 2] [--profile-iters 5] [--trace PATH]
+        [--paths]
 
 On the standard workload (SAMPLE_CTL, data simulated with seed 20260817)
 it builds one f32 and one f64 Sampler, warms each for 5 iterations, and
@@ -15,6 +16,14 @@ kernels' time ranges), the idle share 1 - busy / wall, the count and
 host time of cudaLaunchKernel, and the top ops by device and by host
 time.  The profiler's own overhead is inside that wall time.  `--trace`
 writes the Chrome trace.
+
+With `--paths` it compares configurations instead of dtypes, all at f32
+on the same data: the standard workload (SAMPLE_CTL), the ancient-sample
+path (SAMPLE_AGE_CTL) and the same with VAR locus rates
+(SAMPLE_AGE_VAR_CTL), timed in turns (a b c c b a, `rounds` times); then
+each is profiled for `--profile-iters` iterations, so that the launches
+and the wall time that the sample-age sweep and the paired rate update
+add per iteration can be read off.
 """
 
 from __future__ import annotations
@@ -33,13 +42,13 @@ def _card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _sampler(path, dtype):
+def _sampler(path, dtype, ctl=None):
     import torch
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import SAMPLE_CTL
     from gphocs_tpu_torch.sampler.driver import Sampler
 
-    cfg = parse_control_text(SAMPLE_CTL)
+    cfg = parse_control_text(ctl or SAMPLE_CTL)
     cfg.mcmc.random_seed = 111
     cfg.mcmc.start_mig = 0
     s = Sampler(cfg, seq_path=path, dtype=dtype, device="cuda")
@@ -78,6 +87,39 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
+def _profile(s, label, iters, card, tables=True, trace=None):
+    """Run `iters` iterations of sampler s under torch.profiler and print
+    the wall time, busy time, idle share and launch count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.step_chunk(iters, do_migrate=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    busy_ms = _busy_ms(prof.events())
+    launch = [e for e in ka if e.key == "cudaLaunchKernel"]
+    n_launch = launch[0].count if launch else 0
+    launch_ms = launch[0].cpu_time_total / 1e3 if launch else 0.0
+    print(f"profiled {label}: {iters} iterations in {wall_ms:.1f} ms "
+          f"(profiler on); device busy {busy_ms:.1f} ms; idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; cudaLaunchKernel x{n_launch} "
+          f"({n_launch / iters:.0f} per iteration) taking "
+          f"{launch_ms:.1f} ms of host time; on {card}", flush=True)
+    if tables:
+        print(ka.table(sort_by="self_device_time_total", row_limit=25,
+                       max_name_column_width=60))
+        print(ka.table(sort_by="self_cpu_time_total", row_limit=25,
+                       max_name_column_width=60))
+    if trace:
+        os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+        prof.export_chrome_trace(trace)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--loci", type=int, default=1000)
@@ -86,12 +128,16 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--profile-iters", type=int, default=5)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--paths", action="store_true",
+                    help="compare the standard, sample-age and sample-age "
+                         "+ VAR configurations at f32 instead of f32/f64")
     a = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from gphocs_tpu_torch.config import parse_control_text
-    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.config.samples import (SAMPLE_AGE_CTL,
+                                                 SAMPLE_AGE_VAR_CTL,
+                                                 SAMPLE_CTL)
     from gphocs_tpu_torch.io.simulate import simulate_seq_file
     from gphocs_tpu_torch.model import build_poptree
 
@@ -105,12 +151,21 @@ def main(argv=None) -> int:
         cfg = parse_control_text(SAMPLE_CTL)
         simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=a.loci,
                           seq_len=a.bp, seed=20260817)
-        samplers = {"f32": _sampler(path, torch.float32),
-                    "f64": _sampler(path, torch.float64)}
+        if a.paths:
+            samplers = {
+                name: _sampler(path, torch.float32, ctl)
+                for name, ctl in (("standard", SAMPLE_CTL),
+                                  ("sample_age", SAMPLE_AGE_CTL),
+                                  ("sample_age_var", SAMPLE_AGE_VAR_CTL))}
+            order = list(samplers) + list(samplers)[::-1]
+        else:
+            samplers = {"f32": _sampler(path, torch.float32),
+                        "f64": _sampler(path, torch.float64)}
+            order = ["f32", "f64", "f64", "f32"]
 
-    readings = {"f32": [], "f64": []}
+    readings = {name: [] for name in samplers}
     for _ in range(a.rounds):
-        for name in ("f32", "f64", "f64", "f32"):
+        for name in order:
             r = _its(samplers[name], a.iters)
             readings[name].append(r)
             print(f"{name} step_chunk({a.iters}): {r:.3f} it/s", flush=True)
@@ -118,31 +173,14 @@ def main(argv=None) -> int:
         print(f"{name}: readings {[round(r, 3) for r in rs]} it/s, "
               f"median {sorted(rs)[len(rs) // 2]:.3f}, on {card}")
 
-    s = samplers["f32"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s.step_chunk(a.profile_iters, do_migrate=True)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ka = prof.key_averages()
-    busy_ms = _busy_ms(prof.events())
-    launch = [e for e in ka if e.key == "cudaLaunchKernel"]
-    n_launch = launch[0].count if launch else 0
-    launch_ms = launch[0].cpu_time_total / 1e3 if launch else 0.0
-    print(f"profiled f32: {a.profile_iters} iterations in {wall_ms:.1f} ms "
-          f"(profiler on); device busy {busy_ms:.1f} ms; idle share "
-          f"{1 - busy_ms / wall_ms:.3f}; cudaLaunchKernel x{n_launch} "
-          f"({n_launch / a.profile_iters:.0f} per iteration) taking "
-          f"{launch_ms:.1f} ms of host time; on {card}")
-    print(ka.table(sort_by="self_device_time_total", row_limit=25,
-                   max_name_column_width=60))
-    print(ka.table(sort_by="self_cpu_time_total", row_limit=25,
-                   max_name_column_width=60))
-    if a.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(a.trace)), exist_ok=True)
-        prof.export_chrome_trace(a.trace)
+    if a.paths:
+        for name, s in samplers.items():
+            last = name == order[-1 - len(samplers)]
+            _profile(s, name, a.profile_iters, card, tables=last,
+                     trace=a.trace if last else None)
+    else:
+        _profile(samplers["f32"], "f32", a.profile_iters, card,
+                 trace=a.trace)
     return 0
 
 

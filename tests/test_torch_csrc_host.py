@@ -18,11 +18,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import tau_bounds, warm_state
+from chip_smoke import sample_age_bounds, tau_bounds, warm_state
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
+from gphocs_tpu_torch.config.samples import SAMPLE_AGE_CTL
 from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
+                                          update_sample_ages_fused,
                                           update_taus, update_taus_fused)
 from gphocs_tpu_torch.ops import cuda_lib, sweeps
 
@@ -54,6 +56,15 @@ def warm(tmp_path_factory):
     made as chip_smoke.py makes its 64-locus one."""
     path = str(tmp_path_factory.mktemp("csrc_seq") / "seqs.txt")
     return warm_state(torch.device("cpu"), torch.float64, path, num_loci=24)
+
+
+@pytest.fixture(scope="module")
+def warm_sample_age(tmp_path_factory):
+    """The same on SAMPLE_AGE_CTL: population D has an estimated sample
+    age, and the hot band D->B gives it migration events."""
+    path = str(tmp_path_factory.mktemp("csrc_seq_age") / "seqs.txt")
+    return warm_state(torch.device("cpu"), torch.float64, path, num_loci=24,
+                      ctl=SAMPLE_AGE_CTL)
 
 
 @pytest.fixture
@@ -140,3 +151,58 @@ def test_rubber_band_kernel_matches_plain(warm, kernels_on_host):
     _close(k[1].tau, q[1].tau, 1e-15)
     assert sweeps.LAUNCHES["rubber_band"] == 2 * (s.tree.num_pops
                                                   - s.tree.num_cur_pops)
+
+
+@pytest.mark.parametrize("step, conflict", [
+    (-0.5, True), (-0.2, False), (0.05, False), (0.3, True)])
+def test_rubber_band_sample_age_kernel_matches_plain(warm_sample_age,
+                                                     kernels_on_host, step,
+                                                     conflict):
+    """The kernel's sample-age mode (and the `sample_age` field of
+    SweepArgs) against the plain version, for a new age below the old one
+    and above it.  On this seeded fixture the two larger steps push a
+    migration event of D below its branch's node or out of the band's
+    window, so both outcomes of the conflict scan are covered."""
+    s = warm_sample_age
+    pop = 3
+    assert bool(s.tree.update_sample_age[pop])
+    b = sample_age_bounds(s, pop, step)
+    k = sweeps.rubber_band_eval(s.gen, s.params, s.seq, s.ctx, pop, True, *b,
+                                s.cond)
+    q = rubber_band_eval_plain(s.gen, s.params, s.seq, s.ctx, pop, True, *b,
+                               s.cond)
+    assert sweeps.LAUNCHES == {"node_age": 0, "mig_age": 0, "rubber_band": 0,
+                               "rubber_band_sample_age": 1, "spr": 0}
+    assert float(k[5]) == float(q[5]) and float(k[6]) == float(q[6])
+    assert float(k[5]) + float(k[6]) > 0
+    assert bool(k[7]) == bool(q[7]) == conflict
+    _close(k[0], q[0], 1e-12)
+    _close(k[1], q[1], 1e-12)
+    _close(k[2], q[2], 1e-10)
+    _close(k[3], q[3], 1e-9)
+    _close(k[4], q[4], 1e-9)
+    S = s.gen.num_samples
+    in_pop = s.gen.node_pop[:, :S] == pop
+    assert bool((k[0][:, :S][in_pop] == b[3]).all())
+    assert not torch.equal(k[0], s.gen.age)
+
+
+def test_sample_age_sweep_through_kernel(warm_sample_age, kernels_on_host,
+                                         monkeypatch):
+    """update_sample_ages_fused through the compiled kernel against the
+    same sweep through the plain version (the wrapper on CPU tensors)."""
+    s = warm_sample_age
+    mask = [bool(x) for x in s.tree.update_sample_age[:s.tree.num_cur_pops]]
+    args = (s.gen, s.params, s.seq, s.grng, s.ctx, s.ft.taus, s.lnld, s.lnp,
+            s.cond, s.tree.num_cur_pops, mask)
+    k = update_sample_ages_fused(*args)
+    assert sweeps.LAUNCHES["rubber_band_sample_age"] == 1
+    monkeypatch.setattr(sweeps, "_on_cuda", lambda *tensors: False)
+    q = update_sample_ages_fused(*args)
+    assert sweeps.LAUNCHES["rubber_band_sample_age"] == 1
+    assert torch.equal(k[6], q[6]) and int(k[2].ctr) == int(q[2].ctr)
+    assert int(k[7]) == int(q[7])
+    _close(k[1].sample_age, q[1].sample_age, 1e-15)
+    _close(k[0].age, q[0].age, 1e-12)
+    _close(k[3], q[3], 1e-9)
+    _close(k[4], q[4], 1e-9)

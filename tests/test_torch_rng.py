@@ -91,16 +91,32 @@ def test_general_stream_draws():
     assert int(t2.ctr) == int(j2.ctr)
 
 
+@pytest.mark.parametrize("num_slots, seed", [
+    (1, 0), (1, 111 + 0x5F3759DF),      # the general stream
+    (7, 17), (8, 17),                   # odd and even lane counts
+    (1000, 5), (1000, 2 ** 31 + 5), (33, 2 ** 32 - 1),  # seeds above 2^31
+    (5, 2 ** 40 + 3),                   # a seed that fills the high key word
+])
+def test_init_fast_keys_equal_jax(num_slots, seed):
+    """init_fast's keys are gphocs_tpu's for the same seed, bit for bit:
+    the port's numpy Threefry-2x32 against jax.random.bits (with the
+    default threefry2x32 generator in its partitionable layout)."""
+    want = JF.init_fast(num_slots, seed)
+    got = TF.init_fast(num_slots, seed)
+    np.testing.assert_array_equal(got.key.numpy(),
+                                  np.asarray(want.key).astype(np.int64))
+    assert int(got.ctr) == int(want.ctr) == 0
+
+
 def test_init_fast_lane_mix_and_roundtrip():
-    """init_fast draws its raw bits with numpy (documented deviation) but
-    applies gphocs_tpu's lane mix; keys are distinct and reproducible."""
+    """init_fast applies gphocs_tpu's lane mix to the Threefry bits; keys
+    are distinct and reproducible."""
     k1 = TF.init_fast(1000, 5)
     k2 = TF.init_fast(1000, 5)
     assert torch.equal(k1.key, k2.key) and int(k1.ctr) == 0
     assert len(set(k1.key.tolist())) == 1000
     assert int(k1.key.min()) >= 0 and int(k1.key.max()) < 2 ** 32
-    bits = np.random.default_rng(5).integers(
-        0, 2 ** 32, size=1000, dtype=np.uint64).astype(np.uint32)
+    bits = TF.threefry_bits(5, 1000)
     lane = jnp.arange(1000, dtype=jnp.uint32)
     want = JF._fmix32(jnp.asarray(bits) ^ JF._fmix32(lane * JF._GOLDEN))
     np.testing.assert_array_equal(k1.key.numpy(),

@@ -135,9 +135,6 @@ def test_spr_group_sync_matches_pallas_tiles(twins):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(twins):
     _, t = twins
-    with pytest.raises(NotImplementedError, match="sample-age"):
-        sweeps.rubber_band_eval(t["gen"], t["params"], t["seq"], t["ctx"],
-                                0, True, 0.0, 1.0, 0.5, 0.6, t["cond"])
     meta = t["gen"]._replace(age=t["gen"].age.to("meta"))
     with pytest.raises(ValueError, match="several devices"):
         sweeps.mig_age_sweep(meta, t["params"], t["lrng"], t["ctx"],

@@ -1,6 +1,7 @@
 """Shared set-up for the gphocs_tpu_torch tests: a warmed JAX sampler
-(gphocs_tpu, f64, fast RNG) on SAMPLE_CTL with a hot migration band, and
-its state carried into the port with state.from_numpy.
+(gphocs_tpu, f64, fast RNG) on SAMPLE_CTL (or another control text of
+config/samples.py) with a hot migration band, and its state carried into
+the port with state.from_numpy.
 
 The warm-up follows tests/test_sweeps_pallas.py's fixture: 24 loci x
 300 bp, start-mig passed, migration rate 2e5 so that migration events
@@ -24,16 +25,16 @@ from gphocs_tpu_torch.sampler.step import Finetunes
 F64 = torch.float64
 
 
-def warm_jax_sampler(tmp_dir, num_loci=24, seq_len=300):
+def warm_jax_sampler(tmp_dir, num_loci=24, seq_len=300, ctl=SAMPLE_CTL):
     from gphocs_tpu.io.simulate import simulate_seq_file
     from gphocs_tpu.model import build_poptree
 
-    cfg = parse_control_text(SAMPLE_CTL)
+    cfg = parse_control_text(ctl)
     tree = build_poptree(cfg)
     path = str(tmp_dir / "seqs.txt")
     simulate_seq_file(cfg, tree, path, num_loci=num_loci, seq_len=seq_len,
                       seed=11)
-    cfg = parse_control_text(SAMPLE_CTL)
+    cfg = parse_control_text(ctl)
     cfg.mcmc.random_seed = 17
     cfg.mcmc.start_mig = 0
     s = Sampler(cfg, seq_path=path, dtype=jnp.float64, rng_mode="fast")
