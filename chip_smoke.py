@@ -11,16 +11,24 @@ script then exits non-zero without the final line):
      kernel (registers, stack frame, spills);
   3. each kernel against its plain PyTorch version on the card at f64, on
      a warmed 64-locus x 300 bp state of SAMPLE_CTL with a hot migration
-     band, at blocks of 64 loci and of 24 (SPR against its plain version
-     at sync_group = the block): equal counter advance and accept counts,
-     equal SPR topology and migration integer arrays, ages within 1e-12,
-     lnld/lnp within 1e-9, conditionals within 1e-10; the rubber band's
-     sample-age mode the same way on a warmed 64-locus state of
-     SAMPLE_AGE_CTL (population D has an estimated sample age), for new
-     ages below and above the old one, with proposals that do and do not
-     run into a conflict: equal Jacobian counts and conflict flag; then
-     one f32 pass per kernel and mode (finite outputs, carried lnld
-     within 1e-3 relative of a plain rebuild);
+     band, at 8 loci per block and at 3 (the last block partial; SPR
+     against its plain version at sync_group = 1, a locus walking on its
+     own): equal counter advance and accept counts, equal SPR topology and
+     migration integer arrays, ages within 1e-12, lnld/lnp within 1e-9,
+     conditionals within 1e-10; the rubber band's sample-age mode the same
+     way on a warmed 64-locus state of SAMPLE_AGE_CTL (population D has an
+     estimated sample age), for new ages below and above the old one, with
+     proposals that do and do not run into a conflict: equal Jacobian
+     counts and conflict flag; the outputs of SPR and of both rubber-band
+     modes at the two block sizes must be bitwise equal to each other, and
+     so must those of the variant that keeps the conditionals in device
+     memory (forced here; chosen by the wrapper where a locus does not fit
+     in shared memory); then (3b) one f32 pass per kernel and mode (finite
+     outputs, carried lnld within 1e-3 relative of a plain rebuild); then
+     (3c) every kernel at f64 on a 64-locus x 16,000 bp state of WIDE_CTL
+     (16 samples: N = 31, SPR grid K = 51, more than 8 patterns), where
+     every lane loop of the warp-per-locus kernels takes more than one
+     turn;
   4. the main path on the standard workload (SAMPLE_CTL, 1000 loci x
      1000 bp simulated with seed 20260817) at f32: Sampler.initialize,
      run() with a trace file for 50 iterations, 3 warm-up iterations and a
@@ -28,7 +36,11 @@ script then exits non-zero without the final line):
      carried lnld checked against a from-scratch rebuild; then (4b) each
      kernel against its plain version on the main path's own state at
      f32, with the criteria of phase 3 at F32_TOL, and each kernel's time
-     beside its plain version's on that state; then (4c) the same
+     beside its plain version's on that state (`ms`: CUDA events around
+     the wrapper call; `device_ms`: events around the launch alone with
+     the arguments prebuilt; and the device operations the wrapper puts
+     on the stream besides its kernel, counted by torch.profiler); then
+     (4c) the same
      sampler made hot (band rate 2e5, stepped until migrations are
      present) and the kernels held against their plain versions again at
      f32 (F32_TOL) and on an f64 copy (F64_TOL), every sweep now required
@@ -60,7 +72,8 @@ each as one) that the sweep does on this run's state over 67 TFLOP/s
 The operation count follows the kernels' loops with the data-dependent
 terms read from the state (root-path depths, migration events per locus,
 lineage segments per population, SPR walk trips from the counter
-advance); `op_models` below states it.  No single PyTorch call computes
+advance, which is that of the locus with the most trips); `op_models`
+below states it.  No single PyTorch call computes
 one of these sweeps, so `library_ms` is null for every kernel.
 
 What was cut to keep the run short: all three paths read one simulated
@@ -148,8 +161,8 @@ class Compare:
         check(same, f"{kernel}: {name} differs")
 
 
-def warm_state(device, dtype, path, num_loci=64, ctl=None):
-    """A warmed num_loci x 300 bp Sampler on the control text `ctl`
+def warm_state(device, dtype, path, num_loci=64, ctl=None, seq_len=300):
+    """A warmed num_loci x seq_len bp Sampler on the control text `ctl`
     (SAMPLE_CTL by default) with a hot band and migrations present (also
     the fixture of tests/test_torch_csrc_host.py)."""
     from gphocs_tpu_torch.config import parse_control_text
@@ -161,7 +174,7 @@ def warm_state(device, dtype, path, num_loci=64, ctl=None):
     ctl = ctl or SAMPLE_CTL
     cfg = parse_control_text(ctl)
     simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=num_loci,
-                      seq_len=300, seed=11)
+                      seq_len=seq_len, seed=11)
     cfg = parse_control_text(ctl)
     cfg.mcmc.random_seed = 17
     cfg.mcmc.start_mig = 0
@@ -216,12 +229,16 @@ def sample_age_bounds(s, pop, step):
     return taub0, taub1, tauold, tauold + step * room
 
 
-def kernel_checks(s, cmp, tol, need_moves=True):
+def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     """Each kernel against its plain version on the same inputs.
 
     `s` holds a state (a Sampler, or a cast_state copy); `tol` is F64_TOL
     or F32_TOL.  With need_moves, every sweep must accept some moves, so
-    that the comparison covers accepted moves and not only rejections."""
+    that the comparison covers accepted moves and not only rejections.
+    Conditionals are compared after division by cond_scale (deep trees
+    carry the x4 rescale of every level).  Returns the outputs of the
+    warp-per-locus kernels (SPR, then the rubber band per population), for
+    comparisons between launch shapes."""
     from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
     from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
     from gphocs_tpu_torch.kernels.spr import update_spr
@@ -244,7 +261,8 @@ def kernel_checks(s, cmp, tol, need_moves=True):
     cmp.close("node_age", "age", k[0].age, q[0].age, t_age)
     cmp.close("node_age", "lnld", k[2], q[2], t_ld)
     cmp.close("node_age", "lnp", k[3], q[3], t_ld)
-    cmp.close("node_age", "cond", k[4], q[4], t_cond)
+    cmp.close("node_age", "cond", k[4] / cond_scale, q[4] / cond_scale,
+              t_cond)
 
     log("  mig_age")
     k = sweeps.mig_age_sweep(g, pr, r, c, s.ft.mig_time, lp)
@@ -256,9 +274,13 @@ def kernel_checks(s, cmp, tol, need_moves=True):
     cmp.close("mig_age", "mig_age", k[0].mig_age, q[0].mig_age, t_age)
     cmp.close("mig_age", "lnp", k[2], q[2], t_ld)
 
-    log(f"  spr (plain at sync_group={sweeps.BLOCK})")
+    log("  spr (plain at sync_group=1)")
     k = sweeps.spr_sweep(g, pr, sq, r, c, ld, cond)
-    q = update_spr(g, pr, sq, r, c, ld, cond, sync_group=sweeps.BLOCK)
+    q = update_spr(g, pr, sq, r, c, ld, cond, sync_group=1)
+    outs = [k[0].age, k[0].mig_age, k[1].ctr, k[2], k[3], k[4],
+            *(getattr(k[0], f) for f in ("father", "lson", "rson", "root",
+                                         "node_pop", "mig_branch",
+                                         "mig_band"))]
     check(int(k[1].ctr) == int(q[1].ctr),
           f"spr: counter {int(k[1].ctr)} {int(q[1].ctr)}")
     check(int(k[4]) == int(q[4]), f"spr: accepts {k[4]} {q[4]}")
@@ -270,7 +292,7 @@ def kernel_checks(s, cmp, tol, need_moves=True):
     cmp.close("spr", "age", k[0].age, q[0].age, t_age)
     cmp.close("spr", "mig_age", k[0].mig_age, q[0].mig_age, t_age)
     cmp.close("spr", "lnld", k[2], q[2], t_ld)
-    cmp.close("spr", "cond", k[3], q[3], t_cond)
+    cmp.close("spr", "cond", k[3] / cond_scale, q[3] / cond_scale, t_cond)
 
     log("  rubber_band")
     for pop in range(s.tree.num_cur_pops, s.tree.num_pops):
@@ -284,9 +306,11 @@ def kernel_checks(s, cmp, tol, need_moves=True):
             f"conflict {bool(k[7])}")
         cmp.close("rubber_band", "age", k[0], q[0], t_age)
         cmp.close("rubber_band", "mig_age", k[1], q[1], t_age)
-        cmp.close("rubber_band", "cond", k[2], q[2], t_cond)
+        cmp.close("rubber_band", "cond", k[2] / cond_scale,
+                  q[2] / cond_scale, t_cond)
         cmp.close("rubber_band", "lnld", k[3], q[3], t_ld)
         cmp.close("rubber_band", "lnp", k[4], q[4], t_ld)
+        outs += list(k)
     args = (g, pr, sq, s.grng, c, s.ft.taus, ld, lp, cond,
             s.tree.num_pops, s.tree.num_cur_pops)
     k = update_taus_fused(*args)
@@ -295,6 +319,7 @@ def kernel_checks(s, cmp, tol, need_moves=True):
     check(int(k[2].ctr) == int(q[2].ctr), "tau sweep: counter")
     cmp.close("rubber_band", "tau", k[1].tau, q[1].tau, tol["tau"])
     cmp.close("rubber_band", "sweep lnld", k[3], q[3], t_ld)
+    return outs
 
 
 def cast_state(s, dtype):
@@ -366,12 +391,49 @@ def time_cuda(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def device_ops(fn, reps=5):
+    """Device operations (kernels, copies, fills) of one call of fn,
+    counted by torch.profiler over `reps` calls (rounded up: the profiler
+    now and then drops an event).  None where the profiler cannot trace
+    the card (no access to CUPTI): the count is a report, not a check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    except RuntimeError as e:
+        log(f"  torch.profiler failed: {e}")
+        n = 0
+    if n == 0:
+        log("  torch.profiler saw no device operation: count not taken")
+        return None
+    return math.ceil(n / reps)
+
+
+def equal_outputs(what, a, b):
+    """Two launch shapes of the warp-per-locus kernels gave the same bits."""
+    import torch
+
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{what}: outputs differ")
+    log(f"  {what}: {len(a)} output tensors bitwise equal")
+
+
 def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False):
     """The rubber band's sample-age mode against its plain version on the
     state `s` of a configuration with an estimated sample age, for the
     proposals of SAMPLE_AGE_STEPS.  want_conflict / want_clean: some
     proposal must (must not) run into a conflict, so that both outcomes
-    of the conflict scan are compared."""
+    of the conflict scan are compared.  Returns the kernel's outputs."""
     from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
     from gphocs_tpu_torch.ops import sweeps
 
@@ -383,6 +445,7 @@ def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False):
     S = g.num_samples
     leaves = g.node_pop[:, :S] == pop
     seen = set()
+    outs = []
     for step in SAMPLE_AGE_STEPS:
         b = sample_age_bounds(s, pop, step)
         k = sweeps.rubber_band_eval(g, pr, sq, c, pop, True, *b, cond)
@@ -400,9 +463,11 @@ def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False):
         cmp.close(name, "cond", k[2], q[2], tol["cond"])
         cmp.close(name, "lnld", k[3], q[3], tol["lnld"])
         cmp.close(name, "lnp", k[4], q[4], tol["lnld"])
+        outs += list(k)
     check(True in seen or not want_conflict, f"{name}: no conflict covered")
     check(False in seen or not want_clean,
           f"{name}: no conflict-free proposal covered")
+    return outs
 
 
 def f32_sample_age_check(s):
@@ -447,7 +512,8 @@ def op_models(s, spr_draws, proposal=None):
                  + 2 B + 1) + 2 depth * node + lnld + 20; per walk trip:
                  K (10 + 2 N) (hazards) + K log2 K (prefix) + 2 N + 40;
                  trips per locus = (draws - N) / 2, `spr_draws` being the
-                 sweep's counter advance (the largest over blocks).
+                 sweep's counter advance (that of the locus with the most
+                 trips, so an upper estimate for the others).
     The rubber band's n_r are counted on `proposal` = (ages, migration
     ages) where given, else on the state.  Returns {kernel: (bytes,
     operations)} with the rubber band's two modes under one entry."""
@@ -630,7 +696,7 @@ def main():
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import (SAMPLE_AGE_CTL,
                                                  SAMPLE_AGE_VAR_CTL,
-                                                 SAMPLE_CTL)
+                                                 SAMPLE_CTL, WIDE_CTL)
     from gphocs_tpu_torch.io.simulate import simulate_seq_file
     from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
     from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
@@ -663,21 +729,46 @@ def main():
     s64 = warm_state(dev, torch.float64, os.path.join(tmp, "small.txt"))
     s64a = warm_state(dev, torch.float64, os.path.join(tmp, "small_age.txt"),
                       ctl=SAMPLE_AGE_CTL)
-    # the block size is also the SPR trip-sync group: blocks of 24 split
-    # the 64 loci into three groups, the last one partial
+    # SPR and the rubber band run a warp per locus and must not depend on
+    # the loci per block: 3 leaves the last block partial
     main_block = sweeps.BLOCK
-    for block in (main_block, 24):
+    outs = {}
+    for block in (main_block, 3):
         sweeps.BLOCK = block
-        log(f" -- blocks of {block} loci")
-        kernel_checks(s64, cmp, F64_TOL)
-        sample_age_checks(s64a, cmp, F64_TOL, want_conflict=True,
-                          want_clean=True)
+        log(f" -- {block} loci per block")
+        outs[block] = kernel_checks(s64, cmp, F64_TOL) + sample_age_checks(
+            s64a, cmp, F64_TOL, want_conflict=True, want_clean=True)
     sweeps.BLOCK = main_block
+    equal_outputs(f"{main_block} and 3 loci per block", outs[main_block],
+                  outs[3])
+    log(" -- the conditionals in device memory (forced)")
+    sweeps.FORCE_COND_IN_DEVICE_MEMORY = True
+    in_device = kernel_checks(s64, cmp, F64_TOL) + sample_age_checks(
+        s64a, cmp, F64_TOL)
+    sweeps.FORCE_COND_IN_DEVICE_MEMORY = False
+    equal_outputs("conditionals in device and in shared memory", in_device,
+                  outs[main_block])
+    del outs, in_device
     torch.cuda.synchronize()
     log("== phase 3b: f32 pass")
     f32_checks(s64)
     f32_sample_age_check(s64a)
     torch.cuda.synchronize()
+    del s64, s64a
+
+    log("== phase 3c: kernels vs plain versions wider than a warp "
+        "(f64, 64 loci x 16000 bp of WIDE_CTL)")
+    sw = warm_state(dev, torch.float64, os.path.join(tmp, "wide.txt"),
+                    ctl=WIDE_CTL, seq_len=16000)
+    _, wN, wP, _ = sw.cond.shape
+    wK = wN + sw.gen.max_migs + sw.ctx.num_pops + 2 * sw.ctx.num_bands + 1
+    log(f"  N={wN} K={wK} P={wP}")
+    check(wK > 32 and 4 * wP > 32, "the wide fixture is not wider than a warp")
+    # 15 levels of the x4 rescale: compare the conditionals relative to
+    # the largest
+    kernel_checks(sw, cmp, F64_TOL, cond_scale=float(sw.cond.abs().max()))
+    torch.cuda.synchronize()
+    del sw
 
     log(f"== phase 4: main path, standard workload ({WORKLOAD_LOCI} loci x "
         f"{WORKLOAD_BP} bp, f32)")
@@ -709,32 +800,59 @@ def main():
                                           s.cond),
             lambda: update_internal_node_ages(g, pr, sq, s.lrng, c,
                                               s.ft.coal_time, s.lnld, s.lnp,
-                                              s.cond)),
+                                              s.cond),
+            lambda: sweeps.prepare_node_age(g, pr, sq, s.lrng, c,
+                                            s.ft.coal_time, s.lnld, s.lnp,
+                                            s.cond)),
         "mig_age": (
             lambda: sweeps.mig_age_sweep(g, pr, s.lrng, c, s.ft.mig_time,
                                          s.lnp),
-            lambda: update_mig_ages(g, pr, s.lrng, c, s.ft.mig_time, s.lnp)),
+            lambda: update_mig_ages(g, pr, s.lrng, c, s.ft.mig_time, s.lnp),
+            lambda: sweeps.prepare_mig_age(g, pr, s.lrng, c, s.ft.mig_time,
+                                           s.lnp)),
         "rubber_band": (
             lambda: sweeps.rubber_band_eval(g, pr, sq, c, pop, False, *b,
                                             s.cond),
             lambda: rubber_band_eval_plain(g, pr, sq, c, pop, False, *b,
-                                           s.cond)),
+                                           s.cond),
+            lambda: sweeps.prepare_rubber_band(g, pr, sq, c, pop, False, *b,
+                                               s.cond)),
         "spr": (
             lambda: sweeps.spr_sweep(g, pr, sq, s.lrng, c, s.lnld, s.cond),
             lambda: update_spr(g, pr, sq, s.lrng, c, s.lnld, s.cond,
-                               sync_group=sweeps.BLOCK)),
+                               sync_group=1),
+            lambda: sweeps.prepare_spr(g, pr, sq, s.lrng, c, s.lnld,
+                                       s.cond)),
     }
     times = {}
 
-    def time_pair(name, kern, plain):
+    def time_pair(name, kern, plain, prepare):
+        """ms: events around the wrapper call; device_ms: events around
+        the launch alone, arguments prebuilt; ops: device operations of
+        one wrapper call besides the kernel."""
         k1 = time_cuda(kern, 10)
         p1 = time_cuda(plain, 2)
         k2 = time_cuda(kern, 10)
-        times[name] = (min(k1, k2), p1)
-        log(f"  {name:24s} kernel {k1:.3f} / {k2:.3f} ms   plain {p1:.3f} ms")
+        prep = prepare()
+        d1 = time_cuda(lambda: prep.launch(dev), 20)
+        ops = device_ops(kern)
+        ops = None if ops is None else ops - 1
+        plan = prep.plan
+        times[name] = {
+            "ms": min(k1, k2), "plain_ms": p1, "device_ms": d1,
+            "wrapper_device_ops": ops,
+            "loci_per_block": (plan.loci_per_block if plan
+                               else sweeps.THREAD_BLOCK),
+            "smem_bytes_per_block": plan.smem_bytes if plan else 0}
+        log(f"  {name:24s} wrapper call {k1:.3f} / {k2:.3f} ms   launch "
+            f"alone {d1:.4f} ms   plain {p1:.3f} ms   {ops} device "
+            f"operations besides the kernel   "
+            f"{times[name]['loci_per_block']} loci per block, "
+            f"{times[name]['smem_bytes_per_block']} B of dynamic shared "
+            "memory")
 
-    for name, (kern, plain) in pairs.items():
-        time_pair(name, kern, plain)
+    for name, fns in pairs.items():
+        time_pair(name, *fns)
     spr_draws = int(pairs["spr"][0]()[1].ctr) - int(s.lrng.ctr)
     prop = pairs["rubber_band"][0]()
     bounds = {k: bound(*v) + v
@@ -767,7 +885,10 @@ def main():
     time_pair("rubber_band_sample_age", sa_kernel,
               lambda: rubber_band_eval_plain(s.gen, s.params, s.seq, s.ctx,
                                              SAMPLE_AGE_POP, True, *sb,
-                                             s.cond))
+                                             s.cond),
+              lambda: sweeps.prepare_rubber_band(s.gen, s.params, s.seq,
+                                                 s.ctx, SAMPLE_AGE_POP, True,
+                                                 *sb, s.cond))
     v = op_models(s, 0, sa_kernel()[:2])["rubber_band"]
     bounds["rubber_band_sample_age"] = bound(*v) + v
     log(" -- the same sampler with a hot band: every kernel, f32 then f64")
@@ -811,10 +932,10 @@ def main():
             "source": f"gphocs_tpu_torch/csrc/{src[n][0]}",
             "replaces": src[n][1], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": cmp.err[n],
-            "ms": times[n][0], "plain_ms": times[n][1], "bound_ms": b_ms,
+            **times[n], "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": nbytes, "bound_operations": nops,
             "library_ms": None})
-        log(f"  {n:24s} {times[n][0]:.3f} ms; bound {b_ms * 1e3:.2f} us by "
+        log(f"  {n:24s} {times[n]['ms']:.3f} ms; bound {b_ms * 1e3:.2f} us by "
             f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)
     for label, its in paths.items():

@@ -10,6 +10,11 @@ root, tau 5e-5, so the age starts inside its bounds).  It is the
 population tree and age line of CTL_SAMPLE_AGE in gphocs_tpu's
 scripts/golden_compare.py, with SAMPLE_CTL's mixing left on.
 
+WIDE_CTL is SAMPLE_CTL with two diploid samples per population (S = 16
+haploid samples, N = 31 nodes): a small configuration in which the SPR
+boundary grid (K = N + M + PP + 2B + 1 = 51) and a locus's P x 4
+conditionals of a node are both wider than a warp.
+
 SAMPLE_AGE_VAR_CTL adds `locus-mut-rate VAR 1.0` with
 `finetune-locus-rate 0.3` (golden_compare.py's CTL_VAR_RATES settings).
 """
@@ -99,3 +104,9 @@ SAMPLE_AGE_VAR_CTL = SAMPLE_AGE_CTL.replace(
     "\tlocus-mut-rate          CONST",
     "\tlocus-mut-rate      VAR 1.0\n\tfinetune-locus-rate 0.3")
 assert "VAR 1.0" in SAMPLE_AGE_VAR_CTL
+
+WIDE_CTL = SAMPLE_CTL
+for _name in ("one", "two", "three", "five"):
+    WIDE_CTL = WIDE_CTL.replace(f"samples\t\t{_name} d\n",
+                                f"samples\t\t{_name} d {_name}b d\n")
+del _name

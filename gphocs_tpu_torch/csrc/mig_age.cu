@@ -16,16 +16,19 @@
 // with every population, O(PP (N + M) + M^2) per slot, in registers and
 // local memory.  One thread owns one locus, so L = 1000 loci fill only 16
 // blocks of 64 threads (16 of 132 SMs) and each thread runs M slots in
-// sequence; one warp per locus over the (population, segment) products is
-// work for later PRs.
+// sequence; one warp per locus over the (population, segment) products, as
+// in rubber_band.cu and spr.cu, is work for a later PR.  The population
+// tables are filled by the block into static shared memory
+// (PopTables::load).
 #include "sweeps_common.cuh"
 
 template <typename T>
 __global__ void mig_age_kernel(const SweepArgs a) {
+  __shared__ PopTables<T> pt;  // filled by the whole block
+  pt.load(a, false);
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= a.L) return;
   const int N = a.N, M = a.M, B = a.B, PP = a.PP;
-  const PopTables<T> pt(a);
   T age[MAXN], mag[MAXM];
   int father[MAXN], npop[MAXN], mbr[MAXM], mbd[MAXM];
   copy_real(age, (const T*)a.age + (size_t)l * N, N);

@@ -17,16 +17,18 @@
 // loads are 4 N P sizeof(T) bytes apart and do not coalesce.  At L = 1000
 // loci and 64-locus blocks the launch has 16 blocks: 16 of the 132 SMs are
 // busy.  Both are given up for a straight transcription of the plain
-// version; spreading a locus's patterns over a warp (coalesced, and
-// L x 32 threads) is work for later PRs.
+// version; a warp per locus with its tables in shared memory, as in
+// rubber_band.cu and spr.cu, is work for a later PR.  The population tables
+// are filled by the block into static shared memory (PopTables::load).
 #include "sweeps_common.cuh"
 
 template <typename T>
 __global__ void node_age_kernel(const SweepArgs a) {
+  __shared__ PopTables<T> pt;  // filled by the whole block
+  pt.load(a, false);
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= a.L) return;
   const int N = a.N, S = (N + 1) / 2, M = a.M, B = a.B, P = a.P;
-  const PopTables<T> pt(a);
   const size_t cn = (size_t)N * P * 4;
 
   T age[MAXN], mag[MAXM];

@@ -11,8 +11,7 @@
 // new band windows and the neighbouring events, a full bottom-up rebuild
 // of the conditionals (post-order, one combine per internal node) with the
 // root log-likelihood, and the genealogy log-prior from scratch (pairwise
-// overlaps of the segment set with the tight root cap).  Writes per-locus
-// Jacobian counts and conflicts for the wrapper's reduction.  No RNG.
+// overlaps of the segment set with the tight root cap).  No RNG.
 //
 // Sample-age mode (a.sample_age != 0): `pop` is a current population whose
 // sample age moves from tauold to taunew inside (taub0, taub1) = (0, its
@@ -23,38 +22,112 @@
 // population tables are those of the unchanged tau.  The rebuild and the
 // prior read the moved leaf ages from new_age like any other node's.
 //
-// What bounds it on this card: the rebuild writes all N x P x 4 conditionals
-// of every locus, and with one thread per locus a warp's accesses are
-// N P 4 sizeof(T) bytes apart (uncoalesced); the pairwise prior is
-// O(PP (N + M)^2) per locus in registers.  It runs 3 times an iteration
-// (once per ancestral population) with 16 blocks at L = 1000.  Spreading a
-// locus's patterns over a warp is work for later PRs.
+// What bounds it on this card: a chain of dependent steps per locus (the
+// post-order rebuild, N - S combines each waiting for its sons, then PP
+// rounds of the pairwise prior), not bytes or arithmetic; the card can
+// only run many loci side by side and keep each step short.  The design:
+//   * a warp per locus, a.block loci per block (125 blocks at L = 1000
+//     instead of 16).  Lanes take the remaps over nodes and migration
+//     slots, the conflict scan over slots, the P x 4 outputs of a combine,
+//     the segment build, and the rows of the pairwise prior;
+//   * every per-locus table in dynamic shared memory, sized from N, M, P;
+//     the conditionals too where a locus fits (a.cond_smem), staged in and
+//     out with coalesced row loads, else the same code works on cond_out in
+//     device memory, where a warp reads a row contiguously;
+//   * the population tables (with taunew in tau[pop], pop_end and the new
+//     band windows) are made by the block's prologue from the state's own
+//     tensors, and the Jacobian counts and the conflict count of the valid
+//     loci are added up here (integers: warp reduce, one atomicAdd per warp
+//     and count), so the wrapper launches next to nothing besides this;
+//   * sums in a fixed order: the pairwise overlap of population r is summed
+//     row by row (row s over s2 in index order, by the lane that owns the
+//     row), then the rows in index order.  The plain version and the
+//     thread-per-locus kernel before this one added all (s, s2) terms in
+//     one running sum, so lnp differs from theirs by rounding (~1e-13
+//     relative), and is equal for every number of loci per block.
 #include "sweeps_common.cuh"
+
+// reals and ints of one locus's tables, without the conditionals
+__host__ __device__ inline int rubber_reals(int N, int M, int P) {
+  return 3 * N + 2 * M + 5 * (N + M) + 3 * P;
+}
+__host__ __device__ inline int rubber_ints(int N, int M, int P) {
+  return 6 * N + 5 * M + 2 * (N + M) + P;
+}
+
+template <typename T>
+int rubber_smem_bytes(const SweepArgs& a) {
+  const int cn = a.cond_smem ? a.N * a.P * 4 : 0;
+  return a.block * locus_bytes<T>(rubber_reals(a.N, a.M, a.P) + cn,
+                                  rubber_ints(a.N, a.M, a.P));
+}
 
 template <typename T>
 __global__ void rubber_band_kernel(const SweepArgs a) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ PopTables<T> pt;  // tau/pop_end/band windows of the PROPOSAL
+  pt.load(a, a.sample_age == 0);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  (void)lane;
+  const int l = blockIdx.x * a.block + w;
   if (l >= a.L) return;
   const int N = a.N, S = (N + 1) / 2, M = a.M, B = a.B, PP = a.PP, P = a.P;
-  const PopTables<T> pt(a);  // tau/pop_end/band windows of the PROPOSAL
+  const int NS = N + M;
   const size_t cn = (size_t)N * P * 4;
-  const T* rs = (const T*)a.rscal;
-  const T taub0 = rs[0], taub1 = rs[1], tauold = rs[2], taunew = rs[3];
+  const T taub0 = *(const T*)a.taub0, taub1 = *(const T*)a.taub1;
+  const T tauold = *(const T*)a.tauold, taunew = *(const T*)a.taunew;
   const int pop = a.pop;
   const bool is_root = a.is_root != 0;
   const bool sample_age = a.sample_age != 0;
 
-  T age[MAXN], mag[MAXM], new_age[MAXN], new_mag[MAXM];
-  int lson[MAXN], rson[MAXN], father[MAXN], npop[MAXN], mbr[MAXM],
-      mbd[MAXM];
-  copy_real(age, (const T*)a.age + (size_t)l * N, N);
-  load_int(lson, (const i64*)a.lson + (size_t)l * N, N);
-  load_int(rson, (const i64*)a.rson + (size_t)l * N, N);
-  load_int(father, (const i64*)a.father + (size_t)l * N, N);
-  load_int(npop, (const i64*)a.node_pop + (size_t)l * N, N);
-  load_int(mbr, (const i64*)a.mig_branch + (size_t)l * M, M);
-  load_int(mbd, (const i64*)a.mig_band + (size_t)l * M, M);
-  copy_real(mag, (const T*)a.mig_age + (size_t)l * M, M);
+  // ---- this locus's tables in shared memory ----
+  const int nreal = rubber_reals(N, M, P) + (a.cond_smem ? (int)cn : 0);
+  unsigned char* region =
+      sweep_smem + (size_t)w * locus_bytes<T>(nreal, rubber_ints(N, M, P));
+  T* age = (T*)region;       T* mag = age + N;
+  T* new_age = mag + M;      T* new_mag = new_age + N;
+  T* top = new_mag + M;
+  T* sstart = top + N;       T* send = sstart + NS;
+  T* lo = send + NS;         T* hi = lo + NS;
+  T* rowp = hi + NS;
+  T* gcount = rowp + NS;     T* lg4 = gcount + P;     T* gsum = lg4 + P;
+  T* cond_s = gsum + P;
+  int* lson = (int*)((T*)region + nreal);
+  int* rson = lson + N;      int* father = rson + N;  int* npop = father + N;
+  int* order = npop + N;     int* stack = order + N;
+  int* mbr = stack + N;      int* mbd = mbr + M;
+  int* msrc = mbd + M;       int* mtgt = msrc + M;
+  int* mflag = mtgt + M;     // bit 0: conflict-checked, bit 1: out-migration
+  int* base = mflag + M;     // segment's base pop, -1 for no segment
+  int* pres = base + NS;
+  int* gid = pres + NS;
+  T* cond = a.cond_smem ? cond_s : (T*)a.cond_out + (size_t)l * cn;
+
+  {
+    const T* g_age = (const T*)a.age + (size_t)l * N;
+    const i64* g_ls = (const i64*)a.lson + (size_t)l * N;
+    const i64* g_rs = (const i64*)a.rson + (size_t)l * N;
+    const i64* g_fa = (const i64*)a.father + (size_t)l * N;
+    const i64* g_np = (const i64*)a.node_pop + (size_t)l * N;
+    LANES(v, N) {
+      age[v] = g_age[v];
+      lson[v] = (int)g_ls[v];
+      rson[v] = (int)g_rs[v];
+      father[v] = (int)g_fa[v];
+      npop[v] = (int)g_np[v];
+    }
+    const i64* g_mb = (const i64*)a.mig_branch + (size_t)l * M;
+    const i64* g_md = (const i64*)a.mig_band + (size_t)l * M;
+    const T* g_ma = (const T*)a.mig_age + (size_t)l * M;
+    LANES(m, M) {
+      mbr[m] = (int)g_mb[m];
+      mbd[m] = (int)g_md[m];
+      mag[m] = g_ma[m];
+    }
+    // the leaf rows of the conditionals
+    const T* cin = (const T*)a.cond_in + (size_t)l * cn;
+    LANES(j, S * P * 4) cond[j] = cin[j];
+  }
+  load_seq_w(a, l, gid, gcount, lg4, lane);
   const int root = (int)((const i64*)a.root)[l];
   const T mut = ((const T*)a.mut_rate)[l];
   const bool real = ((const bool*)a.valid)[l];
@@ -72,8 +145,8 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
   const T f1 = is_root ? f0 : (taunew - taub1) / (tauold - taub1);
 
   // ---- node-age remap ----
-  int ntj0 = 0, ntj1 = 0;
-  for (int n = 0; n < N; ++n) {
+  int ntj0 = 0, ntj1 = 0;  // this lane's share; reduced at the end
+  LANES(n, N) {
     const T x = age[n];
     const bool internal = n >= S;
     const bool in_pop = npop[n] == pop;
@@ -98,54 +171,53 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
 
   // ---- migration-age remap + conflicts ----
   int conflicts = 0;
-  for (int m = 0; m < M; ++m) new_mag[m] = mag[m];
-  if (B > 0) {
-    int msrc[MAXM], mtgt[MAXM];
-    bool checked[MAXM], kind_out[MAXM];
-    for (int m = 0; m < M; ++m) {
+  if (B == 0) {
+    LANES(m, M) new_mag[m] = mag[m];
+  } else {
+    LANES(m, M) {
       const bool act = mbr[m] >= 0;
       const int band = act ? mbd[m] : 0;
-      msrc[m] = (int)pt.bsrc[band];
-      mtgt[m] = (int)pt.btgt[band];
+      const int src = pt.bsrc[band], tgt = pt.btgt[band];
+      msrc[m] = src;
+      mtgt[m] = tgt;
       const T x = mag[m];
       const bool in_window = act && x >= taub0 && x <= taub1;
-      bool f0_sel, f1_sel;
+      bool f0_sel, f1_sel, checked, kind_out;
       if (sample_age) {
-        const bool touches = in_window && (msrc[m] == pop || mtgt[m] == pop);
+        const bool touches = in_window && (src == pop || tgt == pop);
         f1_sel = touches && x > tauold;
         f0_sel = touches && x <= tauold;
-        checked[m] = touches;
-        kind_out[m] = msrc[m] == pop;
+        checked = touches;
+        kind_out = src == pop;
       } else {
         const bool both_sons = in_window &&
-            ((msrc[m] == son0 && mtgt[m] == son1) ||
-             (msrc[m] == son1 && mtgt[m] == son0));
-        const bool src_anc = in_window && !both_sons && msrc[m] == pop;
+            ((src == son0 && tgt == son1) || (src == son1 && tgt == son0));
+        const bool src_anc = in_window && !both_sons && src == pop;
         const bool tgt_anc = in_window && !both_sons && !src_anc &&
-                             mtgt[m] == pop;
+                             tgt == pop;
         const bool src_son = in_window && !both_sons && !src_anc &&
-                             !tgt_anc &&
-                             (msrc[m] == son0 || msrc[m] == son1) &&
+                             !tgt_anc && (src == son0 || src == son1) &&
                              x > taub0;
         const bool tgt_son = in_window && !both_sons && !src_anc &&
                              !tgt_anc && !src_son &&
-                             (mtgt[m] == son0 || mtgt[m] == son1) &&
-                             x > taub0;
+                             (tgt == son0 || tgt == son1) && x > taub0;
         f1_sel = src_anc || tgt_anc;
         f0_sel = both_sons || src_son || tgt_son;
-        checked[m] = src_anc || tgt_anc || src_son || tgt_son;
-        kind_out[m] = src_anc || src_son;
+        checked = src_anc || tgt_anc || src_son || tgt_son;
+        kind_out = src_anc || src_son;
       }
       T y = x;
       if (f1_sel) y = taub1 + f1 * (x - taub1);
       if (f0_sel) y = taub0 + f0 * (x - taub0);
       new_mag[m] = act ? y : x;
+      mflag[m] = (checked ? 1 : 0) | (kind_out ? 2 : 0);
       ntj0 += f0_sel ? 1 : 0;
       ntj1 += f1_sel ? 1 : 0;
     }
     // against the NEW band windows, OLD node ages, OLD neighbour mig ages
-    for (int m = 0; m < M; ++m) {
-      if (!checked[m]) continue;
+    LANES(m, M) {
+      if (!(mflag[m] & 1)) continue;
+      const bool kind_out = (mflag[m] & 2) != 0;
       const int band = mbd[m];
       const T y = new_mag[m];
       bool c = y >= pt.be[band] || y <= pt.bs[band];
@@ -162,14 +234,14 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
       }
       const int branch = mbr[m];
       const int fa = father[branch];
-      if (!kind_out[m] && y > mag[m]) {          // in-migration moving up
+      if (!kind_out && y > mag[m]) {             // in-migration moving up
         const int up_src = msrc[up_slot];
         const bool exempt = up_src == pop || up_src == son0 ||
                             up_src == son1;
         c = c || (isfinite(up_age) && !exempt && y >= up_age);
         c = c || (fa >= 0 && y >= age[fa]);
       }
-      if (kind_out[m] && y < mag[m]) {           // out-migration moving down
+      if (kind_out && y < mag[m]) {              // out-migration moving down
         const int dn_tgt = mtgt[dn_slot];
         const bool exempt = dn_tgt == pop || dn_tgt == son0 ||
                             dn_tgt == son1;
@@ -179,57 +251,77 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
       conflicts += c ? 1 : 0;
     }
   }
-  copy_real((T*)a.age_out + (size_t)l * N, new_age, N);
-  copy_real((T*)a.mig_age_out + (size_t)l * M, new_mag, M);
+  {
+    T* o_age = (T*)a.age_out + (size_t)l * N;
+    T* o_mag = (T*)a.mig_age_out + (size_t)l * M;
+    LANES(v, N) o_age[v] = new_age[v];
+    LANES(m, M) o_mag[m] = new_mag[m];
+  }
 
   // ---- full conditional rebuild on the proposed ages (post-order) ----
-  T* cond = (T*)a.cond_out + (size_t)l * cn;
-  const T* cin = (const T*)a.cond_in + (size_t)l * cn;
-  copy_real(cond, cin, (size_t)S * P * 4);  // leaf rows
-  {
-    int stack[MAXN], order[MAXN];
-    int sp = 0, no = 0;
+  int no = 0;
+  ONE_LANE {
+    int sp = 0, cnt = 0;
     stack[sp++] = root;
     while (sp > 0) {  // reversed pre-order (node, right, left) ...
       const int v = stack[--sp];
       if (v < S) continue;
-      order[no++] = v;
+      order[cnt++] = v;
       stack[sp++] = lson[v];
       stack[sp++] = rson[v];
     }
-    for (int j = no - 1; j >= 0; --j)  // ... read backwards: sons first
-      recompute_node(cond, order[j], lson, rson, new_age, mut, P);
+    stack[0] = cnt;
   }
-  const i64* gid = (const i64*)a.group_id + (size_t)l * P;
-  const T* gcount = (const T*)a.group_count + (size_t)l * P;
-  const T* gnph = (const T*)a.group_nphases + (size_t)l * P;
-  const bool* pvalid = (const bool*)a.pattern_valid + (size_t)l * P;
-  T* gsum = (T*)a.gsum + (size_t)l * P;
-  ((T*)a.lnld_out)[l] = root_lnld(cond, root, gid, gcount, gnph, pvalid,
-                                  gsum, S, P);
+  no = stack[0];
+  for (int j = no - 1; j >= 0; --j)  // ... read backwards: sons first
+    recompute_node_w(cond, order[j], lson, rson, new_age, mut, P, lane);
+  const T lnld = root_lnld_w(cond, root, gid, gcount, lg4, gsum, S, P, lane);
+  if (a.cond_smem) {
+    T* o_cond = (T*)a.cond_out + (size_t)l * cn;
+    LANES(j, (int)cn) o_cond[j] = cond[j];
+  }
 
   // ---- genealogy log-prior from scratch on the proposal ----
+  // segment set (ops/coalstats.segments) with the tight root cap: N edge
+  // segments, then M migration segments
   T cap = new_age[0];
   for (int n = 1; n < N; ++n) cap = d_max(cap, new_age[n]);
   for (int r = 0; r < PP; ++r) cap = d_max(cap, pt.tau[r]);
   for (int b = 0; b < B; ++b) cap = d_max(cap, pt.be[b]);
-  Segs<T> sg;
-  sg.build(new_age, father, npop, mbr, mbd, new_mag, pt, cap, N, M);
-  T lo[MAXN + MAXM], hi[MAXN + MAXM];
-  bool pres[MAXN + MAXM];
+  LANES(v, N) top[v] = father[v] < 0 ? cap : new_age[father[v]];
+  LANES(s, NS) {
+    if (s < N) {
+      sstart[s] = new_age[s];
+      send[s] = d_min(top[s], first_mig_on(s, mbr, new_mag, M));
+      base[s] = npop[s];
+    } else {
+      const int m = s - N;
+      const bool act = mbr[m] >= 0;
+      sstart[s] = act ? new_mag[m] : (T)0;
+      send[s] = act ? d_min(next_mig_above(m, mbr, new_mag, M), top[mbr[m]])
+                    : (T)0;
+      base[s] = act ? (B > 0 ? pt.bsrc[mbd[m]] : 0) : -1;
+    }
+  }
   T lnp = (T)0;
   for (int r = 0; r < PP; ++r) {
-    for (int s = 0; s < sg.n; ++s) {
-      lo[s] = d_max(sg.start[s], pt.tau[r]);
-      hi[s] = d_min(sg.end[s], pt.pend[r]);
-      pres[s] = sg.valid[s] && pt.is_anc(r, sg.base[s]) && hi[s] > lo[s];
+    LANES(s, NS) {
+      lo[s] = d_max(sstart[s], pt.tau[r]);
+      hi[s] = d_min(send[s], pt.pend[r]);
+      pres[s] = base[s] >= 0 && pt.is_anc(r, base[s]) && hi[s] > lo[s];
+    }
+    LANES(s, NS) {  // row s of the pairwise overlaps, s2 in index order
+      T row = (T)0;
+      if (pres[s])
+        for (int s2 = 0; s2 < NS; ++s2)
+          if (pres[s2])
+            row += d_max(d_min(hi[s], hi[s2]) - d_max(lo[s], lo[s2]), (T)0);
+      rowp[s] = row;
     }
     T pair = (T)0, length = (T)0;
-    for (int s = 0; s < sg.n; ++s) {
+    for (int s = 0; s < NS; ++s) {
       if (!pres[s]) continue;
-      for (int s2 = 0; s2 < sg.n; ++s2)
-        if (pres[s2])
-          pair += d_max(d_min(hi[s], hi[s2]) - d_max(lo[s], lo[s2]), (T)0);
+      pair += rowp[s];
       length += d_max(hi[s] - lo[s], (T)0);
     }
     const T coal = pair - length;
@@ -240,15 +332,18 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
   if (B > 0) {
     T sm = (T)0;
     for (int b = 0; b < B; ++b) {
-      const int tb = (int)pt.btgt[b];
-      T mig = (T)0;
-      for (int s = 0; s < sg.n; ++s) {
-        const T l0 = d_max(sg.start[s], pt.tau[tb]);
-        const T h0 = d_min(sg.end[s], pt.pend[tb]);
-        const bool p0 = sg.valid[s] && pt.is_anc(tb, sg.base[s]) && h0 > l0;
+      const int tb = pt.btgt[b];
+      LANES(s, NS) {
+        const T l0 = d_max(sstart[s], pt.tau[tb]);
+        const T h0 = d_min(send[s], pt.pend[tb]);
+        const bool p0 = base[s] >= 0 && pt.is_anc(tb, base[s]) && h0 > l0;
         const T lt = d_max(l0, pt.bs[b]), ht = d_min(h0, pt.be[b]);
-        if (p0 && ht > lt) mig += d_max(ht - lt, (T)0);
+        rowp[s] = (p0 && ht > lt) ? d_max(ht - lt, (T)0) : (T)0;
+        pres[s] = p0 && ht > lt;
       }
+      T mig = (T)0;
+      for (int s = 0; s < NS; ++s)
+        if (pres[s]) mig += rowp[s];
       int nmig = 0;
       for (int m = 0; m < M; ++m) nmig += (mbr[m] >= 0 && mbd[m] == b);
       const T mr = pt.rate[b];
@@ -256,10 +351,20 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
     }
     lnp += sm;
   }
-  ((T*)a.lnp_out)[l] = real ? lnp : (T)0;
-  ((int*)a.aux0_out)[l] = ntj0;
-  ((int*)a.aux1_out)[l] = ntj1;
-  ((int*)a.aux2_out)[l] = conflicts;
+  // integer sums over the valid loci; an invalid locus adds nothing
+  ntj0 = warp_sum(ntj0);
+  ntj1 = warp_sum(ntj1);
+  conflicts = warp_sum(conflicts);
+  ONE_LANE {
+    ((T*)a.lnld_out)[l] = lnld;
+    ((T*)a.lnp_out)[l] = real ? lnp : (T)0;
+    if (real) {
+      int* stat = (int*)a.stat;
+      if (ntj0) atomicAdd(stat + 0, ntj0);
+      if (ntj1) atomicAdd(stat + 1, ntj1);
+      if (conflicts) atomicAdd(stat + 2, conflicts);
+    }
+  }
 }
 
-SWEEP_ENTRY(rubber_band, rubber_band_kernel)
+SWEEP_ENTRY_WARP(rubber_band, rubber_band_kernel, rubber_smem_bytes)

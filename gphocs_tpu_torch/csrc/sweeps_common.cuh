@@ -11,7 +11,16 @@
 //
 // Layout: every per-locus array is row-major [L, ...] as in the PyTorch
 // state (index arrays int64, masks bool, reals T = float or double); the
-// conditionals are [L, N, P, 4].  One thread owns one locus.
+// conditionals are [L, N, P, 4].
+//
+// Two launch shapes share this file.  node_age.cu and mig_age.cu run one
+// thread per locus (SWEEP_LAUNCH).  rubber_band.cu and spr.cu run one warp
+// per locus, `block` loci per block, with every per-locus table in dynamic
+// shared memory (SWEEP_LAUNCH_WARP): the lanes take the axes that are
+// parallel inside a locus, through the LANES / ONE_LANE sections below.
+// All four keep the population tables in static shared memory, filled by
+// the block from the state's theta, tau and migration rates
+// (PopTables::load).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,14 +28,22 @@
 
 typedef long long i64;
 
-// Compile-time bounds of the per-thread scratch arrays (checked by the
-// Python wrappers): nodes, migration slots, populations, bands, and the
-// SPR boundary grid.
+// Compile-time bounds (checked by the Python wrappers): nodes, migration
+// slots, populations, bands, and the SPR boundary grid.  They size the
+// per-thread arrays of the thread-per-locus kernels and the population
+// tables; the warp-per-locus kernels size their tables from the run's N,
+// M, P.
 #define MAXN 63
 #define MAXM 32
 #define MAXPP 16
 #define MAXB 8
 #define MAXK (MAXN + MAXM + MAXPP + 2 * MAXB + 1)
+
+// what a block may use of an SM's shared memory, static part included
+#define SMEM_LIMIT 232448
+// returned by a warp-per-locus entry point whose caller's shared-memory
+// size (SweepArgs.smem_bytes) is not what the kernel's layout needs
+#define SWEEP_ERR_SMEM 9001
 
 // Must match gphocs_tpu_torch/ops/cuda_lib.py (PTR_FIELDS, INT_FIELDS).
 struct SweepArgs {
@@ -38,11 +55,14 @@ struct SweepArgs {
   // sequence data
   const void* group_id; const void* group_count; const void* group_nphases;
   const void* pattern_valid;
-  // popf = [theta, tau, pop_end (PP each), band start, end, rate (B each)]
-  // popi = [father_pop (PP), band source, target (B each), anc (PP*PP)]
-  const void* popf; const void* popi;
+  // population parameters as the state holds them: theta [PP], tau [PP],
+  // mig_rate [B]; popi = [father_pop (PP), band source, target (B each),
+  // anc (PP*PP)], int64, constant for a run
+  const void* theta; const void* tau; const void* mig_rate; const void* popi;
   const void* key; const void* ctr; const void* finetune;
-  const void* rscal;  // rubber band: taub0, taub1, tauold, taunew
+  // rubber band: the proposal's four 0-d reals
+  const void* taub0; const void* taub1; const void* tauold;
+  const void* taunew;
   const void* lnld_in; const void* lnp_in; const void* cond_in;
   // outputs and scratch
   void* cond_out; void* prop; void* gsum;
@@ -50,27 +70,110 @@ struct SweepArgs {
   void* node_pop_out; void* root_out;
   void* mig_branch_out; void* mig_band_out; void* mig_age_out;
   void* lnld_out; void* lnp_out; void* acc_out;
-  void* aux0_out; void* aux1_out; void* aux2_out;
-  // sample_age: rubber band in its sample-age mode (pop is a current pop)
-  int L, N, M, B, PP, P, root_pop, pop, is_root, block, sample_age;
+  // int32 sums over the valid loci, zeroed by the wrapper.  Rubber band:
+  // [ntj0, ntj1, conflicts]; SPR: [accepts, largest draw offset].
+  void* stat;
+  // SPR built with -DSWEEP_PROFILE: [L, 16] int64 cycle counts, or null
+  void* prof;
+  // sample_age: rubber band in its sample-age mode (pop is a current pop).
+  // block: loci per block.  cond_smem: the warp-per-locus kernels keep the
+  // locus's conditionals in shared memory (else in cond_out / prop).
+  // smem_bytes: dynamic shared memory of one block.
+  int L, N, M, B, PP, P, root_pop, pop, is_root, block, sample_age,
+      cond_smem, smem_bytes;
   double oldage;
 };
 
+// ---- lanes ----------------------------------------------------------------
+// A warp-per-locus kernel is written in sections.  LANES(j, n) { ... } runs
+// its body for every j < n, strided over the warp's lanes; ONE_LANE { ... }
+// runs its body on lane 0.  Both are fenced by __syncwarp() before and
+// after, so a section sees everything written before it, and shared memory
+// is written only inside sections.  A body must not read what another
+// index of the same section writes.  Outside sections every lane computes
+// the same scalars from the same shared data (warp-uniform control flow).
+// The host build of the tests (tests/cuda_host) defines SWEEP_HOST: one
+// "lane" runs every index in a plain loop, forwards or (to catch a body
+// that depends on another index of its section) backwards.
+#ifndef SWEEP_HOST
+#define LANES(j, n)                                                     \
+  for (int s_ = (__syncwarp(), 0); s_ < 1; ++s_, __syncwarp())            \
+    for (int j = lane; j < (n); j += 32)
+#define ONE_LANE                                                         \
+  for (int s_ = (__syncwarp(), 0); s_ < 1; ++s_, __syncwarp())            \
+    if (lane == 0)
+#define BLOCK_THREADS(j, n)                                              \
+  for (int j = threadIdx.x; j < (n); j += blockDim.x)
+extern __shared__ __align__(16) unsigned char sweep_smem[];
+#endif
+
+// integer reductions over the warp (any order gives the same result)
+__device__ __forceinline__ int warp_sum(int x) {
+  return __reduce_add_sync(0xffffffffu, x);
+}
+__device__ __forceinline__ int warp_min(int x) {
+  return __reduce_min_sync(0xffffffffu, x);
+}
+
 template <typename T>
 struct PopTables {
-  const T* theta; const T* tau; const T* pend;
-  const T* bs; const T* be; const T* rate;
-  const i64* father_pop; const i64* bsrc; const i64* btgt;
-  const i64* anc;  // anc[i * PP + j]: i ancestor-or-self of j
+  T theta[MAXPP], tau[MAXPP], pend[MAXPP];
+  T bs[MAXB], be[MAXB], rate[MAXB];
+  int father_pop[MAXPP], bsrc[MAXB], btgt[MAXB];
+  // i ancestor-or-self of j: bit j of ancrow[i] and bit i of anccol[j]
+  unsigned ancrow[MAXPP], anccol[MAXPP];
   int PP, B;
-  __device__ PopTables(const SweepArgs& a) : PP(a.PP), B(a.B) {
-    const T* f = (const T*)a.popf;
-    theta = f; tau = f + PP; pend = f + 2 * PP;
-    bs = f + 3 * PP; be = bs + B; rate = be + B;
-    const i64* p = (const i64*)a.popi;
-    father_pop = p; bsrc = p + PP; btgt = bsrc + B; anc = btgt + B;
+  __device__ bool is_anc(int i, int j) const {
+    return (ancrow[i] >> j) & 1u;
   }
-  __device__ bool is_anc(int i, int j) const { return anc[i * PP + j] != 0; }
+
+  // Fill the tables of a __shared__ instance, all threads of the block
+  // together (two block barriers inside).  With `proposal`, tau[a.pop] is
+  // *a.taunew: the rubber band's proposed tau.  pop_end and the band
+  // windows follow from tau as kernels/common.py pop_end and band_windows
+  // compute them (a collapsed band, start >= end, sits at its target's
+  // tau): max, min and compare only, so the same bits.
+  __device__ void load(const SweepArgs& a, bool proposal) {
+    const int np = a.PP, nb = a.B;
+    const i64* pi = (const i64*)a.popi;
+    BLOCK_THREADS(j, np) {
+      theta[j] = ((const T*)a.theta)[j];
+      tau[j] = (proposal && j == a.pop) ? *(const T*)a.taunew
+                                        : ((const T*)a.tau)[j];
+      father_pop[j] = (int)pi[j];
+    }
+    BLOCK_THREADS(b, nb) {
+      rate[b] = ((const T*)a.mig_rate)[b];
+      bsrc[b] = (int)pi[np + b];
+      btgt[b] = (int)pi[np + nb + b];
+    }
+    BLOCK_THREADS(i, np) {
+      const i64* anc = pi + np + 2 * nb;
+      unsigned row = 0, col = 0;
+      for (int j = 0; j < np; ++j) {
+        row |= (anc[i * np + j] != 0 ? 1u : 0u) << j;
+        col |= (anc[j * np + i] != 0 ? 1u : 0u) << j;
+      }
+      ancrow[i] = row;
+      anccol[i] = col;
+    }
+    BLOCK_THREADS(j, 1) { PP = np; B = nb; }
+    __syncthreads();
+    BLOCK_THREADS(j, np)
+      pend[j] = father_pop[j] < 0 ? (T)a.oldage : tau[father_pop[j]];
+    BLOCK_THREADS(b, nb) {
+      const int s = bsrc[b], t = btgt[b];
+      int fs = father_pop[s], ft = father_pop[t];
+      fs = fs < 0 ? fs + np : fs;  // a negative index counts from the end
+      ft = ft < 0 ? ft + np : ft;
+      const T st = tau[s] > tau[t] ? tau[s] : tau[t];
+      const T en = tau[fs] < tau[ft] ? tau[fs] : tau[ft];
+      const bool collapsed = st >= en;
+      bs[b] = collapsed ? tau[t] : st;
+      be[b] = collapsed ? tau[t] : en;
+    }
+    __syncthreads();
+  }
 };
 
 // ---- math overloads ------------------------------------------------------
@@ -335,13 +438,132 @@ __device__ __forceinline__ void copy_real(T* dst, const T* src, size_t n) {
   for (size_t j = 0; j < n; ++j) dst[j] = src[j];
 }
 
+// ---- warp-per-locus forms of the helpers above ---------------------------
+// `cond` is one locus's [N, P, 4] conditionals, in shared memory or (where
+// a locus does not fit) in device memory; a row is contiguous either way.
+// Every lane passes the same arguments.
+
+// recompute internal node n: the P x 4 outputs of jc_combine over the lanes
+template <typename T>
+__device__ __forceinline__ void recompute_node_w(T* cond, int n,
+                                                 const int* lson,
+                                                 const int* rson,
+                                                 const T* age, T mut, int P,
+                                                 int lane) {
+  const int ls = lson[n], rs = rson[n];
+  const T pa = edge_p(mut * (age[n] - age[ls]));
+  const T pb = edge_p(mut * (age[n] - age[rs]));
+  const T qa = (T)1 - (T)4 * pa, qb = (T)1 - (T)4 * pb;
+  T* out = cond + (size_t)n * P * 4;
+  const T* ca = cond + (size_t)ls * P * 4;
+  const T* cb = cond + (size_t)rs * P * 4;
+  LANES(j, 4 * P) {
+    const T* x = ca + (j & ~3);
+    const T* y = cb + (j & ~3);
+    const T sa = ((x[0] + x[1]) + x[2]) + x[3];
+    const T sb = ((y[0] + y[1]) + y[2]) + y[3];
+    const T fa = pa * sa + qa * ca[j];
+    const T fb = pb * sb + qb * cb[j];
+    out[j] = (T)4 * fa * fb;
+  }
+}
+
+// recompute the path start -> root, one node after another; returns the
+// dirty-row mask
+template <typename T>
+__device__ uint64_t refresh_path_w(T* cond, int start, const int* lson,
+                                   const int* rson, const int* father,
+                                   const T* age, T mut, int N, int S, int P,
+                                   int lane) {
+  uint64_t dirty = 0;
+  int cur = start;
+  for (int step = 0; cur >= 0 && step < N; ++step) {
+    if (cur >= S) {
+      recompute_node_w(cond, cur, lson, rson, age, mut, P, lane);
+      dirty |= 1ull << cur;
+    }
+    cur = father[cur];
+  }
+  return dirty;
+}
+
+// copy the rows of `mask` from src to dst, all in one section
+template <typename T>
+__device__ void copy_rows_w(T* dst, const T* src, uint64_t mask, int P,
+                            int lane) {
+  const int w = 4 * P;
+  LANES(j, __popcll(mask) * w) {
+    uint64_t m = mask;  // drop the j / w lowest rows of the mask
+    for (int r = j / w; r > 0; --r) m &= m - 1;
+    const size_t at = (size_t)(__ffsll((long long)m) - 1) * w + j % w;
+    dst[at] = src[at];
+  }
+}
+
+// Per-locus sequence tables in shared memory: gid[p] is the pattern's
+// group, -1 for an invalid pattern; lg4[g] = log(4 nphases[g]).
+template <typename T>
+__device__ void load_seq_w(const SweepArgs& a, int l, int* gid, T* gcount,
+                           T* lg4, int lane) {
+  const int P = a.P;
+  const i64* g_id = (const i64*)a.group_id + (size_t)l * P;
+  const T* g_count = (const T*)a.group_count + (size_t)l * P;
+  const T* g_nph = (const T*)a.group_nphases + (size_t)l * P;
+  const bool* pvalid = (const bool*)a.pattern_valid + (size_t)l * P;
+  LANES(p, P) {
+    gid[p] = pvalid[p] ? (int)g_id[p] : -1;
+    gcount[p] = g_count[p];
+    lg4[p] = d_log((T)4 * g_nph[p]);
+  }
+}
+
+// root_lnld with the tables of load_seq_w.  The group sums and the final
+// sum keep root_lnld's order (one lane, then every lane alike); the P
+// logarithms between them go over the lanes.  Returns the same value on
+// every lane; gsum: [P] scratch of the locus.
+template <typename T>
+__device__ T root_lnld_w(const T* cond, int root, const int* gid,
+                         const T* gcount, const T* lg4, T* gsum, int S,
+                         int P, int lane) {
+  const T* rc = cond + (size_t)root * P * 4;
+  ONE_LANE {
+    for (int g = 0; g < P; ++g) gsum[g] = (T)0;
+    for (int p = 0; p < P; ++p) {
+      if (gid[p] >= 0) {
+        const T* x = rc + 4 * p;
+        gsum[gid[p]] += ((x[0] + x[1]) + x[2]) + x[3];
+      }
+    }
+  }
+  const T c = (T)((S - 1) * 1.3862943611198906);  // (S-1) log 4
+  LANES(g, P) {
+    const T safe = gcount[g] > (T)0 ? gsum[g] : (T)1;
+    gsum[g] = gcount[g] * (d_log(safe) - lg4[g] - c);
+  }
+  T lnl = (T)0;
+  for (int g = 0; g < P; ++g) lnl += gsum[g];
+  return lnl;
+}
+
+// Bytes of one locus's shared-memory region: `reals` T's, then `ints`
+// ints, rounded up to 16.  ops/sweeps.py smem_plan computes the same.
+template <typename T>
+__host__ __device__ inline int locus_bytes(int reals, int ints) {
+  return (reals * (int)sizeof(T) + ints * 4 + 15) / 16 * 16;
+}
+
 // One C entry point per kernel and real type: launch on `stream`, return
-// cudaGetLastError().  SWEEP_LAUNCH is the launch itself; the CPU tests
+// cudaGetLastError().  SWEEP_LAUNCH is the launch of a thread-per-locus
+// kernel, SWEEP_LAUNCH_WARP that of a warp-per-locus kernel with
+// a->smem_bytes of dynamic shared memory; the CPU tests
 // (tests/test_torch_csrc_host.py) compile these sources with a host C++
-// compiler and define it to run every locus as a one-thread block in turn.
+// compiler and define both to run the loci one after another.
 #ifndef SWEEP_LAUNCH
 #define SWEEP_LAUNCH(K, a, stream)                                         \
   K<<<(a->L + a->block - 1) / a->block, a->block, 0,                        \
+      (cudaStream_t)stream>>>(*a)
+#define SWEEP_LAUNCH_WARP(K, a, stream)                                    \
+  K<<<(a->L + a->block - 1) / a->block, 32 * a->block, a->smem_bytes,       \
       (cudaStream_t)stream>>>(*a)
 #endif
 
@@ -353,4 +575,29 @@ __device__ __forceinline__ void copy_real(T* dst, const T* src, size_t n) {
   extern "C" int name##_f64(const SweepArgs* a, void* stream) {            \
     SWEEP_LAUNCH(kernel<double>, a, stream);                               \
     return (int)cudaGetLastError();                                        \
+  }
+
+// bytes_fn<T>(a): the dynamic shared memory the kernel's layout needs.
+// A size above 48 KB has to be allowed for the kernel first; a size the
+// card refuses comes back as the error of that call or of the launch.
+template <typename K, typename F>
+static int launch_warp_kernel(K kernel, F bytes_fn, const SweepArgs* a,
+                              void* stream) {
+  if (a->block < 1 || bytes_fn(*a) != a->smem_bytes) return SWEEP_ERR_SMEM;
+  if (a->smem_bytes > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
+    if (err != 0) return err;
+  }
+  SWEEP_LAUNCH_WARP(kernel, a, stream);
+  return (int)cudaGetLastError();
+}
+
+#define SWEEP_ENTRY_WARP(name, kernel, bytes_fn)                           \
+  extern "C" int name##_f32(const SweepArgs* a, void* stream) {            \
+    return launch_warp_kernel(kernel<float>, bytes_fn<float>, a, stream);  \
+  }                                                                        \
+  extern "C" int name##_f64(const SweepArgs* a, void* stream) {            \
+    return launch_warp_kernel(kernel<double>, bytes_fn<double>, a,         \
+                              stream);                                     \
   }

@@ -36,6 +36,9 @@ class Context:
     root_pop: int = 0
     num_cur_pops: int = 0
     oldage: float = OLDAGE
+    # the CUDA kernels' integer tables, built once by make_context:
+    # [father_pop (P), band_source (B), band_target (B), is_ancestral (P*P)]
+    popi: torch.Tensor | None = None
 
     @property
     def num_pops(self) -> int:
@@ -57,7 +60,11 @@ def make_context(tree: PopTree, dtype=torch.float64, device="cpu") -> Context:
     def real(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    popi = torch.cat([i64(tree.father), i64(tree.band_source),
+                      i64(tree.band_target),
+                      i64(tree.is_ancestral).reshape(-1)]).contiguous()
     return Context(
+        popi=popi,
         father_pop=i64(tree.father),
         pop_sons=i64(tree.sons),
         is_ancestral=torch.as_tensor(tree.is_ancestral, dtype=torch.bool,

@@ -22,8 +22,9 @@ any lane of the group is still walking, at most M+3 trips; each trip
 consumes 2 draws for every lane of the group, and the MH uniform 1 more.
 Each group keeps its own draw offset, and the shared counter advances by
 the largest offset over groups.  sync_group = L is gphocs_tpu's XLA
-update_spr draw for draw; sync_group = g is spr_sweep_pallas(tile=g) and
-the CUDA kernel at block size g.  Padding loci (gen.valid False) do not
+update_spr draw for draw; sync_group = g is spr_sweep_pallas(tile=g);
+sync_group = 1, every locus walking on its own, is the CUDA kernel
+(csrc/spr.cu, a warp per locus).  Padding loci (gen.valid False) do not
 walk, as in the Pallas kernel.
 """
 

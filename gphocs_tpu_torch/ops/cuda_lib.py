@@ -14,9 +14,13 @@ stack frame and spills of every kernel) is kept beside the library as
 ptxas_<hash>.txt (`resource_report`).  -fmad=false keeps every multiply and add rounded
 on its own, as the plain versions' separate tensor ops are: the kernels
 then agree with them to the last bits at f64 (a contracted proposal moves
-ages by ~1e-13, and the prior, d lnP / d t ~ 2 n / theta ~ 1e5, by ~1e-8).  Every entry point takes a pointer to one
-`SweepArgs` struct (csrc/sweeps_common.cuh) and the CUDA stream, launches
-one kernel, and returns cudaGetLastError(); `launch` raises on non-zero.
+ages by ~1e-13, and the prior, d lnP / d t ~ 2 n / theta ~ 1e5, by ~1e-8).
+Every entry point takes a pointer to one `SweepArgs` struct
+(csrc/sweeps_common.cuh) and the CUDA stream, launches one kernel, and
+returns cudaGetLastError(); `launch` raises on non-zero.  The entry points
+of the warp-per-locus kernels (rubber band, SPR) also hold the caller's
+shared-memory size against their own layout and allow the kernel more
+than 48 KB of dynamic shared memory where it asks for that.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without nvcc.
@@ -38,23 +42,28 @@ HEADERS = ("sweeps_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# bounds of the kernels' per-thread arrays (MAXN... in sweeps_common.cuh)
+# bounds of the kernels' tables (MAXN... in sweeps_common.cuh), what a block
+# may use of an SM's shared memory (SMEM_LIMIT there), and the error an
+# entry point returns for a shared-memory size its layout does not need
 MAXN, MAXM, MAXPP, MAXB = 63, 32, 16, 8
+SMEM_LIMIT = 232448
+ERR_SMEM = 9001
 
 # SweepArgs field order: must match struct SweepArgs in sweeps_common.cuh
 PTR_FIELDS = (
     "age", "lson", "rson", "father", "node_pop", "root",
     "mig_branch", "mig_band", "mig_age", "mut_rate", "valid",
     "group_id", "group_count", "group_nphases", "pattern_valid",
-    "popf", "popi", "key", "ctr", "finetune", "rscal",
+    "theta", "tau", "mig_rate", "popi", "key", "ctr", "finetune",
+    "taub0", "taub1", "tauold", "taunew",
     "lnld_in", "lnp_in", "cond_in",
     "cond_out", "prop", "gsum",
     "age_out", "lson_out", "rson_out", "father_out", "node_pop_out",
     "root_out", "mig_branch_out", "mig_band_out", "mig_age_out",
-    "lnld_out", "lnp_out", "acc_out", "aux0_out", "aux1_out", "aux2_out",
+    "lnld_out", "lnp_out", "acc_out", "stat", "prof",
 )
 INT_FIELDS = ("L", "N", "M", "B", "PP", "P", "root_pop", "pop", "is_root",
-              "block", "sample_age")
+              "block", "sample_age", "cond_smem", "smem_bytes")
 
 
 class SweepArgs(ctypes.Structure):
@@ -154,6 +163,10 @@ def launch(entry: str, args: SweepArgs, stream: int) -> None:
     """Call one C entry point; raise if the launch reported an error."""
     err = getattr(library(), entry)(ctypes.byref(args),
                                     ctypes.c_void_p(stream))
+    if err == ERR_SMEM:
+        raise RuntimeError(f"CUDA kernel {entry}: {args.smem_bytes} bytes of "
+                           f"shared memory for blocks of {args.block} loci "
+                           "is not what the kernel's layout needs")
     if err != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")

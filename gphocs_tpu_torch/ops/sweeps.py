@@ -4,9 +4,11 @@ evaluation and SPR (the port of gphocs_tpu/ops/sweeps_pallas.py).
 Each wrapper takes the Pallas wrapper's arguments and returns its outputs,
 in the [L, ...] layout of the state (no lanes-last transposes):
 
-  * CUDA tensors: launch the hand-written kernel in csrc/ (one thread per
-    locus, blocks of BLOCK loci) on the current stream and add one to the
-    wrapper's entry in LAUNCHES;
+  * CUDA tensors: launch the hand-written kernel in csrc/ on the current
+    stream and add one to the wrapper's entry in LAUNCHES.  Node age and
+    migration age run one thread per locus in blocks of THREAD_BLOCK; the
+    rubber band and SPR run one warp per locus, BLOCK loci per block, with
+    the locus's tables in shared memory (`smem_plan`);
   * CPU tensors: call the kernel's plain PyTorch version;
   * any other device, a dtype or shape the kernel does not take, or a
     non-contiguous tensor: raise.
@@ -14,16 +16,25 @@ in the [L, ...] layout of the state (no lanes-last transposes):
 A failed build or launch raises; nothing falls back from the kernel to
 the plain version or from CUDA to the CPU.
 
-SPR walk trips synchronize per group of loci (kernels/spr.py): on CUDA
-the group is the kernel's block (BLOCK loci), on the CPU it is all L
-loci, so the CPU path reproduces gphocs_tpu's XLA update_spr.
+The kernels read theta, tau and the migration rates from the state's own
+tensors and make pop_end and the band windows themselves; the integer
+tables are built once per Context (`Context.popi`).  The rubber band and
+SPR also reduce their per-locus counts on the card, so their wrappers
+launch a fill, the kernel and two small conversions.
+
+SPR walk trips (kernels/spr.py): on CUDA every locus walks on its own
+(the plain version at sync_group = 1), whatever the block size; on the
+CPU the trips synchronize over all L loci, so the CPU path reproduces
+gphocs_tpu's XLA update_spr.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from gphocs_tpu_torch.kernels.common import Context, band_windows, pop_end
+from gphocs_tpu_torch.kernels.common import Context
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
@@ -32,8 +43,17 @@ from gphocs_tpu_torch.ops import cuda_lib
 from gphocs_tpu_torch.rng_fast import MASK32, FastRngState
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 
-# loci per CUDA block; also the SPR trip-synchronization group on CUDA
-BLOCK = 64
+# loci (warps) per CUDA block of the warp-per-locus kernels, where shared
+# memory allows; the results do not depend on it
+BLOCK = 8
+# threads (loci) per CUDA block of the thread-per-locus kernels
+THREAD_BLOCK = 64
+# keep the conditionals of the warp-per-locus kernels in device memory even
+# where a locus fits in shared memory (chip_smoke.py and the tests set it to
+# drive that variant at small sizes)
+FORCE_COND_IN_DEVICE_MEMORY = False
+# static shared memory of a kernel (the population tables), rounded up
+STATIC_SMEM = 1024
 
 # kernel launches per wrapper since the last reset_launch_counts(); the
 # rubber-band kernel's two modes (tau, sample age) are counted apart
@@ -44,6 +64,50 @@ LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0,
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class SmemPlan(NamedTuple):
+    loci_per_block: int
+    cond_smem: bool     # the locus's conditionals live in shared memory
+    smem_bytes: int     # dynamic shared memory of one block
+
+
+def smem_plan(kernel: str, N: int, M: int, PP: int, B: int, P: int,
+              itemsize: int, block: int,
+              cond_in_device_memory: bool = False) -> SmemPlan:
+    """Shared-memory budget of a warp-per-locus kernel ("spr" or
+    "rubber_band"): how many loci share a block and where the conditionals
+    live.  One locus takes its tables (the counts of spr_reals/spr_ints and
+    rubber_reals/rubber_ints in csrc/) and, where they fit, its
+    conditionals [N, P, 4] (SPR: and their proposal copy), rounded up to 16
+    bytes.  A block holds `block` loci, or as many as fit beside the static
+    tables in the 232,448 bytes a block may use; at most 32 (1024 threads).
+    Where one locus with its conditionals does not fit, they stay in device
+    memory; where its tables alone do not fit, raise."""
+    NS = N + M
+    if kernel == "spr":
+        K = N + M + PP + 2 * B + 1
+        reals, ints = 3 * N + 4 * M + 4 * K + 3 * P, 9 * N + 7 * M + P
+        cond = 2 * N * P * 4
+    elif kernel == "rubber_band":
+        reals, ints = 3 * N + 2 * M + 5 * NS + 3 * P, 6 * N + 5 * M + 2 * NS + P
+        cond = N * P * 4
+    else:
+        raise ValueError(f"no warp-per-locus kernel {kernel!r}")
+
+    def locus(with_cond: bool) -> int:
+        n = (reals + (cond if with_cond else 0)) * itemsize + ints * 4
+        return -(-n // 16) * 16
+
+    room = cuda_lib.SMEM_LIMIT - STATIC_SMEM
+    if locus(False) > room:
+        raise ValueError(
+            f"{kernel}: one locus's tables take {locus(False)} bytes of "
+            f"shared memory, a block has {room} (N={N}, M={M}, P={P})")
+    cond_smem = not cond_in_device_memory and locus(True) <= room
+    per = locus(cond_smem)
+    lpb = max(1, min(int(block), 32, room // per))
+    return SmemPlan(lpb, cond_smem, lpb * per)
 
 
 def _on_cuda(*tensors) -> bool:
@@ -76,22 +140,8 @@ def _real_suffix(dt) -> str:
     raise TypeError(f"sweep kernels take float32 or float64, not {dt}")
 
 
-def _pop_tables(ctx: Context, params: Params, tau: torch.Tensor):
-    """Packed per-population tables for the kernels:
-    popf = [theta(PP), tau(PP), pop_end(PP), band_start(B), band_end(B),
-    mig_rate(B)], popi = [father_pop(PP), band_source(B), band_target(B),
-    is_ancestral(PP*PP)] (is_ancestral[i, j]: i ancestor-or-self of j)."""
-    bs, be = band_windows(ctx, tau)
-    popf = torch.cat([params.theta, tau, pop_end(ctx, tau), bs, be,
-                      params.mig_rate]).contiguous()
-    popi = torch.cat([ctx.father_pop, ctx.band_source, ctx.band_target,
-                      ctx.is_ancestral.reshape(-1).to(torch.int64)]
-                     ).contiguous()
-    return popf, popi
-
-
-def _args(gen: GenState, params: Params, ctx: Context, seq, rng,
-          tau: torch.Tensor, keep: list) -> cuda_lib.SweepArgs:
+def _args(gen: GenState, params: Params, ctx: Context, seq,
+          rng) -> cuda_lib.SweepArgs:
     """SweepArgs with the state inputs filled in and checked."""
     L, N = gen.father.shape
     M = gen.max_migs
@@ -123,28 +173,85 @@ def _args(gen: GenState, params: Params, ctx: Context, seq, rng,
         a.pattern_valid = _check(seq.pattern_valid, "pattern_valid",
                                  torch.bool, (L, P))
         a.P = P
-    popf, popi = _pop_tables(ctx, params, tau)
-    a.popf = _check(popf, "popf", dt, (3 * PP + 3 * B,))
-    a.popi = _check(popi, "popi", i64, (PP + 2 * B + PP * PP,))
+    a.theta = _check(params.theta, "theta", dt, (PP,))
+    a.tau = _check(params.tau, "tau", dt, (PP,))
+    a.mig_rate = _check(params.mig_rate, "mig_rate", dt, (B,))
+    if ctx.popi is None or ctx.popi.device != gen.age.device:
+        raise ValueError("the Context carries no integer tables on the "
+                         "state's device: build it with make_context")
+    a.popi = _check(ctx.popi, "popi", i64, (PP + 2 * B + PP * PP,))
     if rng is not None:
         a.key = _check(rng.key, "key", i64, (L,))
         a.ctr = _check(rng.ctr, "ctr", i64, ())
-    keep += [popf, popi]
     a.L, a.N, a.M, a.B, a.PP = L, N, M, B, PP
     a.root_pop = ctx.root_pop
-    a.block = BLOCK
+    a.block = THREAD_BLOCK
     a.oldage = ctx.oldage
     return a
 
 
+def _plan_into(a: cuda_lib.SweepArgs, kernel: str, itemsize: int) -> SmemPlan:
+    """Choose the block of a warp-per-locus kernel and write it into a."""
+    plan = smem_plan(kernel, a.N, a.M, a.PP, a.B, a.P, itemsize, BLOCK,
+                     FORCE_COND_IN_DEVICE_MEMORY)
+    a.block, a.cond_smem, a.smem_bytes = (plan.loci_per_block,
+                                          int(plan.cond_smem),
+                                          plan.smem_bytes)
+    return plan
+
+
 def _scalar(x, dt, device, keep: list) -> int:
-    t = torch.as_tensor(x, dtype=dt, device=device).reshape(()).contiguous()
-    keep.append(t)
-    return t.data_ptr()
+    """Pointer to x as a 0-d tensor of dtype dt on `device`: x itself where
+    it already is one, else a copy."""
+    if not (isinstance(x, torch.Tensor) and x.dtype == dt
+            and x.device == device and x.numel() == 1):
+        x = torch.as_tensor(x, dtype=dt, device=device).reshape(())
+    keep.append(x)
+    return x.data_ptr()
 
 
 def _advance(rng: FastRngState, n) -> FastRngState:
     return rng._replace(ctr=(rng.ctr + n) & MASK32)
+
+
+class Prepared(NamedTuple):
+    """A kernel ready to launch: the entry point's name, its arguments, the
+    shared-memory plan of a warp-per-locus kernel (None for the others),
+    its output tensors, and the scratch and scalar tensors the arguments
+    point into."""
+    entry: str
+    args: cuda_lib.SweepArgs
+    plan: SmemPlan | None
+    out: dict
+    keep: list
+
+    def launch(self, device) -> None:
+        cuda_lib.launch(self.entry, self.args,
+                        torch.cuda.current_stream(device).cuda_stream)
+
+
+def prepare_node_age(gen: GenState, params: Params, seq: SeqData,
+                     rng: FastRngState, ctx: Context, finetune, lnld, lnp,
+                     cond) -> Prepared:
+    """Check the inputs of the node-age kernel and allocate its outputs
+    (CUDA tensors only)."""
+    L, N, P, _ = cond.shape
+    dt = gen.age.dtype
+    dev = cond.device
+    a = _args(gen, params, ctx, seq, rng)
+    keep = [torch.empty_like(cond),                       # proposal copy
+            torch.empty((L, P), dtype=dt, device=dev)]    # group sums
+    a.prop, a.gsum = keep[0].data_ptr(), keep[1].data_ptr()
+    a.finetune = _scalar(finetune, dt, dev, keep)
+    a.lnld_in = _check(lnld, "lnld", dt, (L,))
+    a.lnp_in = _check(lnp, "lnp", dt, (L,))
+    a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
+    out = {"cond": torch.empty_like(cond), "age": torch.empty_like(gen.age),
+           "lnld": torch.empty_like(lnld), "lnp": torch.empty_like(lnp),
+           "acc": torch.empty((L,), dtype=torch.int32, device=dev)}
+    for f, t in out.items():
+        setattr(a, f + "_out", t.data_ptr())
+    return Prepared(f"node_age_{_real_suffix(dt)}", a, None, out, keep)
 
 
 def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
@@ -155,33 +262,32 @@ def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
     if not _on_cuda(gen.age, cond, lnld, lnp, rng.key):
         return update_internal_node_ages(gen, params, seq, rng, ctx,
                                          finetune, lnld, lnp, cond)
-    L, N, P, _ = cond.shape
+    p = prepare_node_age(gen, params, seq, rng, ctx, finetune, lnld, lnp,
+                         cond)
+    p.launch(cond.device)
+    LAUNCHES["node_age"] += 1
+    o = p.out
+    return (gen._replace(age=o["age"]),
+            _advance(rng, 4 * (gen.num_samples - 1)), o["lnld"], o["lnp"],
+            o["cond"], o["acc"].sum(dtype=torch.int64))
+
+
+def prepare_mig_age(gen: GenState, params: Params, rng: FastRngState,
+                    ctx: Context, finetune, lnp) -> Prepared:
+    """Check the inputs of the migration-age kernel and allocate its
+    outputs (CUDA tensors only)."""
+    L = gen.num_loci
     dt = gen.age.dtype
     keep = []
-    a = _args(gen, params, ctx, seq, rng, params.tau, keep)
-    a.finetune = _scalar(finetune, dt, cond.device, keep)
-    a.lnld_in = _check(lnld, "lnld", dt, (L,))
+    a = _args(gen, params, ctx, None, rng)
+    a.finetune = _scalar(finetune, dt, lnp.device, keep)
     a.lnp_in = _check(lnp, "lnp", dt, (L,))
-    a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
-    cond_out = torch.empty_like(cond)
-    prop = torch.empty_like(cond)
-    gsum = torch.empty((L, P), dtype=dt, device=cond.device)
-    age_out = torch.empty_like(gen.age)
-    lnld_out = torch.empty_like(lnld)
-    lnp_out = torch.empty_like(lnp)
-    acc = torch.empty((L,), dtype=torch.int32, device=cond.device)
-    a.cond_out, a.prop, a.gsum = (cond_out.data_ptr(), prop.data_ptr(),
-                                  gsum.data_ptr())
-    a.age_out, a.lnld_out, a.lnp_out = (age_out.data_ptr(),
-                                        lnld_out.data_ptr(),
-                                        lnp_out.data_ptr())
-    a.acc_out = acc.data_ptr()
-    cuda_lib.launch(f"node_age_{_real_suffix(dt)}", a,
-                    torch.cuda.current_stream(cond.device).cuda_stream)
-    LAUNCHES["node_age"] += 1
-    S = (N + 1) // 2
-    return (gen._replace(age=age_out), _advance(rng, 4 * (S - 1)),
-            lnld_out, lnp_out, cond_out, acc.sum(dtype=torch.int64))
+    out = {"mig_age": torch.empty_like(gen.mig_age),
+           "lnp": torch.empty_like(lnp),
+           "acc": torch.empty((L,), dtype=torch.int32, device=lnp.device)}
+    for f, t in out.items():
+        setattr(a, f + "_out", t.data_ptr())
+    return Prepared(f"mig_age_{_real_suffix(dt)}", a, None, out, keep)
 
 
 def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
@@ -193,23 +299,46 @@ def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
     if ctx.num_bands == 0:
         return gen, rng, lnp, torch.zeros((), dtype=torch.int64,
                                           device=lnp.device)
-    L, M = gen.mig_branch.shape
-    dt = gen.age.dtype
-    keep = []
-    a = _args(gen, params, ctx, None, rng, params.tau, keep)
-    a.finetune = _scalar(finetune, dt, lnp.device, keep)
-    a.lnp_in = _check(lnp, "lnp", dt, (L,))
-    mag_out = torch.empty_like(gen.mig_age)
-    lnp_out = torch.empty_like(lnp)
-    acc = torch.empty((L,), dtype=torch.int32, device=lnp.device)
-    a.mig_age_out, a.lnp_out, a.acc_out = (mag_out.data_ptr(),
-                                           lnp_out.data_ptr(),
-                                           acc.data_ptr())
-    cuda_lib.launch(f"mig_age_{_real_suffix(dt)}", a,
-                    torch.cuda.current_stream(lnp.device).cuda_stream)
+    p = prepare_mig_age(gen, params, rng, ctx, finetune, lnp)
+    p.launch(lnp.device)
     LAUNCHES["mig_age"] += 1
-    return (gen._replace(mig_age=mag_out), _advance(rng, 4 * M), lnp_out,
-            acc.sum(dtype=torch.int64))
+    o = p.out
+    return (gen._replace(mig_age=o["mig_age"]),
+            _advance(rng, 4 * gen.max_migs), o["lnp"],
+            o["acc"].sum(dtype=torch.int64))
+
+
+def prepare_rubber_band(gen: GenState, params: Params, seq: SeqData,
+                        ctx: Context, pop: int, is_sample_age: bool,
+                        taub0, taub1, tauold, taunew, cond) -> Prepared:
+    """Check the inputs of the rubber-band kernel and allocate its outputs
+    (CUDA tensors only).  `stat` = int32 [ntj0, ntj1, conflicts], summed
+    over the valid loci by the kernel."""
+    L, N, P, _ = cond.shape
+    dt = gen.age.dtype
+    dev = cond.device
+    keep = []
+    # tau mode: the kernel puts taunew in place of tau[pop] and derives the
+    # proposal's pop_end and band windows; a sample-age move leaves them
+    a = _args(gen, params, ctx, seq, None)
+    for f, x in (("taub0", taub0), ("taub1", taub1), ("tauold", tauold),
+                 ("taunew", taunew)):
+        setattr(a, f, _scalar(x, dt, dev, keep))
+    a.pop = int(pop)
+    a.is_root = int(pop == ctx.root_pop and not is_sample_age)
+    a.sample_age = int(is_sample_age)
+    a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
+    plan = _plan_into(a, "rubber_band", cond.element_size())
+    out = {"cond": torch.empty_like(cond), "age": torch.empty_like(gen.age),
+           "mig_age": torch.empty_like(gen.mig_age),
+           "lnld": torch.empty((L,), dtype=dt, device=dev),
+           "lnp": torch.empty((L,), dtype=dt, device=dev),
+           "stat": torch.zeros((3,), dtype=torch.int32, device=dev)}
+    a.cond_out = out["cond"].data_ptr()
+    a.age_out, a.mig_age_out = out["age"].data_ptr(), out["mig_age"].data_ptr()
+    a.lnld_out, a.lnp_out = out["lnld"].data_ptr(), out["lnp"].data_ptr()
+    a.stat = out["stat"].data_ptr()
+    return Prepared(f"rubber_band_{_real_suffix(dt)}", a, plan, out, keep)
 
 
 def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
@@ -226,48 +355,43 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
         return rubber_band_eval_plain(gen, params, seq, ctx, pop,
                                       is_sample_age, taub0, taub1, tauold,
                                       taunew, cond)
+    p = prepare_rubber_band(gen, params, seq, ctx, pop, is_sample_age, taub0,
+                            taub1, tauold, taunew, cond)
+    p.launch(cond.device)
+    LAUNCHES["rubber_band_sample_age" if is_sample_age
+             else "rubber_band"] += 1
+    o = p.out
+    ntj = o["stat"][:2].to(gen.age.dtype)
+    return (o["age"], o["mig_age"], o["cond"], o["lnld"], o["lnp"], ntj[0],
+            ntj[1], o["stat"][2] > 0)
+
+
+def prepare_spr(gen: GenState, params: Params, seq: SeqData,
+                rng: FastRngState, ctx: Context, lnld, cond) -> Prepared:
+    """Check the inputs of the SPR kernel and allocate its outputs (CUDA
+    tensors only).  `stat` = int32 [accepts, largest draw offset]."""
     L, N, P, _ = cond.shape
     dt = gen.age.dtype
     dev = cond.device
-    keep = []
-    # the proposal's population tables: a sample-age move leaves tau, and
-    # with it the band windows and pop_end, as they are
-    new_tau = params.tau
-    if not is_sample_age:
-        new_tau = params.tau.clone()
-        new_tau[pop] = taunew
-    a = _args(gen, params, ctx, seq, None, new_tau, keep)
-    rscal = torch.stack([torch.as_tensor(x, dtype=dt, device=dev).reshape(())
-                         for x in (taub0, taub1, tauold, taunew)])
-    keep.append(rscal)
-    a.rscal = rscal.data_ptr()
-    a.pop = int(pop)
-    a.is_root = int(pop == ctx.root_pop and not is_sample_age)
-    a.sample_age = int(is_sample_age)
+    a = _args(gen, params, ctx, seq, rng)
+    a.lnld_in = _check(lnld, "lnld", dt, (L,))
     a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
-    cond_out = torch.empty_like(cond)
-    gsum = torch.empty((L, P), dtype=dt, device=dev)
-    age_out = torch.empty_like(gen.age)
-    mag_out = torch.empty_like(gen.mig_age)
-    lnld_out = torch.empty((L,), dtype=dt, device=dev)
-    lnp_out = torch.empty((L,), dtype=dt, device=dev)
-    aux = torch.empty((3, L), dtype=torch.int32, device=dev)
-    a.cond_out, a.gsum = cond_out.data_ptr(), gsum.data_ptr()
-    a.age_out, a.mig_age_out = age_out.data_ptr(), mag_out.data_ptr()
-    a.lnld_out, a.lnp_out = lnld_out.data_ptr(), lnp_out.data_ptr()
-    a.aux0_out, a.aux1_out, a.aux2_out = (aux[0].data_ptr(),
-                                          aux[1].data_ptr(),
-                                          aux[2].data_ptr())
-    cuda_lib.launch(f"rubber_band_{_real_suffix(dt)}", a,
-                    torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["rubber_band_sample_age" if is_sample_age
-             else "rubber_band"] += 1
-    v = gen.valid
-    ntj0 = torch.where(v, aux[0], 0).sum().to(dt)
-    ntj1 = torch.where(v, aux[1], 0).sum().to(dt)
-    conflict = (v & (aux[2] > 0)).any()
-    return (age_out, mag_out, cond_out, lnld_out, lnp_out, ntj0, ntj1,
-            conflict)
+    plan = _plan_into(a, "spr", cond.element_size())
+    out = {f: torch.empty_like(getattr(gen, f))
+           for f in ("age", "lson", "rson", "father", "node_pop", "root",
+                     "mig_branch", "mig_band", "mig_age")}
+    for f, t in out.items():
+        setattr(a, f + "_out", t.data_ptr())
+    out["cond"] = torch.empty_like(cond)
+    out["lnld"] = torch.empty_like(lnld)
+    out["stat"] = torch.zeros((2,), dtype=torch.int32, device=dev)
+    keep = []
+    if not plan.cond_smem:  # the proposal copy of the conditionals
+        keep.append(torch.empty_like(cond))
+        a.prop = keep[0].data_ptr()
+    a.cond_out, a.lnld_out = out["cond"].data_ptr(), out["lnld"].data_ptr()
+    a.stat = out["stat"].data_ptr()
+    return Prepared(f"spr_{_real_suffix(dt)}", a, plan, out, keep)
 
 
 def spr_sweep(gen: GenState, params: Params, seq: SeqData,
@@ -280,31 +404,11 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     if ctx.num_admixed > 0:
         raise NotImplementedError(
             "SPR with admixture: ROADMAP Queue 1 item 10b")
-    L, N, P, _ = cond.shape
-    M = gen.max_migs
-    dt = gen.age.dtype
-    dev = cond.device
-    keep = []
-    a = _args(gen, params, ctx, seq, rng, params.tau, keep)
-    a.lnld_in = _check(lnld, "lnld", dt, (L,))
-    a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
-    out = {f: torch.empty_like(getattr(gen, f))
-           for f in ("age", "lson", "rson", "father", "node_pop", "root",
-                     "mig_branch", "mig_band", "mig_age")}
-    cond_out = torch.empty_like(cond)
-    prop = torch.empty_like(cond)
-    gsum = torch.empty((L, P), dtype=dt, device=dev)
-    lnld_out = torch.empty_like(lnld)
-    acc = torch.empty((L,), dtype=torch.int32, device=dev)
-    used = torch.empty((L,), dtype=torch.int32, device=dev)
-    for f, t in out.items():
-        setattr(a, f + "_out", t.data_ptr())
-    a.cond_out, a.prop, a.gsum = (cond_out.data_ptr(), prop.data_ptr(),
-                                  gsum.data_ptr())
-    a.lnld_out, a.acc_out, a.aux0_out = (lnld_out.data_ptr(),
-                                         acc.data_ptr(), used.data_ptr())
-    cuda_lib.launch(f"spr_{_real_suffix(dt)}", a,
-                    torch.cuda.current_stream(dev).cuda_stream)
+    p = prepare_spr(gen, params, seq, rng, ctx, lnld, cond)
+    p.launch(cond.device)
     LAUNCHES["spr"] += 1
-    return (gen._replace(**out), _advance(rng, used.max().to(torch.int64)),
-            lnld_out, cond_out, acc.sum(dtype=torch.int64))
+    o = p.out
+    stat = o["stat"].to(torch.int64)
+    moved = {f: o[f] for f in o if f not in ("cond", "lnld", "stat")}
+    return (gen._replace(**moved), _advance(rng, stat[1]), o["lnld"],
+            o["cond"], stat[0])

@@ -1,19 +1,32 @@
 // Host stand-in for <cuda_runtime.h>: lets a host C++ compiler build
 // gphocs_tpu_torch/csrc/*.cu for tests/test_torch_csrc_host.py.
 //
-// Every locus runs as a one-thread block, one after another, so
-// __syncthreads_or(p) is p and the SPR kernel's trip schedule is that of
-// kernels/spr.update_spr(sync_group=1).  Build with -ffp-contract=off, the
-// host twin of the kernels' -fmad=false.
+// The loci run one after another.  A thread-per-locus kernel (node age,
+// migration age) runs each locus as a one-thread block.  A warp-per-locus
+// kernel (rubber band, SPR) runs each locus as one "warp" of a block of
+// a->block loci, with the block's dynamic shared memory an ordinary
+// buffer (filled with 0xA5, not zeros) carved up by the kernel as on the
+// card.  That warp is a single
+// lane which runs every index of a LANES section in a plain loop, so the
+// warp reductions return their argument and the barriers do nothing; with
+// -DSWEEP_REVERSE_LANES the loops run backwards, which changes the result
+// of a section whose body reads what another index of it writes.  The
+// block's static shared memory (the population tables) is a static that
+// every warp fills again.  Build with -ffp-contract=off, the host twin of
+// the kernels' -fmad=false.
 #pragma once
 
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
+#define SWEEP_HOST 1
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
+#define __shared__ static
 
 typedef void* cudaStream_t;
 
@@ -21,15 +34,35 @@ struct HostDim3 {
   unsigned x;
 };
 static HostDim3 blockIdx, blockDim, threadIdx;
+static unsigned char* sweep_smem;
 
-inline int __syncthreads_or(int p) { return p; }
+#ifdef SWEEP_REVERSE_LANES
+#define LANES(j, n) for (int j = (n) - 1; j >= 0; --j)
+#else
+#define LANES(j, n) for (int j = 0; j < (n); ++j)
+#endif
+#define ONE_LANE if (true)
+#define BLOCK_THREADS(j, n) LANES(j, n)
+
+inline void __syncthreads() {}
+inline int __reduce_add_sync(unsigned, int x) { return x; }
+inline int __reduce_min_sync(unsigned, int x) { return x; }
+inline int atomicAdd(int* p, int x) { int old = *p; *p += x; return old; }
+inline int atomicMax(int* p, int x) {
+  int old = *p;
+  if (x > old) *p = x;
+  return old;
+}
 inline float __uint_as_float(uint32_t x) {
   float f;
   std::memcpy(&f, &x, sizeof f);
   return f;
 }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int cudaGetLastError() { return 0; }
+#define cudaFuncSetAttribute(...) 0
 using std::isfinite;
 
 #define SWEEP_LAUNCH(K, a, stream)                 \
@@ -41,4 +74,19 @@ using std::isfinite;
       threadIdx.x = 0;                             \
       K(*(a));                                     \
     }                                              \
+  } while (0)
+
+#define SWEEP_LAUNCH_WARP(K, a, stream)                                   \
+  do {                                                                    \
+    (void)(stream);                                                       \
+    const int lpb_ = (a)->block;                                          \
+    std::vector<unsigned char> buf_((a)->smem_bytes + 16, 0xA5);          \
+    sweep_smem = buf_.data() + (16 - (uintptr_t)buf_.data() % 16) % 16;   \
+    for (int b_ = 0; b_ * lpb_ < (a)->L; ++b_)                            \
+      for (int w_ = 0; w_ < lpb_; ++w_) {                                 \
+        blockIdx.x = b_;                                                  \
+        blockDim.x = 32 * lpb_;                                           \
+        threadIdx.x = 32 * w_;                                            \
+        K(*(a));                                                          \
+      }                                                                   \
   } while (0)

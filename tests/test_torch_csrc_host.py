@@ -1,12 +1,16 @@
 """The CUDA sources of gphocs_tpu_torch (csrc/*.cu), compiled for the host
 with a C++ compiler, against their plain PyTorch versions at f64.
 
-tests/cuda_host/cuda_runtime.h stands in for the CUDA runtime: each locus
-runs as a one-thread block, so SPR is held against
-update_spr(sync_group=1); the block-wide trip sync itself is checked on
-the card by chip_smoke.py.  The kernels are reached through the wrappers
-in ops/sweeps.py, so the SweepArgs layout shared by ctypes and C++ is
-checked too.  No GPU is needed; the test skips without a C++ compiler.
+tests/cuda_host/cuda_runtime.h stands in for the CUDA runtime.  The loci
+run one after another: node age and migration age as one-thread blocks,
+the rubber band and SPR as one "warp" per locus whose single lane runs
+every index of a lane section in a plain loop, with the block's shared
+memory an ordinary buffer.  SPR is held against update_spr(sync_group=1),
+the card's schedule.  A second build runs the lane loops backwards: a
+section that reads what another lane of it writes then gives another
+result.  The kernels are reached through the wrappers in ops/sweeps.py, so
+the SweepArgs layout shared by ctypes and C++ and the shared-memory plan
+are checked too.  No GPU is needed; the tests skip without a C++ compiler.
 """
 
 import ctypes
@@ -19,10 +23,11 @@ import pytest
 import torch
 
 from chip_smoke import sample_age_bounds, tau_bounds, warm_state
+from gphocs_tpu_torch.kernels.common import band_windows, pop_end
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
-from gphocs_tpu_torch.config.samples import SAMPLE_AGE_CTL
+from gphocs_tpu_torch.config.samples import SAMPLE_AGE_CTL, WIDE_CTL
 from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
                                           update_sample_ages_fused,
                                           update_taus, update_taus_fused)
@@ -31,23 +36,35 @@ from gphocs_tpu_torch.ops import cuda_lib, sweeps
 SHIM = Path(__file__).resolve().parent / "cuda_host"
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    out = tmp_path_factory.mktemp("csrc_host") / "libsweeps_host.so"
+def _build(cxx, out, *flags):
     subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         f"-I{SHIM}", "-x", "c++",
+         *flags, f"-I{SHIM}", f"-I{cuda_lib.CSRC}", "-x", "c++",
          *(str(cuda_lib.CSRC / s) for s in cuda_lib.SOURCES),
-         "-o", str(out)], check=True, capture_output=True, timeout=300)
+         str(SHIM / "pop_tables_probe.cu"), "-o", str(out)],
+        check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out))
     for name in cuda_lib.ENTRY_POINTS:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(cuda_lib.SweepArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.pop_tables_probe_f64.argtypes = [ctypes.POINTER(cuda_lib.SweepArgs),
+                                         ctypes.c_int, ctypes.c_void_p]
+    lib.pop_tables_probe_f64.restype = None
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    """The kernels built for the host twice: lane loops forwards
+    ("forward") and backwards ("reverse")."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("csrc_host")
+    return {"forward": _build(cxx, d / "libsweeps_host.so"),
+            "reverse": _build(cxx, d / "libsweeps_host_rev.so",
+                              "-DSWEEP_REVERSE_LANES")}
 
 
 @pytest.fixture(scope="module")
@@ -67,16 +84,36 @@ def warm_sample_age(tmp_path_factory):
                       ctl=SAMPLE_AGE_CTL)
 
 
-@pytest.fixture
-def kernels_on_host(host_lib, monkeypatch):
-    """Route the ops/sweeps wrappers to the host build for CPU tensors."""
+@pytest.fixture(scope="module")
+def warm_wide(tmp_path_factory):
+    """12 loci x 16,000 bp of WIDE_CTL: N = 31 nodes, so the SPR grid has
+    K = 51 entries, and more than 8 patterns, so a node's P x 4
+    conditionals are more than 32 values: every lane loop wraps."""
+    path = str(tmp_path_factory.mktemp("csrc_seq_wide") / "seqs.txt")
+    s = warm_state(torch.device("cpu"), torch.float64, path, num_loci=12,
+                   ctl=WIDE_CTL, seq_len=16000)
+    L, N, P, _ = s.cond.shape
+    assert 4 * P > 32 and N + s.gen.max_migs + s.ctx.num_pops + 3 > 32
+    return s
+
+
+def _route(monkeypatch, lib, block=None, cond_in_device_memory=False):
+    """Route the ops/sweeps wrappers to a host build for CPU tensors."""
     monkeypatch.setattr(sweeps, "_on_cuda", lambda *tensors: True)
-    monkeypatch.setattr(sweeps, "BLOCK", 1)
-    monkeypatch.setattr(cuda_lib, "_LIB", host_lib)
+    monkeypatch.setattr(cuda_lib, "_LIB", lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
+    if block is not None:
+        monkeypatch.setattr(sweeps, "BLOCK", block)
+    monkeypatch.setattr(sweeps, "FORCE_COND_IN_DEVICE_MEMORY",
+                        cond_in_device_memory)
     sweeps.reset_launch_counts()
+
+
+@pytest.fixture
+def kernels_on_host(host_libs, monkeypatch):
+    _route(monkeypatch, host_libs["forward"])
 
 
 def _close(a, b, tol):
@@ -206,3 +243,225 @@ def test_sample_age_sweep_through_kernel(warm_sample_age, kernels_on_host,
     _close(k[0].age, q[0].age, 1e-12)
     _close(k[3], q[3], 1e-9)
     _close(k[4], q[4], 1e-9)
+
+
+# ---- the warp-per-locus kernels: lanes, blocks, shared memory ------------
+
+def _flat(out):
+    """The tensors of a wrapper's result, GenState fields included."""
+    flat = []
+    for x in out:
+        if isinstance(x, torch.Tensor):
+            flat.append(x)
+        elif isinstance(x, tuple):
+            flat += [y for y in x if isinstance(y, torch.Tensor)]
+    return flat
+
+
+def _same(a, b):
+    fa, fb = _flat(a), _flat(b)
+    assert len(fa) == len(fb) > 4
+    for x, y in zip(fa, fb):
+        assert torch.equal(x, y)
+
+
+def _call(which, warm, warm_sample_age):
+    """One wrapper call of a warp-per-locus kernel on its fixture."""
+    if which == "spr":
+        s = warm
+        return sweeps.spr_sweep(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
+                                s.cond)
+    if which == "rubber_band":
+        s = warm
+        pop = s.tree.num_pops - 2
+        return sweeps.rubber_band_eval(s.gen, s.params, s.seq, s.ctx, pop,
+                                       False, *tau_bounds(s, pop), s.cond)
+    s = warm_sample_age
+    return sweeps.rubber_band_eval(s.gen, s.params, s.seq, s.ctx, 3, True,
+                                   *sample_age_bounds(s, 3, -0.2), s.cond)
+
+
+WARP_KERNELS = ("spr", "rubber_band", "rubber_band_sample_age")
+
+
+@pytest.mark.parametrize("which", WARP_KERNELS)
+def test_reversed_lanes_give_equal_outputs(which, warm, warm_sample_age,
+                                           host_libs, monkeypatch):
+    """No lane section reads what another lane of it writes: the build
+    with the lane loops run backwards gives the same bits."""
+    _route(monkeypatch, host_libs["forward"])
+    fwd = _call(which, warm, warm_sample_age)
+    _route(monkeypatch, host_libs["reverse"])
+    rev = _call(which, warm, warm_sample_age)
+    assert sweeps.LAUNCHES[which] == 1
+    _same(fwd, rev)
+
+
+@pytest.mark.parametrize("which", WARP_KERNELS)
+def test_loci_per_block_do_not_change_outputs(which, warm, warm_sample_age,
+                                              host_libs, monkeypatch):
+    """Blocks of 8 loci and of 5 (24 loci: the last block partial) give
+    equal bits, lnp and the SPR draw schedule included."""
+    _route(monkeypatch, host_libs["forward"], block=8)
+    a = _call(which, warm, warm_sample_age)
+    _route(monkeypatch, host_libs["forward"], block=5)
+    b = _call(which, warm, warm_sample_age)
+    _same(a, b)
+
+
+@pytest.mark.parametrize("which", WARP_KERNELS)
+def test_conditionals_in_device_memory_equal_shared(which, warm,
+                                                    warm_sample_age,
+                                                    host_libs, monkeypatch):
+    """The variant for loci too large for shared memory (the kernel works
+    on the output buffers) equals the shared-memory one."""
+    _route(monkeypatch, host_libs["forward"])
+    a = _call(which, warm, warm_sample_age)
+    _route(monkeypatch, host_libs["forward"], cond_in_device_memory=True)
+    b = _call(which, warm, warm_sample_age)
+    _same(a, b)
+
+
+@pytest.mark.parametrize("build", ["forward", "reverse"])
+def test_wide_fixture_matches_plain(build, warm_wide, host_libs,
+                                    monkeypatch):
+    """N = 31, K = 51 and 4 P > 32: SPR and the rubber band against their
+    plain versions where every lane loop takes more than one turn."""
+    s = warm_wide
+    _route(monkeypatch, host_libs[build], block=5)
+    args = (s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld, s.cond)
+    k = sweeps.spr_sweep(*args)
+    q = update_spr(*args, sync_group=1)
+    assert int(k[1].ctr) == int(q[1].ctr)
+    assert int(k[4]) == int(q[4]) > 0
+    for f in ("father", "lson", "rson", "root", "node_pop", "mig_branch",
+              "mig_band"):
+        assert torch.equal(getattr(k[0], f), getattr(q[0], f)), f
+    _close(k[0].age, q[0].age, 1e-12)
+    _close(k[0].mig_age, q[0].mig_age, 1e-12)
+    _close(k[2], q[2], 1e-9)
+    # 15 levels of the x4 rescale: the root's conditionals are ~1e9
+    scale = float(q[3].abs().max())
+    _close(k[3] / scale, q[3] / scale, 1e-10)
+    for pop in range(s.tree.num_cur_pops, s.tree.num_pops):
+        b = tau_bounds(s, pop)
+        k = sweeps.rubber_band_eval(s.gen, s.params, s.seq, s.ctx, pop,
+                                    False, *b, s.cond)
+        q = rubber_band_eval_plain(s.gen, s.params, s.seq, s.ctx, pop, False,
+                                   *b, s.cond)
+        assert float(k[5]) == float(q[5]) and float(k[6]) == float(q[6])
+        assert bool(k[7]) == bool(q[7])
+        _close(k[0], q[0], 1e-12)
+        _close(k[1], q[1], 1e-12)
+        _close(k[2] / scale, q[2] / scale, 1e-10)
+        _close(k[3], q[3], 1e-9)
+        _close(k[4], q[4], 1e-9)
+
+
+def test_counts_are_summed_over_the_valid_loci(warm, kernels_on_host):
+    """The kernels' integer sums (Jacobian counts, conflicts, SPR accepts)
+    leave out the padding loci, as the plain versions' masked sums do."""
+    s = warm
+    valid = s.gen.valid.clone()
+    valid[::3] = False
+    g = s.gen._replace(valid=valid)
+    pop = s.tree.num_pops - 1
+    b = tau_bounds(s, pop)
+    full = sweeps.rubber_band_eval(s.gen, s.params, s.seq, s.ctx, pop, False,
+                                   *b, s.cond)
+    k = sweeps.rubber_band_eval(g, s.params, s.seq, s.ctx, pop, False, *b,
+                                s.cond)
+    q = rubber_band_eval_plain(g, s.params, s.seq, s.ctx, pop, False, *b,
+                               s.cond)
+    assert float(k[5]) == float(q[5]) and float(k[6]) == float(q[6])
+    assert 0 < float(k[5]) + float(k[6]) < float(full[5]) + float(full[6])
+    assert bool(k[7]) == bool(q[7])
+    assert bool((k[4][~valid] == 0).all())
+    args = (g, s.params, s.seq, s.lrng, s.ctx, s.lnld, s.cond)
+    k = sweeps.spr_sweep(*args)
+    q = update_spr(*args, sync_group=1)
+    assert int(k[4]) == int(q[4]) > 0
+    assert int(k[1].ctr) == int(q[1].ctr)
+    assert torch.equal(k[0].father, q[0].father)
+    assert torch.equal(k[0].father[~valid], s.gen.father[~valid])
+
+
+@pytest.mark.parametrize("proposal", [False, True])
+def test_in_kernel_pop_tables_match_plain(proposal, warm, host_libs):
+    """pop_end and the band windows as the kernels' prologue derives them
+    from tau, against kernels/common.py, on the state's tau and on a tau
+    that collapses the band (start >= end); with `proposal`, taunew stands
+    in for tau[pop]."""
+    s = warm
+    c = s.ctx
+    PP, B = c.num_pops, c.num_bands
+    src, tgt = int(c.band_source[0]), int(c.band_target[0])
+    collapsed = s.params.tau.clone()
+    collapsed[src] = collapsed[c.father_pop[tgt]] * 2.0
+    pop = PP - 2
+    taunew = s.params.tau[pop] * 1.25
+    for tau in (s.params.tau, collapsed):
+        want_tau = tau.clone()
+        if proposal:
+            want_tau[pop] = taunew
+        bs, be = band_windows(c, want_tau)
+        if tau is collapsed:
+            assert bool((bs >= be).all())
+        a = cuda_lib.SweepArgs()
+        a.theta, a.tau = s.params.theta.data_ptr(), tau.data_ptr()
+        a.mig_rate, a.popi = s.params.mig_rate.data_ptr(), c.popi.data_ptr()
+        a.taunew = taunew.data_ptr()
+        a.PP, a.B, a.pop, a.oldage = PP, B, pop, c.oldage
+        out = torch.empty(3 * PP + 3 * B, dtype=torch.float64)
+        host_libs["forward"].pop_tables_probe_f64(ctypes.byref(a),
+                                                  int(proposal),
+                                                  out.data_ptr())
+        want = torch.cat([s.params.theta, want_tau, pop_end(c, want_tau), bs,
+                          be, s.params.mig_rate])
+        assert torch.equal(out, want)
+
+
+def test_smem_plan():
+    """The shared-memory budget: loci per block, where the conditionals
+    live, and a raise where one locus's tables do not fit."""
+    limit = cuda_lib.SMEM_LIMIT - sweeps.STATIC_SMEM
+    # the standard workload: N = 15, M = 10, PP = 7, B = 1, P = 6
+    for kernel in ("spr", "rubber_band"):
+        for itemsize in (4, 8):
+            p = sweeps.smem_plan(kernel, 15, 10, 7, 1, 6, itemsize, 8)
+            assert p.loci_per_block == 8 and p.cond_smem
+            assert p.smem_bytes % (16 * 8) == 0 and p.smem_bytes < 96 * 1024
+    f32 = sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 8)
+    # tables 243 reals + 211 ints, conditionals 2 * 360 reals
+    assert f32.smem_bytes == 8 * -(-((243 + 720) * 4 + 211 * 4) // 16) * 16
+    assert sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 3).loci_per_block == 3
+    assert sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 64).loci_per_block == 32
+    forced = sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 8, True)
+    assert not forced.cond_smem and forced.smem_bytes < f32.smem_bytes
+    # more patterns: fewer loci fit beside their conditionals ...
+    mid = sweeps.smem_plan("spr", 63, 32, 16, 8, 40, 8, 8)
+    assert mid.cond_smem and 1 <= mid.loci_per_block < 8
+    assert mid.smem_bytes <= limit
+    # ... then the conditionals of one locus alone do not fit
+    big = sweeps.smem_plan("spr", 63, 32, 16, 8, 300, 8, 8)
+    assert not big.cond_smem and big.loci_per_block == 8
+    # one copy of the conditionals (rubber band) fits where two (SPR) do not
+    one = sweeps.smem_plan("rubber_band", 63, 32, 16, 8, 150, 4, 8)
+    assert one.cond_smem and one.loci_per_block == 1
+    assert not sweeps.smem_plan("spr", 63, 32, 16, 8, 150, 4, 8).cond_smem
+    with pytest.raises(ValueError, match="shared memory"):
+        sweeps.smem_plan("spr", 63, 32, 16, 8, 20000, 8, 8)
+    with pytest.raises(ValueError, match="no warp-per-locus kernel"):
+        sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8)
+
+
+def test_entry_refuses_a_wrong_smem_size(warm, kernels_on_host):
+    """The C entry point computes the layout's size itself and refuses a
+    launch whose shared-memory size differs: the Python plan and the
+    kernels' carve-up cannot drift apart unnoticed."""
+    s = warm
+    p = sweeps.prepare_spr(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
+                           s.cond)
+    p.args.smem_bytes += 16
+    with pytest.raises(RuntimeError, match="shared memory"):
+        cuda_lib.launch(p.entry, p.args, 0)

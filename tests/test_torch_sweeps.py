@@ -122,9 +122,10 @@ def test_spr_sweep_matches_xla(twins):
 
 
 def test_spr_group_sync_matches_pallas_tiles(twins):
-    """sync_group=8 (the CUDA kernel's per-block schedule) against the
-    Pallas kernel with 8-lane tiles, in interpret mode: the counter
-    advances by the largest draw count over groups."""
+    """sync_group=8 (groups of loci that share their trip schedule; the
+    CUDA kernel is the case of one locus per group) against the Pallas
+    kernel with 8-lane tiles, in interpret mode: the counter advances by
+    the largest draw count over groups."""
     s, t = twins
     out_j = spr_sweep_pallas(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
                              s.cond, tile=8, interpret=True)
