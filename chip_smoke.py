@@ -19,15 +19,15 @@ script then exits non-zero without the final line):
      way on a warmed 64-locus state of SAMPLE_AGE_CTL (population D has an
      estimated sample age), for new ages below and above the old one, with
      proposals that do and do not run into a conflict: equal Jacobian
-     counts and conflict flag; the outputs of SPR and of both rubber-band
-     modes at the two block sizes must be bitwise equal to each other, and
-     so must those of the variant that keeps the conditionals in device
-     memory (forced here; chosen by the wrapper where a locus does not fit
-     in shared memory); then (3b) one f32 pass per kernel and mode (finite
-     outputs, carried lnld within 1e-3 relative of a plain rebuild); then
-     (3c) every kernel at f64 on a 64-locus x 16,000 bp state of WIDE_CTL
-     (16 samples: N = 31, SPR grid K = 51, more than 8 patterns), where
-     every lane loop of the warp-per-locus kernels takes more than one
+     counts and conflict flag; the outputs of every kernel and of both
+     rubber-band modes at the two block sizes must be bitwise equal to each
+     other, and so must those of the variant that keeps the conditionals in
+     device memory (forced here; chosen by the wrapper where a locus does
+     not fit in shared memory); then (3b) one f32 pass per kernel and mode
+     (finite outputs, carried lnld within 1e-3 relative of a plain
+     rebuild); then (3c) every kernel at f64 on a 64-locus x 16,000 bp
+     state of WIDE_CTL (16 samples: N = 31, SPR grid K = 51, more than 8
+     patterns), where every lane loop of the kernels takes more than one
      turn;
   4. the main path on the standard workload (SAMPLE_CTL, 1000 loci x
      1000 bp simulated with seed 20260817) at f32: Sampler.initialize,
@@ -236,9 +236,9 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     or F32_TOL.  With need_moves, every sweep must accept some moves, so
     that the comparison covers accepted moves and not only rejections.
     Conditionals are compared after division by cond_scale (deep trees
-    carry the x4 rescale of every level).  Returns the outputs of the
-    warp-per-locus kernels (SPR, then the rubber band per population), for
-    comparisons between launch shapes."""
+    carry the x4 rescale of every level).  Returns the kernels' outputs
+    (node age, migration age, SPR, then the rubber band per population),
+    for comparisons between launch shapes."""
     from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
     from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
     from gphocs_tpu_torch.kernels.spr import update_spr
@@ -263,6 +263,7 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     cmp.close("node_age", "lnp", k[3], q[3], t_ld)
     cmp.close("node_age", "cond", k[4] / cond_scale, q[4] / cond_scale,
               t_cond)
+    outs = [k[0].age, k[1].ctr, *k[2:]]
 
     log("  mig_age")
     k = sweeps.mig_age_sweep(g, pr, r, c, s.ft.mig_time, lp)
@@ -273,14 +274,15 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     log(f"    accepts {int(k[3])}, counter {int(k[1].ctr)}")
     cmp.close("mig_age", "mig_age", k[0].mig_age, q[0].mig_age, t_age)
     cmp.close("mig_age", "lnp", k[2], q[2], t_ld)
+    outs += [k[0].mig_age, k[1].ctr, *k[2:]]
 
     log("  spr (plain at sync_group=1)")
     k = sweeps.spr_sweep(g, pr, sq, r, c, ld, cond)
     q = update_spr(g, pr, sq, r, c, ld, cond, sync_group=1)
-    outs = [k[0].age, k[0].mig_age, k[1].ctr, k[2], k[3], k[4],
-            *(getattr(k[0], f) for f in ("father", "lson", "rson", "root",
-                                         "node_pop", "mig_branch",
-                                         "mig_band"))]
+    outs += [k[0].age, k[0].mig_age, k[1].ctr, k[2], k[3], k[4],
+             *(getattr(k[0], f) for f in ("father", "lson", "rson", "root",
+                                          "node_pop", "mig_branch",
+                                          "mig_band"))]
     check(int(k[1].ctr) == int(q[1].ctr),
           f"spr: counter {int(k[1].ctr)} {int(q[1].ctr)}")
     check(int(k[4]) == int(q[4]), f"spr: accepts {k[4]} {q[4]}")
@@ -420,7 +422,7 @@ def device_ops(fn, reps=5):
 
 
 def equal_outputs(what, a, b):
-    """Two launch shapes of the warp-per-locus kernels gave the same bits."""
+    """Two launch shapes of the kernels gave the same bits."""
     import torch
 
     check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
@@ -554,7 +556,7 @@ def op_models(s, spr_draws, proposal=None):
     out["node_age"] = (
         nbytes(g.age, *topo, *migs, *per_locus, *seqs, s.lrng.key, real_l,
                real_l, cond)                       # in
-        + nbytes(cond, g.age, real_l, real_l) + int_l,  # out
+        + nbytes(cond, g.age, real_l, real_l) + 2 * int_l,  # out (int64)
         float(ops))
 
     if B > 0:
@@ -568,7 +570,7 @@ def op_models(s, spr_draws, proposal=None):
         ops = 50.0 * M * L + torch.where(act, per_event, 0.0).sum()
         out["mig_age"] = (
             nbytes(g.age, g.father, g.node_pop, *migs, g.valid, s.lrng.key,
-                   real_l) + nbytes(g.mig_age, real_l) + int_l,
+                   real_l) + nbytes(g.mig_age, real_l) + 2 * int_l,
             float(ops))
 
     gp = g if proposal is None else g._replace(age=proposal[0],
@@ -729,8 +731,8 @@ def main():
     s64 = warm_state(dev, torch.float64, os.path.join(tmp, "small.txt"))
     s64a = warm_state(dev, torch.float64, os.path.join(tmp, "small_age.txt"),
                       ctl=SAMPLE_AGE_CTL)
-    # SPR and the rubber band run a warp per locus and must not depend on
-    # the loci per block: 3 leaves the last block partial
+    # the kernels run a warp per locus and must not depend on the loci per
+    # block: 3 leaves the last block partial
     main_block = sweeps.BLOCK
     outs = {}
     for block in (main_block, 3):
@@ -841,9 +843,8 @@ def main():
         times[name] = {
             "ms": min(k1, k2), "plain_ms": p1, "device_ms": d1,
             "wrapper_device_ops": ops,
-            "loci_per_block": (plan.loci_per_block if plan
-                               else sweeps.THREAD_BLOCK),
-            "smem_bytes_per_block": plan.smem_bytes if plan else 0}
+            "loci_per_block": plan.loci_per_block,
+            "smem_bytes_per_block": plan.smem_bytes}
         log(f"  {name:24s} wrapper call {k1:.3f} / {k2:.3f} ms   launch "
             f"alone {d1:.4f} ms   plain {p1:.3f} ms   {ops} device "
             f"operations besides the kernel   "

@@ -124,21 +124,9 @@ __device__ __forceinline__ T mig_into(T mid, int p, const PopTables<T>& pt) {
   return r;
 }
 
-// Built with -DSWEEP_PROFILE (tools/spr_phases.py), the kernel adds up the
-// clock cycles of each phase of a locus's chain and writes them to a.prof
-// ([L, 16] int64: the phases of SPR_PHASES in that tool, then the whole
-// and the draw offset); otherwise SPR_TICK is nothing.
-#ifdef SWEEP_PROFILE
-#define SPR_TICK(ph)                          \
-  {                                           \
-    const long long t_ = clock64();           \
-    prof[ph] += t_ - t_last;                  \
-    t_last = t_;                              \
-  }
-#else
-#define SPR_TICK(ph)
-#endif
-
+// The SWEEP_TICK marks below end the phases that tools/sweep_phases.py
+// names (SPR_PHASES there); the number of the kernel's own is the draw
+// offset.
 template <typename T>
 __global__ void spr_kernel(const SweepArgs a) {
   __shared__ PopTables<T> pt;
@@ -147,11 +135,7 @@ __global__ void spr_kernel(const SweepArgs a) {
   (void)lane;
   const int l = blockIdx.x * a.block + w;
   if (l >= a.L) return;
-#ifdef SWEEP_PROFILE
-  const long long t_start = clock64();
-  long long t_last = t_start;
-  long long prof[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-#endif
+  SWEEP_PROF_BEGIN
   const int N = a.N, S = (N + 1) / 2, M = a.M, B = a.B, PP = a.PP, P = a.P;
   const int K = N + M + PP + 2 * B + 1;
   const size_t cn = (size_t)N * P * 4;
@@ -222,7 +206,7 @@ __global__ void spr_kernel(const SweepArgs a) {
   T lnld = ((const T*)a.lnld_in)[l];
   int acc = 0;
   uint32_t doff = 0;
-  SPR_TICK(0)
+  SWEEP_TICK(0)
 
   for (int i = 0; i < N; ++i) {
     const bool active0 = real && root != i;
@@ -252,7 +236,7 @@ __global__ void spr_kernel(const SweepArgs a) {
       }
       base_migs = warp_sum(base_migs);
       any_mig = warp_sum(nact) > 0;
-      SPR_TICK(1)
+      SWEEP_TICK(1)
       LANES(k, 32) {  // ascending, by rank; a lane ranks two elements
         for (int ka = k; ka < K; ka += 64) {  // in one pass over the grid
           const int kb = ka + 32;
@@ -271,7 +255,7 @@ __global__ void spr_kernel(const SweepArgs a) {
       }
     }
 
-    SPR_TICK(2)
+    SWEEP_TICK(2)
     // ---- the walk ----
     int status = active0 ? 0 : -2;
     int pop_c = npop[i];
@@ -302,7 +286,7 @@ __global__ void spr_kernel(const SweepArgs a) {
         }
         hz[k] = h;
       }
-      SPR_TICK(3)
+      SWEEP_TICK(3)
       // log-depth EXCLUSIVE prefix, additions only (the shift-add
       // association of kernels/spr.py), on two buffers.  The first pass
       // reads hz shifted by one: hz[0] stands for hz[0] + 0.
@@ -315,7 +299,7 @@ __global__ void spr_kernel(const SweepArgs a) {
         T* t = ea; ea = eb; eb = t;
       }
       const T* ecum = ea;
-      SPR_TICK(4)
+      SWEEP_TICK(4)
       const T u1 = uniform<T>(key, ctr0 + doff + 1);
       const T E = -d_log(d_max(u1, (T)1e-300));
       int kk = K;  // the first segment whose cumulative hazard reaches E
@@ -367,7 +351,7 @@ __global__ void spr_kernel(const SweepArgs a) {
         }
         ++n_new;
       }
-      SPR_TICK(5)
+      SWEEP_TICK(5)
       // coalescence: the i_pick-th covering branch in node-id order
       const bool is_coal = ev && !is_mig;
       int tgt = 0;
@@ -405,7 +389,7 @@ __global__ void spr_kernel(const SweepArgs a) {
       if (do_mig) { pop_c = src_pop; age_c = t_event; }
       if (coal_ok) { pop_c = pop_k; target = tgt; coal_age = t_event; }
       doff += 2;
-      SPR_TICK(6)
+      SWEEP_TICK(6)
     }
     if (status == 0) status = -1;
     const bool ok = status == 1;
@@ -457,17 +441,17 @@ __global__ void spr_kernel(const SweepArgs a) {
           mag_p[m] = new_age[r];
         }
       }
-      SPR_TICK(7)
+      SWEEP_TICK(7)
       // data delta: refresh the root paths of f and of g (new topology)
       uint64_t dirty = refresh_path_w(prop, f, ls_p, rs_p, fa_p, age_p, mut,
                                       N, S, P, lane);
       if (g >= 0)
         dirty |= refresh_path_w(prop, g, ls_p, rs_p, fa_p, age_p, mut, N, S,
                                 P, lane);
-      SPR_TICK(8)
+      SWEEP_TICK(8)
       const T lnld_new = root_lnld_w(prop, root_p, gid, gcount, lg4, gsum, S,
                                      P, lane);
-      SPR_TICK(9)
+      SWEEP_TICK(9)
       const T u = uniform<T>(key, ctr0 + doff + 1);
       const bool accept = ok && mh(lnld_new - lnld, u);
       if (accept) {
@@ -487,7 +471,7 @@ __global__ void spr_kernel(const SweepArgs a) {
       } else {
         copy_rows_w(prop, cond, dirty, P, lane);
       }
-      SPR_TICK(10)
+      SWEEP_TICK(10)
     }
     doff += 1;
   }
@@ -524,15 +508,8 @@ __global__ void spr_kernel(const SweepArgs a) {
       if (acc) atomicAdd(stat + 0, acc);
       atomicMax(stat + 1, (int)doff);
     }
-#ifdef SWEEP_PROFILE
-    SPR_TICK(11)
-    if (lane == 0 && a.prof) {
-      long long* o = (long long*)a.prof + (size_t)l * 16;
-      for (int q = 0; q < 12; ++q) o[q] = prof[q];
-      o[12] = clock64() - t_start;
-      o[13] = doff;
-    }
-#endif
+    SWEEP_TICK(11)
+    SWEEP_PROF_END(doff)
   }
 }
 

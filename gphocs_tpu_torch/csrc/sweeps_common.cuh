@@ -13,14 +13,12 @@
 // state (index arrays int64, masks bool, reals T = float or double); the
 // conditionals are [L, N, P, 4].
 //
-// Two launch shapes share this file.  node_age.cu and mig_age.cu run one
-// thread per locus (SWEEP_LAUNCH).  rubber_band.cu and spr.cu run one warp
-// per locus, `block` loci per block, with every per-locus table in dynamic
-// shared memory (SWEEP_LAUNCH_WARP): the lanes take the axes that are
-// parallel inside a locus, through the LANES / ONE_LANE sections below.
-// All four keep the population tables in static shared memory, filled by
-// the block from the state's theta, tau and migration rates
-// (PopTables::load).
+// One launch shape: every kernel runs one warp per locus, `block` loci per
+// block, with every per-locus table in dynamic shared memory
+// (SWEEP_LAUNCH_WARP): the lanes take the axes that are parallel inside a
+// locus, through the LANES / ONE_LANE sections below.  All four keep the
+// population tables in static shared memory, filled by the block from the
+// state's theta, tau and migration rates (PopTables::load).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,16 +26,13 @@
 
 typedef long long i64;
 
-// Compile-time bounds (checked by the Python wrappers): nodes, migration
-// slots, populations, bands, and the SPR boundary grid.  They size the
-// per-thread arrays of the thread-per-locus kernels and the population
-// tables; the warp-per-locus kernels size their tables from the run's N,
-// M, P.
+// Compile-time bounds (checked by the Python wrappers): nodes (a locus's
+// dirty rows are a 64-bit mask), populations and bands (the population
+// tables, and the ancestor relation as 32-bit rows).  The per-locus tables
+// are sized from the run's N, M, P.
 #define MAXN 63
-#define MAXM 32
 #define MAXPP 16
 #define MAXB 8
-#define MAXK (MAXN + MAXM + MAXPP + 2 * MAXB + 1)
 
 // what a block may use of an SM's shared memory, static part included
 #define SMEM_LIMIT 232448
@@ -65,27 +60,33 @@ struct SweepArgs {
   const void* taunew;
   const void* lnld_in; const void* lnp_in; const void* cond_in;
   // outputs and scratch
-  void* cond_out; void* prop; void* gsum;
+  void* cond_out; void* prop;
   void* age_out; void* lson_out; void* rson_out; void* father_out;
   void* node_pop_out; void* root_out;
   void* mig_branch_out; void* mig_band_out; void* mig_age_out;
+  // acc_out: node age, migration age: int64 [L] accepts per locus
   void* lnld_out; void* lnp_out; void* acc_out;
+  // node age, migration age: the counter after the sweep, (*ctr + advance)
+  // mod 2^32, written by the kernel (advance_counter)
+  void* ctr_out;
   // int32 sums over the valid loci, zeroed by the wrapper.  Rubber band:
   // [ntj0, ntj1, conflicts]; SPR: [accepts, largest draw offset].
   void* stat;
-  // SPR built with -DSWEEP_PROFILE: [L, 16] int64 cycle counts, or null
+  // a kernel built with -DSWEEP_PROFILE: [L, 16] int64 cycle counts, or
+  // null
   void* prof;
   // sample_age: rubber band in its sample-age mode (pop is a current pop).
-  // block: loci per block.  cond_smem: the warp-per-locus kernels keep the
-  // locus's conditionals in shared memory (else in cond_out / prop).
+  // block: loci per block.  cond_smem: the locus's conditionals live in
+  // shared memory (else in cond_out / prop).
   // smem_bytes: dynamic shared memory of one block.
+  // advance: the draws a sweep of fixed length takes from the counter.
   int L, N, M, B, PP, P, root_pop, pop, is_root, block, sample_age,
-      cond_smem, smem_bytes;
+      cond_smem, smem_bytes, advance;
   double oldage;
 };
 
 // ---- lanes ----------------------------------------------------------------
-// A warp-per-locus kernel is written in sections.  LANES(j, n) { ... } runs
+// A kernel is written in sections.  LANES(j, n) { ... } runs
 // its body for every j < n, strided over the warp's lanes; ONE_LANE { ... }
 // runs its body on lane 0.  Both are fenced by __syncwarp() before and
 // after, so a section sees everything written before it, and shared memory
@@ -244,6 +245,16 @@ __device__ T rnd2normal8(uint32_t key, uint32_t c) {
   return u3 < (T)0.5 ? zval : -zval;
 }
 
+// The counter after a sweep whose length does not depend on the data
+// (rng_fast: ctr + n mod 2^32), written by the first locus's first lane, so
+// that the wrapper launches no tensor operation for it.
+__device__ __forceinline__ void advance_counter(const SweepArgs& a, int l,
+                                                int lane) {
+  if (l == 0 && lane == 0)
+    *(i64*)a.ctr_out = (i64)(((uint64_t)*(const i64*)a.ctr +
+                              (uint64_t)a.advance) & 0xFFFFFFFFull);
+}
+
 template <typename T>
 __device__ __forceinline__ bool mh(T lnacc, T u) {
   return lnacc >= (T)0 || u < d_exp(d_min(lnacc, (T)0));
@@ -280,89 +291,6 @@ __device__ __forceinline__ T edge_p(T len) {
   return len < (T)1e-100 ? (T)0 : p;
 }
 
-// out[P, 4] = 4 * JC(ca, pa) * JC(cb, pb) (the x4 Felsenstein rescale)
-template <typename T>
-__device__ void jc_combine(T* out, const T* ca, const T* cb, T pa, T pb,
-                           int P) {
-  const T qa = (T)1 - (T)4 * pa, qb = (T)1 - (T)4 * pb;
-  for (int p = 0; p < P; ++p) {
-    const T* x = ca + 4 * p;
-    const T* y = cb + 4 * p;
-    T sa = ((x[0] + x[1]) + x[2]) + x[3];
-    T sb = ((y[0] + y[1]) + y[2]) + y[3];
-    for (int k = 0; k < 4; ++k) {
-      T fa = pa * sa + qa * x[k];
-      T fb = pb * sb + qb * y[k];
-      out[4 * p + k] = (T)4 * fa * fb;
-    }
-  }
-}
-
-// recompute internal node n of `cond` ([N, P, 4] of one locus)
-template <typename T>
-__device__ __forceinline__ void recompute_node(T* cond, int n,
-                                               const int* lson,
-                                               const int* rson, const T* age,
-                                               T mut, int P) {
-  int ls = lson[n], rs = rson[n];
-  T pa = edge_p(mut * (age[n] - age[ls]));
-  T pb = edge_p(mut * (age[n] - age[rs]));
-  jc_combine(cond + (size_t)n * P * 4, cond + (size_t)ls * P * 4,
-             cond + (size_t)rs * P * 4, pa, pb, P);
-}
-
-// recompute the path start -> root in `cond`; returns the dirty-row mask
-template <typename T>
-__device__ uint64_t refresh_path(T* cond, int start, const int* lson,
-                                 const int* rson, const int* father,
-                                 const T* age, T mut, int N, int S, int P) {
-  uint64_t dirty = 0;
-  int cur = start;
-  for (int step = 0; cur >= 0 && step < N; ++step) {
-    if (cur >= S) {
-      recompute_node(cond, cur, lson, rson, age, mut, P);
-      dirty |= 1ull << cur;
-    }
-    cur = father[cur];
-  }
-  return dirty;
-}
-
-// copy the rows of `mask` from src to dst ([N, P, 4] of one locus)
-template <typename T>
-__device__ void copy_rows(T* dst, const T* src, uint64_t mask, int P) {
-  while (mask) {
-    int n = __ffsll((long long)mask) - 1;
-    mask &= mask - 1;
-    const T* s = src + (size_t)n * P * 4;
-    T* d = dst + (size_t)n * P * 4;
-    for (int j = 0; j < 4 * P; ++j) d[j] = s[j];
-  }
-}
-
-// per-locus data log-likelihood from the root conditional
-// (ops/likelihood_cache.lnld_from_cond); gsum: [P] scratch
-template <typename T>
-__device__ T root_lnld(const T* cond, int root, const i64* gid,
-                       const T* gcount, const T* gnph, const bool* pvalid,
-                       T* gsum, int S, int P) {
-  const T* rc = cond + (size_t)root * P * 4;
-  for (int g = 0; g < P; ++g) gsum[g] = (T)0;
-  for (int p = 0; p < P; ++p) {
-    if (pvalid[p]) {
-      const T* x = rc + 4 * p;
-      gsum[gid[p]] += ((x[0] + x[1]) + x[2]) + x[3];
-    }
-  }
-  const T c = (T)((S - 1) * 1.3862943611198906);  // (S-1) log 4
-  T lnl = (T)0;
-  for (int g = 0; g < P; ++g) {
-    T safe = gcount[g] > (T)0 ? gsum[g] : (T)1;
-    lnl += gcount[g] * (d_log(safe) - d_log((T)4 * gnph[g]) - c);
-  }
-  return lnl;
-}
-
 // first (min) and last (max) active migration age on edge n; +-inf if none
 template <typename T>
 __device__ __forceinline__ T first_mig_on(int n, const int* mbr,
@@ -397,53 +325,13 @@ __device__ __forceinline__ T next_mig_above(int m, const int* mbr,
   return best;
 }
 
-// Segment set of one locus (ops/coalstats.segments): N edge segments,
-// then M migration segments.  root_top: the root's virtual edge top.
-template <typename T>
-struct Segs {
-  T start[MAXN + MAXM], end[MAXN + MAXM];
-  int base[MAXN + MAXM];
-  bool valid[MAXN + MAXM];
-  int n;
-  __device__ void build(const T* age, const int* father, const int* npop,
-                        const int* mbr, const int* mbd, const T* mag,
-                        const PopTables<T>& pt, T root_top, int N, int M) {
-    T top[MAXN];
-    for (int v = 0; v < N; ++v)
-      top[v] = father[v] < 0 ? root_top : age[father[v]];
-    for (int v = 0; v < N; ++v) {
-      start[v] = age[v];
-      end[v] = d_min(top[v], first_mig_on(v, mbr, mag, M));
-      base[v] = npop[v];
-      valid[v] = true;
-    }
-    for (int m = 0; m < M; ++m) {
-      bool act = mbr[m] >= 0;
-      start[N + m] = act ? mag[m] : (T)0;
-      end[N + m] = act ? d_min(next_mig_above(m, mbr, mag, M), top[mbr[m]])
-                       : (T)0;
-      base[N + m] = (act && pt.B > 0) ? (int)pt.bsrc[mbd[m]] : 0;
-      valid[N + m] = act;
-    }
-    n = N + M;
-  }
-};
-
-__device__ __forceinline__ void load_int(int* dst, const i64* src, int n) {
-  for (int j = 0; j < n; ++j) dst[j] = (int)src[j];
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_real(T* dst, const T* src, size_t n) {
-  for (size_t j = 0; j < n; ++j) dst[j] = src[j];
-}
-
-// ---- warp-per-locus forms of the helpers above ---------------------------
+// ---- the conditionals of one locus ---------------------------------------
 // `cond` is one locus's [N, P, 4] conditionals, in shared memory or (where
 // a locus does not fit) in device memory; a row is contiguous either way.
 // Every lane passes the same arguments.
 
-// recompute internal node n: the P x 4 outputs of jc_combine over the lanes
+// recompute internal node n, out[P, 4] = 4 * JC(ca, pa) * JC(cb, pb) (the
+// x4 Felsenstein rescale): the P x 4 outputs over the lanes
 template <typename T>
 __device__ __forceinline__ void recompute_node_w(T* cond, int n,
                                                  const int* lson,
@@ -517,27 +405,28 @@ __device__ void load_seq_w(const SweepArgs& a, int l, int* gid, T* gcount,
   }
 }
 
-// root_lnld with the tables of load_seq_w.  The group sums and the final
-// sum keep root_lnld's order (one lane, then every lane alike); the P
-// logarithms between them go over the lanes.  Returns the same value on
-// every lane; gsum: [P] scratch of the locus.
+// Per-locus data log-likelihood from the root conditional
+// (ops/likelihood_cache.lnld_from_cond) with the tables of load_seq_w.
+// Lane g adds up the patterns of group g in pattern order (the bits of one
+// serial pass over the patterns that adds each into its group's cell) and
+// takes the group's logarithm; every lane then adds the groups in index
+// order.  Returns the same value on every lane; gsum: [P] scratch of the
+// locus.
 template <typename T>
 __device__ T root_lnld_w(const T* cond, int root, const int* gid,
                          const T* gcount, const T* lg4, T* gsum, int S,
                          int P, int lane) {
   const T* rc = cond + (size_t)root * P * 4;
-  ONE_LANE {
-    for (int g = 0; g < P; ++g) gsum[g] = (T)0;
-    for (int p = 0; p < P; ++p) {
-      if (gid[p] >= 0) {
-        const T* x = rc + 4 * p;
-        gsum[gid[p]] += ((x[0] + x[1]) + x[2]) + x[3];
-      }
-    }
-  }
   const T c = (T)((S - 1) * 1.3862943611198906);  // (S-1) log 4
   LANES(g, P) {
-    const T safe = gcount[g] > (T)0 ? gsum[g] : (T)1;
+    T sum = (T)0;
+    if (gcount[g] > (T)0)
+      for (int p = 0; p < P; ++p) {
+        const T* x = rc + 4 * p;
+        const T v = ((x[0] + x[1]) + x[2]) + x[3];
+        sum = gid[p] == g ? sum + v : sum;
+      }
+    const T safe = gcount[g] > (T)0 ? sum : (T)1;
     gsum[g] = gcount[g] * (d_log(safe) - lg4[g] - c);
   }
   T lnl = (T)0;
@@ -552,30 +441,45 @@ __host__ __device__ inline int locus_bytes(int reals, int ints) {
   return (reals * (int)sizeof(T) + ints * 4 + 15) / 16 * 16;
 }
 
-// One C entry point per kernel and real type: launch on `stream`, return
-// cudaGetLastError().  SWEEP_LAUNCH is the launch of a thread-per-locus
-// kernel, SWEEP_LAUNCH_WARP that of a warp-per-locus kernel with
-// a->smem_bytes of dynamic shared memory; the CPU tests
-// (tests/test_torch_csrc_host.py) compile these sources with a host C++
-// compiler and define both to run the loci one after another.
-#ifndef SWEEP_LAUNCH
-#define SWEEP_LAUNCH(K, a, stream)                                         \
-  K<<<(a->L + a->block - 1) / a->block, a->block, 0,                        \
-      (cudaStream_t)stream>>>(*a)
+// Built with -DSWEEP_PROFILE (tools/sweep_phases.py), a kernel adds up the
+// clock cycles between its SWEEP_TICK marks, per locus, and writes them to
+// a.prof ([L, 16] int64: up to 12 phases, then the whole chain and one
+// number of the kernel's own); otherwise the three macros are nothing.
+#ifdef SWEEP_PROFILE
+#define SWEEP_PROF_BEGIN                                                \
+  const long long t_start = clock64();                                  \
+  long long t_last = t_start;                                           \
+  long long prof[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#define SWEEP_TICK(ph)                        \
+  {                                           \
+    const long long t_ = clock64();           \
+    prof[ph] += t_ - t_last;                  \
+    t_last = t_;                              \
+  }
+#define SWEEP_PROF_END(extra)                                           \
+  if (lane == 0 && a.prof) {                                            \
+    long long* o_ = (long long*)a.prof + (size_t)l * 16;                \
+    for (int q_ = 0; q_ < 12; ++q_) o_[q_] = prof[q_];                  \
+    o_[12] = clock64() - t_start;                                       \
+    o_[13] = (extra);                                                   \
+  }
+#else
+#define SWEEP_PROF_BEGIN
+#define SWEEP_TICK(ph)
+#define SWEEP_PROF_END(extra)
+#endif
+
+// One C entry point per kernel and real type: hold the caller's
+// shared-memory size against the kernel's layout, launch on `stream` with
+// a->smem_bytes of dynamic shared memory, return cudaGetLastError().  The
+// CPU tests (tests/test_torch_csrc_host.py) compile these sources with a
+// host C++ compiler and define SWEEP_LAUNCH_WARP to run the loci one after
+// another.
+#ifndef SWEEP_LAUNCH_WARP
 #define SWEEP_LAUNCH_WARP(K, a, stream)                                    \
   K<<<(a->L + a->block - 1) / a->block, 32 * a->block, a->smem_bytes,       \
       (cudaStream_t)stream>>>(*a)
 #endif
-
-#define SWEEP_ENTRY(name, kernel)                                          \
-  extern "C" int name##_f32(const SweepArgs* a, void* stream) {            \
-    SWEEP_LAUNCH(kernel<float>, a, stream);                                \
-    return (int)cudaGetLastError();                                        \
-  }                                                                        \
-  extern "C" int name##_f64(const SweepArgs* a, void* stream) {            \
-    SWEEP_LAUNCH(kernel<double>, a, stream);                               \
-    return (int)cudaGetLastError();                                        \
-  }
 
 // bytes_fn<T>(a): the dynamic shared memory the kernel's layout needs.
 // A size above 48 KB has to be allowed for the kernel first; a size the

@@ -17,10 +17,10 @@ then agree with them to the last bits at f64 (a contracted proposal moves
 ages by ~1e-13, and the prior, d lnP / d t ~ 2 n / theta ~ 1e5, by ~1e-8).
 Every entry point takes a pointer to one `SweepArgs` struct
 (csrc/sweeps_common.cuh) and the CUDA stream, launches one kernel, and
-returns cudaGetLastError(); `launch` raises on non-zero.  The entry points
-of the warp-per-locus kernels (rubber band, SPR) also hold the caller's
-shared-memory size against their own layout and allow the kernel more
-than 48 KB of dynamic shared memory where it asks for that.
+returns cudaGetLastError(); `launch` raises on non-zero.  Every kernel runs
+a warp per locus with its tables in dynamic shared memory: its entry point
+first holds the caller's shared-memory size against its own layout, and
+allows the kernel more than 48 KB where it asks for that.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without nvcc.
@@ -42,10 +42,11 @@ HEADERS = ("sweeps_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# bounds of the kernels' tables (MAXN... in sweeps_common.cuh), what a block
-# may use of an SM's shared memory (SMEM_LIMIT there), and the error an
-# entry point returns for a shared-memory size its layout does not need
-MAXN, MAXM, MAXPP, MAXB = 63, 32, 16, 8
+# bounds of the kernels (MAXN... in sweeps_common.cuh: nodes, populations,
+# bands), what a block may use of an SM's shared memory (SMEM_LIMIT there),
+# and the error an entry point returns for a shared-memory size its layout
+# does not need
+MAXN, MAXPP, MAXB = 63, 16, 8
 SMEM_LIMIT = 232448
 ERR_SMEM = 9001
 
@@ -57,13 +58,13 @@ PTR_FIELDS = (
     "theta", "tau", "mig_rate", "popi", "key", "ctr", "finetune",
     "taub0", "taub1", "tauold", "taunew",
     "lnld_in", "lnp_in", "cond_in",
-    "cond_out", "prop", "gsum",
+    "cond_out", "prop",
     "age_out", "lson_out", "rson_out", "father_out", "node_pop_out",
     "root_out", "mig_branch_out", "mig_band_out", "mig_age_out",
-    "lnld_out", "lnp_out", "acc_out", "stat", "prof",
+    "lnld_out", "lnp_out", "acc_out", "ctr_out", "stat", "prof",
 )
 INT_FIELDS = ("L", "N", "M", "B", "PP", "P", "root_pop", "pop", "is_root",
-              "block", "sample_age", "cond_smem", "smem_bytes")
+              "block", "sample_age", "cond_smem", "smem_bytes", "advance")
 
 
 class SweepArgs(ctypes.Structure):

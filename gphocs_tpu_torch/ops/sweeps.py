@@ -5,10 +5,9 @@ Each wrapper takes the Pallas wrapper's arguments and returns its outputs,
 in the [L, ...] layout of the state (no lanes-last transposes):
 
   * CUDA tensors: launch the hand-written kernel in csrc/ on the current
-    stream and add one to the wrapper's entry in LAUNCHES.  Node age and
-    migration age run one thread per locus in blocks of THREAD_BLOCK; the
-    rubber band and SPR run one warp per locus, BLOCK loci per block, with
-    the locus's tables in shared memory (`smem_plan`);
+    stream and add one to the wrapper's entry in LAUNCHES.  Every kernel
+    runs one warp per locus, BLOCK loci per block, with the locus's tables
+    in shared memory (`smem_plan`);
   * CPU tensors: call the kernel's plain PyTorch version;
   * any other device, a dtype or shape the kernel does not take, or a
     non-contiguous tensor: raise.
@@ -20,7 +19,9 @@ The kernels read theta, tau and the migration rates from the state's own
 tensors and make pop_end and the band windows themselves; the integer
 tables are built once per Context (`Context.popi`).  The rubber band and
 SPR also reduce their per-locus counts on the card, so their wrappers
-launch a fill, the kernel and two small conversions.
+launch a fill, the kernel and two small conversions; node age and
+migration age write the advanced counter themselves and count accepts per
+locus in int64, so theirs launch the kernel and one reduction.
 
 SPR walk trips (kernels/spr.py): on CUDA every locus walks on its own
 (the plain version at sync_group = 1), whatever the block size; on the
@@ -43,14 +44,12 @@ from gphocs_tpu_torch.ops import cuda_lib
 from gphocs_tpu_torch.rng_fast import MASK32, FastRngState
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 
-# loci (warps) per CUDA block of the warp-per-locus kernels, where shared
-# memory allows; the results do not depend on it
+# loci (warps) per CUDA block, where shared memory allows; the results do
+# not depend on it
 BLOCK = 8
-# threads (loci) per CUDA block of the thread-per-locus kernels
-THREAD_BLOCK = 64
-# keep the conditionals of the warp-per-locus kernels in device memory even
-# where a locus fits in shared memory (chip_smoke.py and the tests set it to
-# drive that variant at small sizes)
+# keep the conditionals in device memory even where a locus fits in shared
+# memory (chip_smoke.py and the tests set it to drive that variant at small
+# sizes)
 FORCE_COND_IN_DEVICE_MEMORY = False
 # static shared memory of a kernel (the population tables), rounded up
 STATIC_SMEM = 1024
@@ -75,13 +74,15 @@ class SmemPlan(NamedTuple):
 def smem_plan(kernel: str, N: int, M: int, PP: int, B: int, P: int,
               itemsize: int, block: int,
               cond_in_device_memory: bool = False) -> SmemPlan:
-    """Shared-memory budget of a warp-per-locus kernel ("spr" or
-    "rubber_band"): how many loci share a block and where the conditionals
-    live.  One locus takes its tables (the counts of spr_reals/spr_ints and
-    rubber_reals/rubber_ints in csrc/) and, where they fit, its
-    conditionals [N, P, 4] (SPR: and their proposal copy), rounded up to 16
-    bytes.  A block holds `block` loci, or as many as fit beside the static
-    tables in the 232,448 bytes a block may use; at most 32 (1024 threads).
+    """Shared-memory budget of a kernel ("node_age", "mig_age",
+    "rubber_band" or "spr"): how many loci share a block and where the
+    conditionals live.  One locus takes its tables (the counts of
+    <kernel>_reals and <kernel>_ints in csrc/) and, where they fit, its
+    conditionals [N, P, 4] (SPR: and their proposal copy; node age: and the
+    kept rows of a root path, [N - S, P, 4]; migration age: none), rounded
+    up to 16 bytes.  A block holds `block` loci, or as many as fit beside
+    the static tables in the 232,448 bytes a block may use; at most 32
+    (1024 threads).
     Where one locus with its conditionals does not fit, they stay in device
     memory; where its tables alone do not fit, raise."""
     NS = N + M
@@ -92,8 +93,14 @@ def smem_plan(kernel: str, N: int, M: int, PP: int, B: int, P: int,
     elif kernel == "rubber_band":
         reals, ints = 3 * N + 2 * M + 5 * NS + 3 * P, 6 * N + 5 * M + 2 * NS + P
         cond = N * P * 4
+    elif kernel == "node_age":
+        reals, ints = 3 * N + 2 * M + NS + 3 * P, 4 * N + 2 * M + P
+        cond = (N + N - (N + 1) // 2) * P * 4
+    elif kernel == "mig_age":
+        reals, ints = 2 * N + M + 2 * NS + PP * NS + PP, 2 * M + NS
+        cond = 0
     else:
-        raise ValueError(f"no warp-per-locus kernel {kernel!r}")
+        raise ValueError(f"no kernel {kernel!r}")
 
     def locus(with_cond: bool) -> int:
         n = (reals + (cond if with_cond else 0)) * itemsize + ints * 4
@@ -124,7 +131,7 @@ def _on_cuda(*tensors) -> bool:
 def _check(t: torch.Tensor, name: str, dtype, shape) -> int:
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:  # a torch.Size is a tuple
         raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
@@ -149,8 +156,8 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
     B = ctx.num_bands
     dt = gen.age.dtype
     i64 = torch.int64
-    for name, v, cap in (("nodes", N, cuda_lib.MAXN), ("mig slots", M,
-                         cuda_lib.MAXM), ("populations", PP, cuda_lib.MAXPP),
+    for name, v, cap in (("nodes", N, cuda_lib.MAXN),
+                         ("populations", PP, cuda_lib.MAXPP),
                          ("bands", B, cuda_lib.MAXB)):
         if v > cap:
             raise ValueError(f"{v} {name}: the kernels take at most {cap}")
@@ -185,13 +192,12 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
         a.ctr = _check(rng.ctr, "ctr", i64, ())
     a.L, a.N, a.M, a.B, a.PP = L, N, M, B, PP
     a.root_pop = ctx.root_pop
-    a.block = THREAD_BLOCK
     a.oldage = ctx.oldage
     return a
 
 
 def _plan_into(a: cuda_lib.SweepArgs, kernel: str, itemsize: int) -> SmemPlan:
-    """Choose the block of a warp-per-locus kernel and write it into a."""
+    """Choose the kernel's block and write it into a."""
     plan = smem_plan(kernel, a.N, a.M, a.PP, a.B, a.P, itemsize, BLOCK,
                      FORCE_COND_IN_DEVICE_MEMORY)
     a.block, a.cond_smem, a.smem_bytes = (plan.loci_per_block,
@@ -215,13 +221,12 @@ def _advance(rng: FastRngState, n) -> FastRngState:
 
 
 class Prepared(NamedTuple):
-    """A kernel ready to launch: the entry point's name, its arguments, the
-    shared-memory plan of a warp-per-locus kernel (None for the others),
-    its output tensors, and the scratch and scalar tensors the arguments
-    point into."""
+    """A kernel ready to launch: the entry point's name, its arguments, its
+    shared-memory plan, its output tensors, and the scratch and scalar
+    tensors the arguments point into."""
     entry: str
     args: cuda_lib.SweepArgs
-    plan: SmemPlan | None
+    plan: SmemPlan
     out: dict
     keep: list
 
@@ -239,19 +244,24 @@ def prepare_node_age(gen: GenState, params: Params, seq: SeqData,
     dt = gen.age.dtype
     dev = cond.device
     a = _args(gen, params, ctx, seq, rng)
-    keep = [torch.empty_like(cond),                       # proposal copy
-            torch.empty((L, P), dtype=dt, device=dev)]    # group sums
-    a.prop, a.gsum = keep[0].data_ptr(), keep[1].data_ptr()
+    keep = []
     a.finetune = _scalar(finetune, dt, dev, keep)
     a.lnld_in = _check(lnld, "lnld", dt, (L,))
     a.lnp_in = _check(lnp, "lnp", dt, (L,))
     a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
+    plan = _plan_into(a, "node_age", cond.element_size())
+    if not plan.cond_smem:  # the kept rows of a step's root path
+        keep.append(torch.empty((L, N - gen.num_samples, P, 4), dtype=dt,
+                                device=dev))
+        a.prop = keep[-1].data_ptr()
+    a.advance = 4 * (gen.num_samples - 1)
     out = {"cond": torch.empty_like(cond), "age": torch.empty_like(gen.age),
            "lnld": torch.empty_like(lnld), "lnp": torch.empty_like(lnp),
-           "acc": torch.empty((L,), dtype=torch.int32, device=dev)}
+           "acc": torch.empty((L,), dtype=torch.int64, device=dev),
+           "ctr": torch.empty_like(rng.ctr)}
     for f, t in out.items():
         setattr(a, f + "_out", t.data_ptr())
-    return Prepared(f"node_age_{_real_suffix(dt)}", a, None, out, keep)
+    return Prepared(f"node_age_{_real_suffix(dt)}", a, plan, out, keep)
 
 
 def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
@@ -267,9 +277,8 @@ def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
     p.launch(cond.device)
     LAUNCHES["node_age"] += 1
     o = p.out
-    return (gen._replace(age=o["age"]),
-            _advance(rng, 4 * (gen.num_samples - 1)), o["lnld"], o["lnp"],
-            o["cond"], o["acc"].sum(dtype=torch.int64))
+    return (gen._replace(age=o["age"]), rng._replace(ctr=o["ctr"]),
+            o["lnld"], o["lnp"], o["cond"], o["acc"].sum())
 
 
 def prepare_mig_age(gen: GenState, params: Params, rng: FastRngState,
@@ -282,12 +291,15 @@ def prepare_mig_age(gen: GenState, params: Params, rng: FastRngState,
     a = _args(gen, params, ctx, None, rng)
     a.finetune = _scalar(finetune, dt, lnp.device, keep)
     a.lnp_in = _check(lnp, "lnp", dt, (L,))
+    plan = _plan_into(a, "mig_age", lnp.element_size())
+    a.advance = 4 * gen.max_migs
     out = {"mig_age": torch.empty_like(gen.mig_age),
            "lnp": torch.empty_like(lnp),
-           "acc": torch.empty((L,), dtype=torch.int32, device=lnp.device)}
+           "acc": torch.empty((L,), dtype=torch.int64, device=lnp.device),
+           "ctr": torch.empty_like(rng.ctr)}
     for f, t in out.items():
         setattr(a, f + "_out", t.data_ptr())
-    return Prepared(f"mig_age_{_real_suffix(dt)}", a, None, out, keep)
+    return Prepared(f"mig_age_{_real_suffix(dt)}", a, plan, out, keep)
 
 
 def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
@@ -303,9 +315,8 @@ def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
     p.launch(lnp.device)
     LAUNCHES["mig_age"] += 1
     o = p.out
-    return (gen._replace(mig_age=o["mig_age"]),
-            _advance(rng, 4 * gen.max_migs), o["lnp"],
-            o["acc"].sum(dtype=torch.int64))
+    return (gen._replace(mig_age=o["mig_age"]), rng._replace(ctr=o["ctr"]),
+            o["lnp"], o["acc"].sum())
 
 
 def prepare_rubber_band(gen: GenState, params: Params, seq: SeqData,

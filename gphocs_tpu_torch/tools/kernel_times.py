@@ -14,7 +14,16 @@ rubber band in tau mode on the root population, SPR):
   kernel_ms    the hand-written kernel's own device time per launch, from
                torch.profiler (device events whose name holds the kernel's);
   device_ops   device operations (kernels, copies, fills) of one wrapper
-               call besides that kernel, from the same profile;
+               call besides that kernel, from the same profile, and
+               `other_ops`, their names with their counts over the calls;
+  host_us      the host's time for one wrapper call, by its own clock over
+               `reps` calls with the device drained before and after (the
+               device keeps up, so this is what the call costs a host-bound
+               iteration), and of that `prepare_us`, the checks, the
+               argument struct and the output allocations
+               (ops/sweeps.prepare_*), and `launch_us`, the ctypes call
+               that launches the kernel; the rest is the wrapper's tensor
+               operations after the launch;
 
 and prints one JSON line with them, the card's name and its power limit.
 
@@ -24,7 +33,8 @@ in turns (A B B A for two), so that two checkouts (say, this commit and
 its parent unpacked from `git archive`) are timed within one run on one
 card; each checkout builds its own kernels under its own build/.  It
 uses only what the wrappers had from the start of the port: their names,
-arguments and results.
+arguments and results; the split of host_us also needs ops/sweeps.prepare_*
+and is left out for a checkout without them.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 KERNELS = {"node_age": "node_age_kernel", "mig_age": "mig_age_kernel",
            "rubber_band": "rubber_band_kernel", "spr": "spr_kernel"}
@@ -62,9 +73,23 @@ def _events_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def _host_us(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
 def _profiled(fn, kernel: str, reps: int):
     """(the kernel's device ms per launch, other device operations per
-    call) over `reps` calls of fn under torch.profiler."""
+    call, their names and counts) over `reps` calls of fn under
+    torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -83,7 +108,13 @@ def _profiled(fn, kernel: str, reps: int):
         raise RuntimeError(f"{kernel}: {len(mine)} launches in the profile, "
                            f"{reps} calls")
     us = sum(e.time_range.end - e.time_range.start for e in mine)
-    return us / 1e3 / len(mine), (len(dev) - len(mine)) / len(mine)
+    names = {}
+    for e in dev:
+        if kernel not in e.name:
+            short = e.name.split("(")[0].split("<")[0][-60:]
+            names[short] = names.get(short, 0) + 1
+    return (us / 1e3 / len(mine), (len(dev) - len(mine)) / len(mine),
+            names)
 
 
 def measure(loci: int, bp: int, reps: int) -> dict:
@@ -127,11 +158,32 @@ def measure(loci: int, bp: int, reps: int) -> dict:
         "spr": lambda: sweeps.spr_sweep(g, pr, sq, s.lrng, c, s.lnld,
                                         s.cond),
     }
+    prepares = {
+        "node_age": lambda: sweeps.prepare_node_age(
+            g, pr, sq, s.lrng, c, s.ft.coal_time, s.lnld, s.lnp, s.cond),
+        "mig_age": lambda: sweeps.prepare_mig_age(
+            g, pr, s.lrng, c, s.ft.mig_time, s.lnp),
+        "rubber_band": lambda: sweeps.prepare_rubber_band(
+            g, pr, sq, c, pop, False, taub0, taub1, tauold, taunew, s.cond),
+        "spr": lambda: sweeps.prepare_spr(g, pr, sq, s.lrng, c, s.lnld,
+                                          s.cond),
+    }
+    dev = s.cond.device
     out = {}
     for name, fn in calls.items():
         ms = min(_events_ms(fn, reps), _events_ms(fn, reps))
-        kernel_ms, ops = _profiled(fn, KERNELS[name], reps)
-        out[name] = {"ms": ms, "kernel_ms": kernel_ms, "device_ops": ops}
+        kernel_ms, ops, names = _profiled(fn, KERNELS[name], reps)
+        out[name] = {"ms": ms, "kernel_ms": kernel_ms, "device_ops": ops,
+                     "other_ops": names,
+                     "host_us": min(_host_us(fn, reps), _host_us(fn, reps))}
+        if hasattr(sweeps, "prepare_" + name):
+            prep = prepares[name]
+            p = prep()
+            out[name]["prepare_us"] = min(_host_us(prep, reps),
+                                          _host_us(prep, reps))
+            out[name]["launch_us"] = min(
+                _host_us(lambda: p.launch(dev), reps),
+                _host_us(lambda: p.launch(dev), reps))
     return out
 
 

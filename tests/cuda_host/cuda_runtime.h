@@ -1,17 +1,15 @@
 // Host stand-in for <cuda_runtime.h>: lets a host C++ compiler build
 // gphocs_tpu_torch/csrc/*.cu for tests/test_torch_csrc_host.py.
 //
-// The loci run one after another.  A thread-per-locus kernel (node age,
-// migration age) runs each locus as a one-thread block.  A warp-per-locus
-// kernel (rubber band, SPR) runs each locus as one "warp" of a block of
-// a->block loci, with the block's dynamic shared memory an ordinary
-// buffer (filled with 0xA5, not zeros) carved up by the kernel as on the
-// card.  That warp is a single
-// lane which runs every index of a LANES section in a plain loop, so the
-// warp reductions return their argument and the barriers do nothing; with
-// -DSWEEP_REVERSE_LANES the loops run backwards, which changes the result
-// of a section whose body reads what another index of it writes.  The
-// block's static shared memory (the population tables) is a static that
+// The loci run one after another.  Every kernel runs a warp per locus:
+// the stand-in runs each locus as one "warp" of a block of a->block loci,
+// with the block's dynamic shared memory an ordinary buffer (filled with
+// 0xA5, not zeros) carved up by the kernel as on the card.  That warp is a
+// single lane which runs every index of a LANES section in a plain loop, so
+// the warp reductions return their argument and the barriers do nothing;
+// with -DSWEEP_REVERSE_LANES the loops run backwards, which changes the
+// result of a section whose body reads what another index of it writes.
+// The block's static shared memory (the population tables) is a static that
 // every warp fills again.  Build with -ffp-contract=off, the host twin of
 // the kernels' -fmad=false.
 #pragma once
@@ -61,20 +59,10 @@ inline float __uint_as_float(uint32_t x) {
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int cudaGetLastError() { return 0; }
 #define cudaFuncSetAttribute(...) 0
 using std::isfinite;
-
-#define SWEEP_LAUNCH(K, a, stream)                 \
-  do {                                             \
-    (void)(stream);                                \
-    for (int b_ = 0; b_ < (a)->L; ++b_) {          \
-      blockIdx.x = b_;                             \
-      blockDim.x = 1;                              \
-      threadIdx.x = 0;                             \
-      K(*(a));                                     \
-    }                                              \
-  } while (0)
 
 #define SWEEP_LAUNCH_WARP(K, a, stream)                                   \
   do {                                                                    \

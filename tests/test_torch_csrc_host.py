@@ -2,10 +2,9 @@
 with a C++ compiler, against their plain PyTorch versions at f64.
 
 tests/cuda_host/cuda_runtime.h stands in for the CUDA runtime.  The loci
-run one after another: node age and migration age as one-thread blocks,
-the rubber band and SPR as one "warp" per locus whose single lane runs
-every index of a lane section in a plain loop, with the block's shared
-memory an ordinary buffer.  SPR is held against update_spr(sync_group=1),
+run one after another, each as one "warp" whose single lane runs every
+index of a lane section in a plain loop, with the block's shared memory an
+ordinary buffer.  SPR is held against update_spr(sync_group=1),
 the card's schedule.  A second build runs the lane loops backwards: a
 section that reads what another lane of it writes then gives another
 result.  The kernels are reached through the wrappers in ops/sweeps.py, so
@@ -245,7 +244,7 @@ def test_sample_age_sweep_through_kernel(warm_sample_age, kernels_on_host,
     _close(k[4], q[4], 1e-9)
 
 
-# ---- the warp-per-locus kernels: lanes, blocks, shared memory ------------
+# ---- lanes, blocks, shared memory -----------------------------------------
 
 def _flat(out):
     """The tensors of a wrapper's result, GenState fields included."""
@@ -266,7 +265,15 @@ def _same(a, b):
 
 
 def _call(which, warm, warm_sample_age):
-    """One wrapper call of a warp-per-locus kernel on its fixture."""
+    """One wrapper call of a kernel on its fixture."""
+    if which == "node_age":
+        s = warm
+        return sweeps.node_age_sweep(s.gen, s.params, s.seq, s.lrng, s.ctx,
+                                     s.ft.coal_time, s.lnld, s.lnp, s.cond)
+    if which == "mig_age":
+        s = warm
+        return sweeps.mig_age_sweep(s.gen, s.params, s.lrng, s.ctx,
+                                    s.ft.mig_time, s.lnp)
     if which == "spr":
         s = warm
         return sweeps.spr_sweep(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
@@ -281,7 +288,10 @@ def _call(which, warm, warm_sample_age):
                                    *sample_age_bounds(s, 3, -0.2), s.cond)
 
 
-WARP_KERNELS = ("spr", "rubber_band", "rubber_band_sample_age")
+WARP_KERNELS = ("node_age", "mig_age", "spr", "rubber_band",
+                "rubber_band_sample_age")
+# those that hold conditionals (migration age is prior arithmetic only)
+COND_KERNELS = tuple(k for k in WARP_KERNELS if k != "mig_age")
 
 
 @pytest.mark.parametrize("which", WARP_KERNELS)
@@ -309,7 +319,7 @@ def test_loci_per_block_do_not_change_outputs(which, warm, warm_sample_age,
     _same(a, b)
 
 
-@pytest.mark.parametrize("which", WARP_KERNELS)
+@pytest.mark.parametrize("which", COND_KERNELS)
 def test_conditionals_in_device_memory_equal_shared(which, warm,
                                                     warm_sample_age,
                                                     host_libs, monkeypatch):
@@ -325,10 +335,29 @@ def test_conditionals_in_device_memory_equal_shared(which, warm,
 @pytest.mark.parametrize("build", ["forward", "reverse"])
 def test_wide_fixture_matches_plain(build, warm_wide, host_libs,
                                     monkeypatch):
-    """N = 31, K = 51 and 4 P > 32: SPR and the rubber band against their
-    plain versions where every lane loop takes more than one turn."""
+    """N = 31, K = 51, N + M > 32 and 4 P > 32: every kernel against its
+    plain version where every lane loop takes more than one turn."""
     s = warm_wide
     _route(monkeypatch, host_libs[build], block=5)
+    # 15 levels of the x4 rescale: the root's conditionals are ~1e9
+    scale = float(s.cond.abs().max())
+    args = (s.gen, s.params, s.seq, s.lrng, s.ctx, s.ft.coal_time, s.lnld,
+            s.lnp, s.cond)
+    k = sweeps.node_age_sweep(*args)
+    q = update_internal_node_ages(*args)
+    assert int(k[1].ctr) == int(q[1].ctr)
+    assert int(k[5]) == int(q[5]) > 0
+    _close(k[0].age, q[0].age, 1e-12)
+    _close(k[2], q[2], 1e-9)
+    _close(k[3], q[3], 1e-9)
+    _close(k[4] / scale, q[4] / scale, 1e-10)
+    args = (s.gen, s.params, s.lrng, s.ctx, s.ft.mig_time, s.lnp)
+    k = sweeps.mig_age_sweep(*args)
+    q = update_mig_ages(*args)
+    assert int(k[1].ctr) == int(q[1].ctr)
+    assert int(k[3]) == int(q[3]) > 0
+    _close(k[0].mig_age, q[0].mig_age, 1e-12)
+    _close(k[2], q[2], 1e-9)
     args = (s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld, s.cond)
     k = sweeps.spr_sweep(*args)
     q = update_spr(*args, sync_group=1)
@@ -340,8 +369,6 @@ def test_wide_fixture_matches_plain(build, warm_wide, host_libs,
     _close(k[0].age, q[0].age, 1e-12)
     _close(k[0].mig_age, q[0].mig_age, 1e-12)
     _close(k[2], q[2], 1e-9)
-    # 15 levels of the x4 rescale: the root's conditionals are ~1e9
-    scale = float(q[3].abs().max())
     _close(k[3] / scale, q[3] / scale, 1e-10)
     for pop in range(s.tree.num_cur_pops, s.tree.num_pops):
         b = tau_bounds(s, pop)
@@ -359,8 +386,9 @@ def test_wide_fixture_matches_plain(build, warm_wide, host_libs,
 
 
 def test_counts_are_summed_over_the_valid_loci(warm, kernels_on_host):
-    """The kernels' integer sums (Jacobian counts, conflicts, SPR accepts)
-    leave out the padding loci, as the plain versions' masked sums do."""
+    """The kernels' integer sums (Jacobian counts, conflicts, accepts)
+    leave out the padding loci, as the plain versions' masked sums do, and
+    a sweep leaves a padding locus as it was."""
     s = warm
     valid = s.gen.valid.clone()
     valid[::3] = False
@@ -384,6 +412,25 @@ def test_counts_are_summed_over_the_valid_loci(warm, kernels_on_host):
     assert int(k[1].ctr) == int(q[1].ctr)
     assert torch.equal(k[0].father, q[0].father)
     assert torch.equal(k[0].father[~valid], s.gen.father[~valid])
+    args = (g, s.params, s.seq, s.lrng, s.ctx, s.ft.coal_time, s.lnld, s.lnp,
+            s.cond)
+    full = sweeps.node_age_sweep(s.gen, *args[1:])
+    k = sweeps.node_age_sweep(*args)
+    q = update_internal_node_ages(*args)
+    assert 0 < int(k[5]) == int(q[5]) < int(full[5])
+    assert torch.equal(k[0].age[~valid], s.gen.age[~valid])
+    assert torch.equal(k[2][~valid], s.lnld[~valid])
+    assert torch.equal(k[3][~valid], s.lnp[~valid])
+    assert torch.equal(k[4][~valid], s.cond[~valid])
+    assert not torch.equal(k[0].age[valid], s.gen.age[valid])
+    args = (g, s.params, s.lrng, s.ctx, s.ft.mig_time, s.lnp)
+    full = sweeps.mig_age_sweep(s.gen, *args[1:])
+    k = sweeps.mig_age_sweep(*args)
+    q = update_mig_ages(*args)
+    assert 0 < int(k[3]) == int(q[3]) < int(full[3])
+    assert torch.equal(k[0].mig_age[~valid], s.gen.mig_age[~valid])
+    assert torch.equal(k[2][~valid], s.lnp[~valid])
+    assert not torch.equal(k[0].mig_age[valid], s.gen.mig_age[valid])
 
 
 @pytest.mark.parametrize("proposal", [False, True])
@@ -426,11 +473,26 @@ def test_smem_plan():
     live, and a raise where one locus's tables do not fit."""
     limit = cuda_lib.SMEM_LIMIT - sweeps.STATIC_SMEM
     # the standard workload: N = 15, M = 10, PP = 7, B = 1, P = 6
-    for kernel in ("spr", "rubber_band"):
+    for kernel in ("node_age", "mig_age", "spr", "rubber_band"):
         for itemsize in (4, 8):
             p = sweeps.smem_plan(kernel, 15, 10, 7, 1, 6, itemsize, 8)
             assert p.loci_per_block == 8 and p.cond_smem
             assert p.smem_bytes % (16 * 8) == 0 and p.smem_bytes < 96 * 1024
+    # node age: tables 108 reals + 86 ints; its conditionals in place with
+    # the kept rows of a root path, (15 + 7) * 24 reals: under 48 KB at f64
+    na = sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8)
+    assert na.smem_bytes == 8 * -(-((108 + 528) * 4 + 86 * 4) // 16) * 16
+    assert sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 8,
+                            8).smem_bytes < 48 * 1024
+    forced = sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8, True)
+    assert not forced.cond_smem and forced.smem_bytes < na.smem_bytes
+    assert not sweeps.smem_plan("node_age", 63, 32, 16, 8, 300, 8,
+                                8).cond_smem
+    # migration age holds no conditionals: 272 reals + 45 ints whatever P
+    ma = sweeps.smem_plan("mig_age", 15, 10, 7, 1, 0, 4, 8)
+    assert ma.smem_bytes == 8 * -(-(272 * 4 + 45 * 4) // 16) * 16
+    assert sweeps.smem_plan("mig_age", 15, 10, 7, 1, 0, 4, 8,
+                            True).smem_bytes == ma.smem_bytes
     f32 = sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 8)
     # tables 243 reals + 211 ints, conditionals 2 * 360 reals
     assert f32.smem_bytes == 8 * -(-((243 + 720) * 4 + 211 * 4) // 16) * 16
@@ -451,17 +513,25 @@ def test_smem_plan():
     assert not sweeps.smem_plan("spr", 63, 32, 16, 8, 150, 4, 8).cond_smem
     with pytest.raises(ValueError, match="shared memory"):
         sweeps.smem_plan("spr", 63, 32, 16, 8, 20000, 8, 8)
-    with pytest.raises(ValueError, match="no warp-per-locus kernel"):
-        sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        sweeps.smem_plan("tau", 15, 10, 7, 1, 6, 4, 8)
 
 
-def test_entry_refuses_a_wrong_smem_size(warm, kernels_on_host):
+@pytest.mark.parametrize("which", ["spr", "node_age", "mig_age"])
+def test_entry_refuses_a_wrong_smem_size(which, warm, kernels_on_host):
     """The C entry point computes the layout's size itself and refuses a
     launch whose shared-memory size differs: the Python plan and the
     kernels' carve-up cannot drift apart unnoticed."""
     s = warm
-    p = sweeps.prepare_spr(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
-                           s.cond)
+    if which == "spr":
+        p = sweeps.prepare_spr(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
+                               s.cond)
+    elif which == "node_age":
+        p = sweeps.prepare_node_age(s.gen, s.params, s.seq, s.lrng, s.ctx,
+                                    s.ft.coal_time, s.lnld, s.lnp, s.cond)
+    else:
+        p = sweeps.prepare_mig_age(s.gen, s.params, s.lrng, s.ctx,
+                                   s.ft.mig_time, s.lnp)
     p.args.smem_bytes += 16
     with pytest.raises(RuntimeError, match="shared memory"):
         cuda_lib.launch(p.entry, p.args, 0)
