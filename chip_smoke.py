@@ -56,13 +56,37 @@ script then exits non-zero without the final line):
      kernels; then (5b) the same path with `locus-mut-rate VAR 1.0`
      (SAMPLE_AGE_VAR_CTL): rate moves accepted, mean rate 1, lnld equal to
      a rebuild;
-  6. one JSON line per path with its it/s, the card's line, one JSON line
-     with the kernels (launches on the paths, error against the plain
-     version, time, the plain version's time, and the least time the card
-     could take: `bound_ms`), then the result line.
+  6. the ragged path (the ragged workload of config/samples.py RAGGED_*,
+     simulated with the port's io/simulate: SAMPLE_CTL, 4,000 loci of 100
+     to 4,000 bp) in 4 pattern buckets at f32, driven as in phase 4, with
+     every sweep launched once per bucket and iteration (the rubber band
+     3 times); the buckets' pattern capacities and cells against the dense
+     run; it/s of the bucketed and the dense sampler in turns (bucketed,
+     dense, dense, bucketed); every bucket's kernels against their plain
+     versions at f32 (F32_TOL), then with a hot band at f32 and on an f64
+     copy (F64_TOL);
+     (6b) `python -m gphocs_tpu_torch` on the same file in subprocesses,
+     4 buckets, 40 iterations with --debug-check, a checkpoint every 20
+     iterations and a coal-stats file, beside a 20-iteration run of the
+     same command; then a run resumed from a copy of the latter's
+     checkpoint: trace rows 21-40 and the final checkpoint's arrays must be
+     bitwise equal to the uninterrupted run's, every run must exit 0, and
+     the coal-stats file must hold one finite row per iteration;
+     (6c) S32_CTL (32 samples: N = 63, the kernels' MAXN) with an estimated
+     sample age on D, 1000 loci x 1,000 bp (the data of the JAX package's
+     S = 32 bench, scripts/bench_samples.py) in 8 buckets at f64, warmed and
+     heated: per bucket the shared-memory plan of each kernel, and every
+     kernel and the sample-age mode against their plain versions at
+     F64_TOL, the buckets with hundreds of patterns keeping their
+     conditionals in device memory;
+  7. one JSON line per path with its it/s (the ragged ones with both
+     readings and their pattern cells), the card's line, one JSON line with
+     the kernels (launches on the paths, error against the plain version,
+     time, the plain version's time, and the least time the card could
+     take: `bound_ms`), then the result line.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; a kernel's `launches` is the sum over the three paths.
+just after; a kernel's `launches` is the sum over the four paths.
 
 `bound_ms` is the larger of two times: the bytes of the wrapper's input
 and output tensors (each once) over 3.35 TB/s, and a count of the
@@ -76,9 +100,11 @@ advance, which is that of the locus with the most trips); `op_models`
 below states it.  No single PyTorch call computes
 one of these sweeps, so `library_ms` is null for every kernel.
 
-What was cut to keep the run short: all three paths read one simulated
-sequence file, and phase 5b drives its path but does not repeat the
-kernel comparisons of phase 5 (the kernels do not read the VAR setting).
+What was cut to keep the run short: the three paths of phases 4-5b read
+one simulated sequence file, phase 5b drives its path but does not repeat
+the kernel comparisons of phase 5 (the kernels do not read the VAR
+setting), and phase 6c runs S32_CTL with D's sample age estimated, so that
+one state serves both rubber-band modes.
 
 It needs one CUDA card; without one it exits with status 1 and prints no
 result.
@@ -105,6 +131,17 @@ SAMPLE_AGE_POP = 3  # population D of SAMPLE_AGE_CTL
 # sample-age proposals of the kernel checks: the share of the way from the
 # old age to 0 (negative) or to the upper bound (positive)
 SAMPLE_AGE_STEPS = (-0.9, -0.2, 0.01, 0.3)
+# phase 6: the ragged workload in pattern buckets; 6b: the command line
+RAGGED_BUCKETS = 4
+CLI_ITERS = 40
+CLI_CHECKPOINT = 20
+# phase 6c: S = 32 (N = 63, the kernels' MAXN) at f64, on the data of the
+# JAX package's S = 32 bench (scripts/bench_samples.py: 1000 loci x 1000 bp,
+# seed 29), whose heavy tail of phased patterns reaches the hundreds
+S32_LOCI = 1000
+S32_BP = 1000
+S32_SEED = 29
+S32_BUCKETS = 8
 
 # published H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -186,18 +223,32 @@ def warm_state(device, dtype, path, num_loci=64, ctl=None, seq_len=300):
 
 
 def heat(s):
-    """Set s's band rates hot (2e5) and step until migrations are present."""
+    """Set s's band rates hot (2e5) and step until migrations are present
+    (in every bucket of a bucketed sampler)."""
     import torch
     from gphocs_tpu_torch.kernels.common import gen_log_prior
 
+    def migs():
+        return min(int((g.mig_branch >= 0).sum()) for g in s.gens)
+
     s.params = s.params._replace(
         mig_rate=torch.full_like(s.params.mig_rate, 2e5))
-    s.lnp = gen_log_prior(s.gen, s.params, s.ctx)
+    s.lnps = tuple(gen_log_prior(g, s.params, s.ctx) for g in s.gens)
     for _ in range(8):
         s.step_chunk(5, do_migrate=True)
-        if int((s.gen.mig_branch >= 0).sum()) > 0:
+        if migs() > 0:
             break
-    check(int((s.gen.mig_branch >= 0).sum()) > 0, "no migrations in warmup")
+    check(migs() > 0, "no migrations in warmup")
+
+
+def bucket_view(s, k):
+    """Bucket k of the sampler s as a state for kernel_checks."""
+    import types
+
+    return types.SimpleNamespace(
+        gen=s.gens[k], params=s.params, seq=s.seqs[k], ctx=s.ctx, ft=s.ft,
+        lrng=s.lrngs[k], grng=s.grng, tree=s.tree, cond=s.conds[k],
+        lnld=s.lnlds[k], lnp=s.lnps[k])
 
 
 def tau_bounds(s, pop):
@@ -430,7 +481,8 @@ def equal_outputs(what, a, b):
     log(f"  {what}: {len(a)} output tensors bitwise equal")
 
 
-def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False):
+def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False,
+                      cond_scale=1.0):
     """The rubber band's sample-age mode against its plain version on the
     state `s` of a configuration with an estimated sample age, for the
     proposals of SAMPLE_AGE_STEPS.  want_conflict / want_clean: some
@@ -462,7 +514,8 @@ def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False):
             f"{float(k[6]):.0f} conflict {bool(k[7])}")
         cmp.close(name, "age", k[0], q[0], tol["age"])
         cmp.close(name, "mig_age", k[1], q[1], tol["age"])
-        cmp.close(name, "cond", k[2], q[2], tol["cond"])
+        cmp.close(name, "cond", k[2] / cond_scale, q[2] / cond_scale,
+                  tol["cond"])
         cmp.close(name, "lnld", k[3], q[3], tol["lnld"])
         cmp.close(name, "lnp", k[4], q[4], tol["lnld"])
         outs += list(k)
@@ -615,17 +668,60 @@ def bound(bytes_, ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def drive_path(label, ctl, data, tmp, card, sample_age):
+def timed_chunk(s):
+    """it/s of one step_chunk(TIMED) of the sampler s, and its totals."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = s.step_chunk(TIMED, do_migrate=True)
+    torch.cuda.synchronize()
+    return TIMED / (time.perf_counter() - t0), st
+
+
+def check_schedule(iters, buckets, sample_age):
+    """The launch counts since the last reset, which must equal the
+    schedule of `iters` iterations: each sweep once per bucket and
+    iteration, the tau rubber band TAU_PROPOSALS times, the sample-age mode
+    once where a sample age is estimated.  Returns the counts."""
+    from gphocs_tpu_torch.ops import sweeps
+
+    launches = dict(sweeps.LAUNCHES)
+    n = iters * buckets
+    want = {"node_age": n, "mig_age": n, "spr": n,
+            "rubber_band": TAU_PROPOSALS * n,
+            "rubber_band_sample_age": n if sample_age else 0}
+    log(f"launches {launches} (expected {want})")
+    check(launches == want, "launch counts do not match the schedule")
+    return launches
+
+
+def check_carried_lnld(s):
+    """The carried lnld of every bucket of the sampler s equals a rebuild."""
+    import torch
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+
+    K = s.buckets
+    for k in range(K):
+        _, ld = full_rebuild_and_lnld(s.gens[k], s.seqs[k])
+        rel = float(((ld - s.lnlds[k]).abs() / ld.abs()).max())
+        log(f"carried lnld vs rebuild{f' (bucket {k})' if K > 1 else ''}: "
+            f"max rel err {rel:.2e}; lnld sum {float(s.lnlds[k].sum()):.3f}")
+        check(bool(torch.isfinite(s.lnlds[k]).all()) and rel <= 1e-3,
+              "carried lnld disagrees with a rebuild")
+
+
+def drive_path(label, ctl, data, tmp, card, sample_age, buckets=1):
     """Drive one path through the Sampler's entry points at f32:
     initialize and run() with a trace for RUN_ITERS iterations, WARMUP
     iterations, then a timed step_chunk(TIMED).  The launch counts are set
-    to 0 just before and read just after, and must equal the schedule;
-    the carried lnld must equal a rebuild.  Returns (sampler, it/s,
-    launches, the timed chunk's totals)."""
+    to 0 just before and read just after, and must equal the schedule (each
+    sweep once per bucket and iteration); the carried lnld of every bucket
+    must equal a rebuild.  Returns (sampler, it/s, launches, the timed
+    chunk's totals)."""
     import torch
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.ops import sweeps
-    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
     from gphocs_tpu_torch.sampler.driver import Sampler
 
     t0 = time.perf_counter()
@@ -635,9 +731,12 @@ def drive_path(label, ctl, data, tmp, card, sample_age):
     cfg.mcmc.burn_in = 0
     cfg.mcmc.mcmc_iterations = RUN_ITERS
     cfg.mcmc.iterations_per_log = 25
-    s = Sampler(cfg, seq_path=data, dtype=torch.float32, device="cuda")
+    s = Sampler(cfg, seq_path=data, dtype=torch.float32, device="cuda",
+                buckets=buckets)
+    K = s.buckets
     log(f"sampler set-up {time.perf_counter() - t0:.1f} s "
-        f"(L={s.num_loci}, P={s.seq.group_id.shape[1]})")
+        f"(L={s.num_loci}, {K} bucket(s) of {s.bucket_sizes} loci, pattern "
+        f"capacity {[sq.group_id.shape[1] for sq in s.seqs]})")
 
     sweeps.reset_launch_counts()
     t0 = time.perf_counter()
@@ -648,31 +747,14 @@ def drive_path(label, ctl, data, tmp, card, sample_age):
     check(rows.shape == (RUN_ITERS, len(cols)), f"trace shape {rows.shape}")
     check(bool(math.isfinite(float(abs(rows).sum()))), "trace not finite")
     s.step_chunk(WARMUP, do_migrate=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, _ = s.step_chunk(TIMED, do_migrate=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(sweeps.LAUNCHES)
-    iters = RUN_ITERS + WARMUP + TIMED
-    want = {"node_age": iters, "mig_age": iters, "spr": iters,
-            "rubber_band": TAU_PROPOSALS * iters,
-            "rubber_band_sample_age": iters if sample_age else 0}
-    log(f"launches {launches} (expected {want})")
-    check(launches == want, "launch counts do not match the schedule")
-    its = TIMED / dt
-    log(f"{label} path: {its:.3f} it/s at f32 ({TIMED} iterations in "
-        f"{dt:.3f} s) on {card}")
+    its, st = timed_chunk(s)
+    launches = check_schedule(RUN_ITERS + WARMUP + TIMED, K, sample_age)
+    log(f"{label} path: {its:.3f} it/s at f32 ({TIMED} iterations) on {card}")
     log(f"  accepts in the timed chunk: coal {int(st.acc_coal_time)} "
         f"mig {int(st.acc_mig_time)} spr {int(st.acc_spr)} "
         f"taus {st.acc_taus.tolist()} mixing {int(st.acc_mixing)} "
         f"locus rates {int(st.acc_locus_rate)}")
-    _, ld = full_rebuild_and_lnld(s.gen, s.seq)
-    rel = float(((ld - s.lnld).abs() / ld.abs()).max())
-    log(f"carried lnld vs rebuild: max rel err {rel:.2e}; "
-        f"lnld sum {float(s.lnld.sum()):.3f}")
-    check(bool(torch.isfinite(s.lnld).all()) and rel <= 1e-3,
-          "carried lnld disagrees with a rebuild")
+    check_carried_lnld(s)
     if sample_age:
         pop = SAMPLE_AGE_POP
         ages = rows[:, cols.index("tau_D")]
@@ -686,6 +768,203 @@ def drive_path(label, ctl, data, tmp, card, sample_age):
               and bool((leaves == s.params.sample_age[pop]).all()),
               "D's leaves are not at the sample age")
     return s, its, launches, st
+
+
+
+def ragged_phase(tmp, card, cmp):
+    """Phase 6: the ragged workload, bucketed and dense, at f32.  Returns
+    the it/s readings and pattern cells of each, and each one's launch
+    counts."""
+    import torch
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.io.simulate import simulate_ragged_file
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    data = os.path.join(tmp, "ragged.txt")
+    t0 = time.perf_counter()
+    simulate_ragged_file(data)
+    log(f"data simulated in {time.perf_counter() - t0:.1f} s")
+    s, its_b1, launches, _ = drive_path(
+        "ragged_buckets", SAMPLE_CTL, data, tmp, card, sample_age=False,
+        buckets=RAGGED_BUCKETS)
+    cells = sum(n * sq.group_id.shape[1]
+                for n, sq in zip(s.bucket_sizes, s.seqs))
+    log(" -- the same file dense (one bucket)")
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 111
+    dense = Sampler(cfg, seq_path=data, dtype=torch.float32, device="cuda")
+    dense.initialize()
+    dense._sample_mig_rates_device()
+    dense_cells = dense.num_loci * dense.seqs[0].group_id.shape[1]
+    log(f"  pattern cells: {cells} in buckets of capacity "
+        f"{[sq.group_id.shape[1] for sq in s.seqs]} against {dense_cells} "
+        f"dense (ratio {cells / dense_cells:.3f})")
+    # in turns: bucketed (drive_path's reading), dense, dense, bucketed;
+    # the dense path's launches are counted from its warm-up to its second
+    # reading
+    sweeps.reset_launch_counts()
+    dense.step_chunk(WARMUP, do_migrate=True)
+    its_d1, _ = timed_chunk(dense)
+    its_d2, _ = timed_chunk(dense)
+    torch.cuda.synchronize()
+    dense_launches = check_schedule(WARMUP + 2 * TIMED, 1, False)
+    its_b2, _ = timed_chunk(s)
+    log(f"  it/s at f32, in turns: buckets {its_b1:.3f}, dense "
+        f"{its_d1:.3f}, dense {its_d2:.3f}, buckets {its_b2:.3f} on {card}")
+    check_carried_lnld(dense)
+    # at f32 the kernel and its plain version decide one node-age move of
+    # ~16,000 on this state differently, so the dense state is held on an
+    # f64 copy, where every decision must agree
+    log(" -- the dense path's kernels vs their plain versions (f64 copy)")
+    kernel_checks(cast_state(bucket_view(dense, 0), torch.float64), cmp,
+                  F64_TOL, need_moves=False)
+    del dense
+    log(" -- every bucket's kernels vs their plain versions (f32)")
+    for k in range(s.buckets):
+        log(f"  bucket {k}: {s.bucket_sizes[k]} loci, P = "
+            f"{s.seqs[k].group_id.shape[1]}")
+        kernel_checks(bucket_view(s, k), cmp, F32_TOL, need_moves=False)
+    log(" -- with a hot band, f32 then an f64 copy")
+    heat(s)
+    for k in range(s.buckets):
+        log(f"  bucket {k}")
+        kernel_checks(bucket_view(s, k), cmp, F32_TOL, need_moves=False)
+        kernel_checks(cast_state(bucket_view(s, k), torch.float64), cmp,
+                      F64_TOL, need_moves=False)
+    torch.cuda.synchronize()
+    return ({"ragged_buckets": (its_b1, its_b2, cells),
+             "ragged_dense": (its_d1, its_d2, dense_cells)},
+            {"ragged_buckets": launches, "ragged_dense": dense_launches})
+
+
+def cli_phase(tmp):
+    """Phase 6b: `python -m gphocs_tpu_torch` on the phase-6 file, resumed
+    from the checkpoint of iteration CLI_CHECKPOINT: the trace rows after
+    it and the final checkpoint equal those of the uninterrupted run."""
+    import numpy as np
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL, with_settings
+
+    def ctl(name, iterations):
+        path = os.path.join(tmp, f"{name}.ctl")
+        with open(path, "w") as f:
+            f.write(with_settings(
+                SAMPLE_CTL, seq_file=os.path.join(tmp, "ragged.txt"),
+                trace_file=os.path.join(tmp, f"{name}.log"),
+                coal_stats_file=os.path.join(tmp, f"{name}_coal.txt"),
+                mcmc_iterations=iterations,
+                iterations_per_log=CLI_CHECKPOINT, random_seed=5, burn_in=0,
+                start_mig=0))
+        return path
+
+    def start(name, iterations, *flags):
+        out = open(os.path.join(tmp, f"{name}.out"), "w")
+        return subprocess.Popen(
+            [sys.executable, "-m", "gphocs_tpu_torch", ctl(name, iterations),
+             "--buckets", str(RAGGED_BUCKETS), "--checkpoint",
+             os.path.join(tmp, f"{name}.npz"), "--checkpoint-every",
+             str(CLI_CHECKPOINT), *flags],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT), out
+
+    def finish(name, proc_out):
+        proc, out = proc_out
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            out.close()
+        text = open(out.name).read()
+        log(f"  {name}: exit {rc}; " + " | ".join(text.splitlines()[:4]))
+        check(rc == 0, f"{name} failed:\n{text[-3000:]}")
+
+    # the uninterrupted run and the first leg run side by side
+    whole = start("whole", CLI_ITERS, "--debug-check")
+    first = start("first", CLI_CHECKPOINT)
+    finish("whole", whole)
+    finish("first", first)
+    shutil.copy(os.path.join(tmp, "first.npz"),
+                os.path.join(tmp, "resumed.npz"))
+    finish("resumed", start("resumed", CLI_ITERS, "--debug-check",
+                            "--resume"))
+
+    def lines(name):
+        return open(os.path.join(tmp, f"{name}.log")).read().splitlines()
+
+    a, b = lines("whole"), lines("resumed")
+    check(len(a) == CLI_ITERS + 1 and len(b) == CLI_ITERS - CLI_CHECKPOINT
+          + 1, f"trace lengths {len(a)} {len(b)}")
+    check(a[CLI_CHECKPOINT + 1:] == b[1:],
+          "the resumed run's trace rows differ from the uninterrupted run")
+    za = np.load(os.path.join(tmp, "whole.npz"))
+    zb = np.load(os.path.join(tmp, "resumed.npz"))
+    check(sorted(za.files) == sorted(zb.files), "checkpoint keys differ")
+    for k in za.files:
+        check(np.array_equal(za[k], zb[k]), f"checkpoint array {k} differs")
+    log(f"  trace rows {CLI_CHECKPOINT + 1}-{CLI_ITERS} and the "
+        f"{len(za.files)} arrays of the final checkpoint bitwise equal")
+    rows = open(os.path.join(tmp, "whole_coal.txt")).read().splitlines()
+    vals = np.array([r.split("\t") for r in rows[1:]], float)
+    check(vals.shape[0] == CLI_ITERS and bool(np.isfinite(vals).all()),
+          f"coal-stats rows: {vals.shape}")
+    log(f"  coal-stats file: {vals.shape[0]} finite rows of "
+        f"{vals.shape[1]} columns")
+
+
+def s32_phase(tmp, cmp):
+    """Phase 6c: the kernels at S = 32 (N = 63) in buckets, at f64."""
+    import torch
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import S32_CTL
+    from gphocs_tpu_torch.io.simulate import simulate_seq_file
+    from gphocs_tpu_torch.model import build_poptree
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    path = os.path.join(tmp, "s32.txt")
+    # S32_CTL with D's sample age estimated, for the sample-age mode
+    d_pop = "samples  d1 d d2 d d3 d d4 d\n"
+    ctl = S32_CTL.format(seq=path, trace=os.path.join(tmp, "s32.log"))
+    ctl = ctl.replace(d_pop, d_pop + "        age  0.00002 e\n")
+    check("age  0.00002 e" in ctl, "S32 sample-age line not placed")
+    cfg = parse_control_text(ctl)
+    t0 = time.perf_counter()
+    simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=S32_LOCI,
+                      seq_len=S32_BP, seed=S32_SEED)
+    cfg = parse_control_text(ctl)
+    cfg.mcmc.random_seed = 17
+    cfg.mcmc.start_mig = 0
+    log(f"  simulated in {time.perf_counter() - t0:.1f} s")
+    s = Sampler(cfg, seq_path=path, dtype=torch.float64, device="cuda",
+                buckets=S32_BUCKETS)
+    s.initialize()
+    log(f"  read and initialized at {time.perf_counter() - t0:.1f} s")
+    s._sample_mig_rates_device()
+    heat(s)
+    N, M = s.gens[0].num_nodes, s.gens[0].max_migs
+    check(N == 63, f"N = {N}")
+    log(f"  set up and heated in {time.perf_counter() - t0:.1f} s: N = {N}, "
+        f"{s.buckets} buckets of {s.bucket_sizes} loci")
+    in_device = 0
+    for k in range(s.buckets):
+        P = s.seqs[k].group_id.shape[1]
+        plans = {kn: sweeps.smem_plan(kn, N, M, s.ctx.num_pops,
+                                      s.ctx.num_bands, P, 8, sweeps.BLOCK)
+                 for kn in ("node_age", "mig_age", "rubber_band", "spr")}
+        in_device += sum(not p.cond_smem for kn, p in plans.items()
+                         if kn != "mig_age")
+        log(f"  bucket {k}: {s.bucket_sizes[k]} loci, P = {P}; smem_plan "
+            + "; ".join(f"{kn} {p.loci_per_block} loci/block, "
+                        f"{'shared' if p.cond_smem else 'device'}, "
+                        f"{p.smem_bytes} B" for kn, p in plans.items()))
+        view = bucket_view(s, k)
+        kernel_checks(view, cmp, F64_TOL, need_moves=False,
+                      cond_scale=float(view.cond.abs().max()))
+        sample_age_checks(view, cmp, F64_TOL,
+                          cond_scale=float(view.cond.abs().max()))
+    check(in_device > 0, "no bucket keeps its conditionals in device memory")
+    torch.cuda.synchronize()
 
 
 def main():
@@ -916,6 +1195,23 @@ def main():
     # every pair keeps its sum up to f32 rounding, ~6e-8 a move
     check(abs(mean_rate - 1.0) <= 1e-4, f"mean rate {mean_rate}")
 
+    log(f"== phase 6: ragged path ({RAGGED_BUCKETS} pattern buckets, f32)")
+    t_phase = time.perf_counter()
+    ragged, ragged_launches = ragged_phase(tmp, card, cmp)
+    for label in ("ragged_buckets", "ragged_dense"):
+        paths[label] = sum(ragged[label][:2]) / 2
+        all_launches.append(ragged_launches[label])
+    log(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+    log("== phase 6b: python -m gphocs_tpu_torch, checkpoint and resume")
+    t_phase = time.perf_counter()
+    cli_phase(tmp)
+    log(f"phase 6b: {time.perf_counter() - t_phase:.1f} s")
+    log(f"== phase 6c: kernels vs plain versions at S = 32 ({S32_LOCI} loci "
+        f"x {S32_BP} bp in {S32_BUCKETS} buckets, f64)")
+    t_phase = time.perf_counter()
+    s32_phase(tmp, cmp)
+    log(f"phase 6c: {time.perf_counter() - t_phase:.1f} s")
+
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
            "rubber_band": ("rubber_band.cu",
@@ -940,7 +1236,13 @@ def main():
             f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)
     for label, its in paths.items():
+        if label in ragged:
+            continue
         log(json.dumps({"path": label, "it_per_s": its, "card": card}))
+    for label, (a, b, cells) in ragged.items():
+        log(json.dumps({"path": label, "it_per_s": (a + b) / 2,
+                        "readings": [a, b], "pattern_cells": cells,
+                        "card": card}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

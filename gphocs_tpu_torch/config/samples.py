@@ -17,7 +17,24 @@ conditionals of a node are both wider than a warp.
 
 SAMPLE_AGE_VAR_CTL adds `locus-mut-rate VAR 1.0` with
 `finetune-locus-rate 0.3` (golden_compare.py's CTL_VAR_RATES settings).
+
+S32_CTL is the text of gphocs_tpu's tests/test_samples32.py:S32_CTL: 16
+diploid samples (S = 32 haploid, N = 63 nodes, the kernels' MAXN) in
+SAMPLE_CTL's population tree and band.  It has `{seq}` and `{trace}`
+placeholders for str.format.
+
+`with_settings` replaces or adds GENERAL-INFO settings of a control text.
+
+RAGGED_* describe the ragged workload of gphocs_tpu's
+scripts/bench_ragged.py (RAGGED_r03): SAMPLE_CTL, RAGGED_LOCI loci whose
+lengths are drawn from RAGGED_LENGTHS with probabilities RAGGED_LENGTH_P by
+numpy's RandomState(RAGGED_LENGTH_SEED), simulated with seed
+RAGGED_SIM_SEED under θ and τ RAGGED_SCALE times those that
+sample_pop_parameters draws from HostRng(RAGGED_LOCI + 1,
+RAGGED_PARAM_SEED) (io/simulate.simulate_ragged_file writes it).
 """
+
+import re
 
 SAMPLE_CTL = """
 GENERAL-INFO-START
@@ -110,3 +127,100 @@ for _name in ("one", "two", "three", "five"):
     WIDE_CTL = WIDE_CTL.replace(f"samples\t\t{_name} d\n",
                                 f"samples\t\t{_name} d {_name}b d\n")
 del _name
+
+S32_CTL = """
+GENERAL-INFO-START
+    seq-file            {seq}
+    trace-file          {trace}
+    locus-mut-rate      CONST
+    mcmc-iterations     40
+    burn-in             0
+    random-seed         19
+    mcmc-sample-skip    0
+    start-mig 0
+    iterations-per-log  1000
+    logs-per-line       10
+    find-finetunes      FALSE
+    finetune-coal-time  0.01
+    finetune-mig-time   0.3
+    finetune-theta      0.04
+    finetune-mig-rate   0.02
+    finetune-tau        0.0000008
+    finetune-mixing     0.003
+    tau-theta-print     10000.0
+    tau-theta-alpha     1.0
+    tau-theta-beta      10000.0
+    mig-rate-print      0.001
+    mig-rate-alpha      0.002
+    mig-rate-beta       0.00001
+GENERAL-INFO-END
+CURRENT-POPS-START
+    POP-START
+        name  A
+        samples  a1 d a2 d a3 d a4 d
+    POP-END
+    POP-START
+        name  B
+        samples  b1 d b2 d b3 d b4 d
+    POP-END
+    POP-START
+        name  C
+        samples  c1 d c2 d c3 d c4 d
+    POP-END
+    POP-START
+        name  D
+        samples  d1 d d2 d d3 d d4 d
+    POP-END
+CURRENT-POPS-END
+ANCESTRAL-POPS-START
+    POP-START
+        name  AB
+        children  A  B
+        tau-initial 0.000005
+        tau-beta  20000.0
+    POP-END
+    POP-START
+        name  ABC
+        children  AB  C
+        tau-initial 0.00001
+        tau-beta  20000.0
+    POP-END
+    POP-START
+        name  root
+        children  ABC  D
+        tau-initial 0.00005
+        tau-beta  20000.0
+    POP-END
+ANCESTRAL-POPS-END
+MIG-BANDS-START
+    BAND-START
+       source  D
+       target  B
+       mig-rate-print 0.1
+    BAND-END
+MIG-BANDS-END
+"""
+
+RAGGED_LOCI = 4000
+RAGGED_LENGTHS = (100, 200, 400, 1000, 4000)
+RAGGED_LENGTH_P = (0.4, 0.25, 0.2, 0.1, 0.05)
+RAGGED_LENGTH_SEED = 3
+RAGGED_PARAM_SEED = 7
+RAGGED_SCALE = 150.0
+RAGGED_SIM_SEED = 13
+
+
+def with_settings(text: str, **settings) -> str:
+    """`text` with GENERAL-INFO settings replaced, or added where absent;
+    a keyword names its setting with `-` for `_` (seq_file="x.txt" sets
+    `seq-file x.txt`)."""
+    for key, value in settings.items():
+        name = key.replace("_", "-")
+        line = f"\t{name} {value}"
+        pat = re.compile(rf"^[ \t]*{re.escape(name)}[ \t].*$", re.M)
+        if pat.search(text):
+            text = pat.sub(lambda m: line, text, count=1)
+        else:
+            text = text.replace("GENERAL-INFO-START",
+                                "GENERAL-INFO-START\n" + line, 1)
+    return text

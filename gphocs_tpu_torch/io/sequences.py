@@ -134,7 +134,22 @@ def _assemble(per_locus, S: int, P: int, dtype) -> SeqData:
             group_nphases[locus, g] = k
     return SeqData(leaf_base=leaf_base, group_id=group_id,
                    group_count=group_count, group_nphases=group_nphases,
-                   pattern_valid=pattern_valid)
+                   pattern_valid=pattern_valid,
+                   group_members=group_members(group_id))
+
+
+def group_members(group_id: np.ndarray) -> np.ndarray:
+    """[L, J, P] pattern indices of the phase groups: entry [l, j, g] is
+    the j-th pattern of group g of locus l, or P where the group has fewer
+    than j + 1 patterns; J is the largest group.  Group ids never decrease
+    along the pattern axis (the padding patterns have ids P_valid, ...,
+    P - 1), so a group's patterns are contiguous."""
+    L, P = group_id.shape
+    size = np.zeros((L, P), np.int64)
+    np.add.at(size, (np.arange(L)[:, None], group_id), 1)
+    start = np.cumsum(size, axis=1) - size
+    j = np.arange(max(1, int(size.max())))[None, :, None]
+    return np.where(j < size[:, None, :], start[:, None, :] + j, P)
 
 
 def build_seq_data(raw: RawAlignments, is_diploid: List[bool],

@@ -99,3 +99,24 @@ def simulate_seq_file(cfg: RunConfig, tree: PopTree, path: str,
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return params
+
+
+def simulate_ragged_file(path: str, num_loci: Optional[int] = None) -> None:
+    """Write the ragged workload of config/samples.py (RAGGED_*) to `path`:
+    SAMPLE_CTL's tree, loci of 100 to 4,000 bp.  num_loci cuts it (the
+    lengths are the first num_loci draws)."""
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config import samples as C
+    from gphocs_tpu_torch.model.poptree import build_poptree
+
+    cfg = parse_control_text(C.SAMPLE_CTL)
+    tree = build_poptree(cfg)
+    lens = np.random.RandomState(C.RAGGED_LENGTH_SEED).choice(
+        C.RAGGED_LENGTHS, size=C.RAGGED_LOCI, p=C.RAGGED_LENGTH_P)
+    tp = sample_pop_parameters(tree, HostRng(C.RAGGED_LOCI + 1,
+                                             C.RAGGED_PARAM_SEED))
+    tp = tp._replace(theta=tp.theta * C.RAGGED_SCALE,
+                     tau=tp.tau * C.RAGGED_SCALE)
+    n = num_loci or C.RAGGED_LOCI
+    simulate_seq_file(cfg, tree, path, num_loci=n, seq_len=lens[:n],
+                      seed=C.RAGGED_SIM_SEED, params=tp)

@@ -8,7 +8,8 @@ ages; migration rates scale by 1/c.  The genealogy-prior delta reduces to
 lnc * (2 numPops - numCurPops - numMigBands + num_events)
 (reference src/GPhoCS.c:4688-4915).  The data delta needs a full rebuild
 of the conditionals, which is plain torch here as it is XLA code in the
-JAX package.
+JAX package.  In a bucketed state every bucket is rebuilt and one joint
+accept covers them all.
 """
 
 from __future__ import annotations
@@ -17,22 +18,24 @@ import torch
 
 from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import Context, scalar_mh_accept
-from gphocs_tpu_torch.ops.coalstats import CoalStats
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
-from gphocs_tpu_torch.state import GenState, Params, SeqData
+from gphocs_tpu_torch.state import Params
 
 
-def update_mixing(gen: GenState, params: Params, seq: SeqData, rng,
-                  ctx: Context, finetune, lnld, lnp, cond, stats: CoalStats,
-                  num_cur_pops: int):
-    """Returns (gen, params, rng, lnld, lnp, cond, accepted)."""
-    dt = lnld.dtype
+def update_mixing_buckets(gens, params: Params, seqs, rng, ctx: Context,
+                          finetune, lnlds, lnps, conds, stats_list,
+                          num_cur_pops: int):
+    """Mixing over the pattern buckets of a state (sequences with one entry
+    per bucket): one factor, each bucket rebuilt, one joint accept
+    (gphocs_tpu/sampler/bucketed.py:_mixing_bucketed).  Returns (gens,
+    params, rng, lnlds, lnps, conds, accepted) with lists."""
+    dt = lnlds[0].dtype
     z, rng = R.general_draw_2normal8(rng, dt)
     lnc = finetune * z
     c = torch.exp(lnc)
 
-    ncoal_tot = stats.num_coals.sum().to(dt)
-    nmig_tot = stats.num_migs.sum().to(dt)
+    ncoal_tot = sum(s.num_coals.sum() for s in stats_list).to(dt)
+    nmig_tot = sum(s.num_migs.sum() for s in stats_list).to(dt)
     num_events = ncoal_tot + nmig_tot
     P = ctx.num_pops
     B = ctx.num_bands
@@ -42,7 +45,7 @@ def update_mixing(gen: GenState, params: Params, seq: SeqData, rng,
     th_new = th_old * c
     lnacc = lnacc + torch.sum(lnc * (ctx.theta_alpha - 1.0)
                               - (th_new - th_old) * ctx.theta_beta)
-    anc = torch.arange(P, device=lnld.device) >= num_cur_pops
+    anc = torch.arange(P, device=lnc.device) >= num_cur_pops
     tau_old = params.tau
     tau_new = tau_old * c
     lnacc = lnacc + torch.sum(torch.where(
@@ -55,24 +58,33 @@ def update_mixing(gen: GenState, params: Params, seq: SeqData, rng,
                                   - (m_new - m_old) * ctx.mig_beta)
     else:
         m_new = params.mig_rate
-    gen_delta = -lnc * num_events
+    lnacc = lnacc - lnc * num_events
     sa_new = torch.where(params.sample_age > 0.0, params.sample_age * c,
                          params.sample_age)
-    gen_prop = gen._replace(age=gen.age * c, mig_age=gen.mig_age * c)
     params_prop = params._replace(theta=th_new, tau=tau_new,
                                   sample_age=sa_new, mig_rate=m_new)
-    cond_prop, lnld_prop = full_rebuild_and_lnld(gen_prop, seq)
-    lnacc = lnacc + gen_delta + torch.sum(lnld_prop - lnld)
+    props = []
+    ddata = torch.zeros((), dtype=dt, device=lnc.device)
+    for g, sq, ld in zip(gens, seqs, lnlds):
+        gen_prop = g._replace(age=g.age * c, mig_age=g.mig_age * c)
+        cond_prop, lnld_prop = full_rebuild_and_lnld(gen_prop, sq)
+        ddata = ddata + torch.sum(lnld_prop - ld)
+        props.append((gen_prop, cond_prop, lnld_prop))
+    lnacc = lnacc + ddata
 
     accept, rng = scalar_mh_accept(rng, lnacc)
 
-    gen = gen._replace(age=torch.where(accept, gen_prop.age, gen.age),
-                       mig_age=torch.where(accept, gen_prop.mig_age,
-                                           gen.mig_age))
     params = Params(*(n_ if n_ is None else torch.where(accept, n_, o)
                       for n_, o in zip(params_prop, params)))
-    cond = torch.where(accept, cond_prop, cond)
-    lnld = torch.where(accept, lnld_prop, lnld)
-    per_locus = stats.num_coals.sum(dim=1) + stats.num_migs.sum(dim=1)
-    lnp = torch.where(accept, lnp - lnc * per_locus.to(dt), lnp)
-    return gen, params, rng, lnld, lnp, cond, accept.to(torch.int64)
+    out = ([], [], [], [])
+    for (gen_prop, cond_prop, lnld_prop), g, ld, lp, cd, st in zip(
+            props, gens, lnlds, lnps, conds, stats_list):
+        out[0].append(g._replace(
+            age=torch.where(accept, gen_prop.age, g.age),
+            mig_age=torch.where(accept, gen_prop.mig_age, g.mig_age)))
+        out[1].append(torch.where(accept, lnld_prop, ld))
+        per_locus = st.num_coals.sum(dim=1) + st.num_migs.sum(dim=1)
+        out[2].append(torch.where(accept, lp - lnc * per_locus.to(dt), lp))
+        out[3].append(torch.where(accept, cond_prop, cd))
+    gens, lnlds, lnps, conds = out
+    return gens, params, rng, lnlds, lnps, conds, accept.to(torch.int64)

@@ -211,28 +211,93 @@ def rubber_band_eval_plain(gen: GenState, params: Params, seq: SeqData,
             (conflict & v).any())
 
 
-def _mh_step(gen: GenState, params: Params, rng, ctx: Context, pop: int,
-             params_prop: Params, proposal, lnf0, lnf1, tauold, taunew, lnld,
-             lnp, cond):
-    """Accept or reject one evaluated rubber-band proposal (`proposal`:
-    rubber_band_eval's outputs) and commit it.  Returns (gen, params, rng,
-    lnld, lnp, cond, accept, conflict)."""
-    age_p, mag_p, cond_p, lnld_p, lnp_p, ntj0, ntj1, conflict = proposal
-    lnacc = (torch.log(taunew / tauold) * (ctx.tau_alpha[pop] - 1.0)
-             - (taunew - tauold) * ctx.tau_beta[pop]
-             + torch.sum(lnld_p - lnld) + torch.sum(lnp_p - lnp)
-             + ntj0 * lnf0 + ntj1 * lnf1)
-    accept, rng = scalar_mh_accept(rng, lnacc, conflict)
-    gen = gen._replace(age=torch.where(accept, age_p, gen.age),
-                       mig_age=torch.where(accept, mag_p, gen.mig_age))
-    # the proposal changed one of the two age vectors
-    params = params._replace(**{
-        f: torch.where(accept, getattr(params_prop, f), getattr(params, f))
-        for f in ("tau", "sample_age")
-        if getattr(params_prop, f) is not getattr(params, f)})
-    return (gen, params, rng, torch.where(accept, lnld_p, lnld),
-            torch.where(accept, lnp_p, lnp),
-            torch.where(accept, cond_p, cond), accept, conflict)
+def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
+                       finetunes_taus, lnlds, lnps, conds, pops,
+                       is_sample_age: bool, evaluate):
+    """One rubber-band proposal per population of `pops`, in order, with one
+    joint accept over the buckets of the state (sequences `gens`, `seqs`,
+    `lnlds`, `lnps`, `conds`: one entry per pattern bucket, one entry for an
+    unbucketed state).  `evaluate` (rubber_band_eval's signature) gives each
+    bucket's proposal; the likelihood and prior deltas, the Jacobian counts
+    and the conflict flags add up over the buckets before the one decision
+    (the reference's single global accept over all loci).  Returns (gens,
+    params, rng, lnlds, lnps, conds, accepted[P], conflicts) with lists."""
+    gens, lnlds, lnps, conds = list(gens), list(lnlds), list(lnps), list(conds)
+    dt = lnlds[0].dtype
+    dev = lnlds[0].device
+    accepted = torch.zeros((params.tau.shape[0],), dtype=torch.int64,
+                           device=dev)
+    conflicts = torch.zeros((), dtype=torch.int64, device=dev)
+    for pop in pops:
+        if is_sample_age:
+            is_root = False
+            tauold = params.sample_age[pop]
+            taub0 = torch.zeros((), dtype=dt, device=dev)
+            taub1 = params.tau[ctx.father_pop[pop]]
+        else:
+            is_root = pop == ctx.num_pops - 1
+            tauold = params.tau[pop]
+            taub0, taub1 = _tau_window(params, ctx, pop, is_root, dt, dev)
+        z, rng = R.general_draw_2normal8(rng, dt)
+        taunew = reflect(tauold + finetunes_taus[pop] * z, taub0, taub1)
+        props = [evaluate(g, params, sq, ctx, pop, is_sample_age, taub0,
+                          taub1, tauold, taunew, c)
+                 for g, sq, c in zip(gens, seqs, conds)]
+        lnf0 = torch.log((taunew - taub0) / (tauold - taub0))
+        lnf1 = lnf0 if is_root else torch.log((taunew - taub1)
+                                              / (tauold - taub1))
+        dsum = torch.zeros((), dtype=dt, device=dev)
+        for p, ld, lp in zip(props, lnlds, lnps):
+            dsum = dsum + torch.sum(p[3] - ld) + torch.sum(p[4] - lp)
+        ntj0 = sum(p[5] for p in props)
+        ntj1 = sum(p[6] for p in props)
+        conflict = props[0][7]
+        for p in props[1:]:
+            conflict = conflict | p[7]
+        lnacc = (torch.log(taunew / tauold) * (ctx.tau_alpha[pop] - 1.0)
+                 - (taunew - tauold) * ctx.tau_beta[pop]
+                 + dsum + ntj0 * lnf0 + ntj1 * lnf1)
+        accept, rng = scalar_mh_accept(rng, lnacc, conflict)
+        for k, (age_p, mag_p, cond_p, lnld_p, lnp_p, *_) in enumerate(props):
+            gens[k] = gens[k]._replace(
+                age=torch.where(accept, age_p, gens[k].age),
+                mig_age=torch.where(accept, mag_p, gens[k].mig_age))
+            lnlds[k] = torch.where(accept, lnld_p, lnlds[k])
+            lnps[k] = torch.where(accept, lnp_p, lnps[k])
+            conds[k] = torch.where(accept, cond_p, conds[k])
+        field = "sample_age" if is_sample_age else "tau"
+        old = getattr(params, field)
+        params = params._replace(**{field: torch.where(
+            accept, _with(old, pop, taunew), old)})
+        accepted[pop] += accept.to(torch.int64)
+        conflicts = conflicts + conflict.to(torch.int64)
+    return gens, params, rng, lnlds, lnps, conds, accepted, conflicts
+
+
+def _tau_window(params: Params, ctx: Context, pop: int, is_root: bool, dt,
+                dev):
+    """(taub0, taub1): the bounds of an ancestral pop's tau, from its sons'
+    ages and sample ages, its father's age (OLDAGE for the root) and the
+    current windows of the bands touching it or its sons (reference
+    :3279-3294)."""
+    s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
+    taub0 = torch.maximum(
+        torch.maximum(params.tau[s0], params.tau[s1]),
+        torch.maximum(params.sample_age[s0], params.sample_age[s1]))
+    taub1 = (torch.full((), ctx.oldage, dtype=dt, device=dev) if is_root
+             else params.tau[ctx.father_pop[pop]])
+    if ctx.num_bands > 0:
+        bs, be = band_windows(ctx, params.tau)
+        src, tgt = ctx.band_source, ctx.band_target
+        touch_anc = (src == pop) | (tgt == pop)
+        touch_son = (~touch_anc & ((src == s0) | (src == s1)
+                                   | (tgt == s0) | (tgt == s1)))
+        inf = float("inf")
+        taub1 = torch.minimum(taub1, torch.where(
+            touch_anc, be, torch.full_like(be, inf)).min())
+        taub0 = torch.maximum(taub0, torch.where(
+            touch_son, bs, torch.full_like(bs, -inf)).max())
+    return taub0, taub1
 
 
 def _with(t: torch.Tensor, pop: int, value) -> torch.Tensor:
@@ -241,62 +306,22 @@ def _with(t: torch.Tensor, pop: int, value) -> torch.Tensor:
     return out
 
 
-def _tau_sweep(gen: GenState, params: Params, seq: SeqData, rng,
-               ctx: Context, finetunes_taus, lnld, lnp, cond,
-               num_pops: int, num_cur_pops: int, evaluate):
-    """Sweep over ancestral pops (reference UpdateTau) with the per-locus
-    proposal evaluation supplied by `evaluate` (rubber_band_eval's
-    signature).  Returns (gen, params, rng, lnld, lnp, cond, accepted[P],
-    conflicts)."""
-    dt = lnld.dtype
-    dev = lnld.device
-    accepted = torch.zeros((num_pops,), dtype=torch.int64, device=dev)
-    conflicts = torch.zeros((), dtype=torch.int64, device=dev)
-    for pop in range(num_cur_pops, num_pops):
-        is_root = pop == num_pops - 1
-        s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
-        tauold = params.tau[pop]
-        taub0 = torch.maximum(
-            torch.maximum(params.tau[s0], params.tau[s1]),
-            torch.maximum(params.sample_age[s0], params.sample_age[s1]))
-        taub1 = (torch.full((), ctx.oldage, dtype=dt, device=dev) if is_root
-                 else params.tau[ctx.father_pop[pop]])
-        # band liveness constraints (current windows; reference :3279-3294)
-        if ctx.num_bands > 0:
-            bs, be = band_windows(ctx, params.tau)
-            src, tgt = ctx.band_source, ctx.band_target
-            touch_anc = (src == pop) | (tgt == pop)
-            touch_son = (~touch_anc & ((src == s0) | (src == s1)
-                                       | (tgt == s0) | (tgt == s1)))
-            inf = float("inf")
-            taub1 = torch.minimum(taub1, torch.where(
-                touch_anc, be, torch.full_like(be, inf)).min())
-            taub0 = torch.maximum(taub0, torch.where(
-                touch_son, bs, torch.full_like(bs, -inf)).max())
-
-        z, rng = R.general_draw_2normal8(rng, dt)
-        taunew = reflect(tauold + finetunes_taus[pop] * z, taub0, taub1)
-
-        proposal = evaluate(gen, params, seq, ctx, pop, False, taub0, taub1,
-                            tauold, taunew, cond)
-        lnf0 = torch.log((taunew - taub0) / (tauold - taub0))
-        lnf1 = lnf0 if is_root else torch.log((taunew - taub1)
-                                              / (tauold - taub1))
-        gen, params, rng, lnld, lnp, cond, accept, conflict = _mh_step(
-            gen, params, rng, ctx, pop,
-            params._replace(tau=_with(params.tau, pop, taunew)), proposal,
-            lnf0, lnf1, tauold, taunew, lnld, lnp, cond)
-        accepted[pop] += accept.to(torch.int64)
-        conflicts = conflicts + conflict.to(torch.int64)
-    return gen, params, rng, lnld, lnp, cond, accepted, conflicts
+def _one(out):
+    """An unbucketed sweep's result: the one bucket out of every list."""
+    gens, params, rng, lnlds, lnps, conds, accepted, conflicts = out
+    return (gens[0], params, rng, lnlds[0], lnps[0], conds[0], accepted,
+            conflicts)
 
 
 def update_taus(gen: GenState, params: Params, seq: SeqData, rng,
                 ctx: Context, finetunes_taus, lnld, lnp, cond,
                 num_pops: int, num_cur_pops: int):
-    """UpdateTau with the plain per-locus evaluation."""
-    return _tau_sweep(gen, params, seq, rng, ctx, finetunes_taus, lnld, lnp,
-                      cond, num_pops, num_cur_pops, rubber_band_eval_plain)
+    """UpdateTau with the plain per-locus evaluation.  Returns (gen,
+    params, rng, lnld, lnp, cond, accepted[P], conflicts)."""
+    return _one(_rubber_band_sweep(
+        [gen], params, [seq], rng, ctx, finetunes_taus, [lnld], [lnp],
+        [cond], range(num_cur_pops, num_pops), False,
+        rubber_band_eval_plain))
 
 
 def update_taus_fused(gen: GenState, params: Params, seq: SeqData, rng,
@@ -304,10 +329,24 @@ def update_taus_fused(gen: GenState, params: Params, seq: SeqData, rng,
                       num_pops: int, num_cur_pops: int):
     """UpdateTau with the per-locus evaluation through
     ops/sweeps.rubber_band_eval (the kernel on CUDA tensors)."""
+    return _one(update_taus_buckets(
+        [gen], params, [seq], rng, ctx, finetunes_taus, [lnld], [lnp],
+        [cond], num_pops, num_cur_pops))
+
+
+def update_taus_buckets(gens, params: Params, seqs, rng, ctx: Context,
+                        finetunes_taus, lnlds, lnps, conds, num_pops: int,
+                        num_cur_pops: int):
+    """UpdateTau over the pattern buckets of a state (sequences of one entry
+    per bucket), one joint accept per population, each bucket's proposal
+    through ops/sweeps.rubber_band_eval.  Returns lists, as
+    _rubber_band_sweep."""
     from gphocs_tpu_torch.ops.sweeps import rubber_band_eval
 
-    return _tau_sweep(gen, params, seq, rng, ctx, finetunes_taus, lnld, lnp,
-                      cond, num_pops, num_cur_pops, rubber_band_eval)
+    return _rubber_band_sweep(gens, params, seqs, rng, ctx, finetunes_taus,
+                              lnlds, lnps, conds,
+                              range(num_cur_pops, num_pops), False,
+                              rubber_band_eval)
 
 
 def update_sample_ages_fused(gen: GenState, params: Params, seq: SeqData,
@@ -320,30 +359,19 @@ def update_sample_ages_fused(gen: GenState, params: Params, seq: SeqData,
     version on CPU tensors).  The Gamma-prior ratio uses the pop's own
     tau_alpha/tau_beta.  Returns (gen, params, rng, lnld, lnp, cond,
     accepted[P], conflicts)."""
+    return _one(update_sample_ages_buckets(
+        [gen], params, [seq], rng, ctx, finetunes_taus, [lnld], [lnp],
+        [cond], num_cur_pops, update_mask))
+
+
+def update_sample_ages_buckets(gens, params: Params, seqs, rng,
+                               ctx: Context, finetunes_taus, lnlds, lnps,
+                               conds, num_cur_pops: int, update_mask):
+    """UpdateSampleAge over the pattern buckets of a state; see
+    update_taus_buckets."""
     from gphocs_tpu_torch.ops.sweeps import rubber_band_eval
 
-    dt = lnld.dtype
-    dev = lnld.device
-    accepted = torch.zeros((params.tau.shape[0],), dtype=torch.int64,
-                           device=dev)
-    conflicts = torch.zeros((), dtype=torch.int64, device=dev)
-    for pop in range(num_cur_pops):
-        if not update_mask[pop]:
-            continue
-        tauold = params.sample_age[pop]
-        taub0 = torch.zeros((), dtype=dt, device=dev)
-        taub1 = params.tau[ctx.father_pop[pop]]
-        z, rng = R.general_draw_2normal8(rng, dt)
-        taunew = reflect(tauold + finetunes_taus[pop] * z, taub0, taub1)
-        proposal = rubber_band_eval(gen, params, seq, ctx, pop, True, taub0,
-                                    taub1, tauold, taunew, cond)
-        lnf0 = torch.log((taunew - taub0) / (tauold - taub0))
-        lnf1 = torch.log((taunew - taub1) / (tauold - taub1))
-        gen, params, rng, lnld, lnp, cond, accept, conflict = _mh_step(
-            gen, params, rng, ctx, pop,
-            params._replace(sample_age=_with(params.sample_age, pop,
-                                             taunew)),
-            proposal, lnf0, lnf1, tauold, taunew, lnld, lnp, cond)
-        accepted[pop] += accept.to(torch.int64)
-        conflicts = conflicts + conflict.to(torch.int64)
-    return gen, params, rng, lnld, lnp, cond, accepted, conflicts
+    pops = [p for p in range(num_cur_pops) if update_mask[p]]
+    return _rubber_band_sweep(gens, params, seqs, rng, ctx, finetunes_taus,
+                              lnlds, lnps, conds, pops, True,
+                              rubber_band_eval)

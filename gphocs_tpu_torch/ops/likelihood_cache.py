@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from gphocs_tpu_torch.io.sequences import group_members
 from gphocs_tpu_torch.ops.pruning import (edge_p, jc_combine,
                                           leaf_conditionals, sum4)
 from gphocs_tpu_torch.state import GenState, SeqData
@@ -80,6 +81,28 @@ def refresh(cond: torch.Tensor, gen: GenState, dirty0: torch.Tensor
     return cond
 
 
+def _group_sums(x: torch.Tensor, seq: SeqData) -> torch.Tensor:
+    """seg[l, g] = the sum of x[l, p] over the patterns p of group g, added
+    in pattern order: (x[first] + x[next]) + ...
+
+    The order is fixed on every device: a float scatter_add_ adds in any
+    order on CUDA, and a matmul may take a TF32 or split-K route.  The JAX
+    package's one-hot product gives the same sums up to their order (equal
+    bits for groups of one or two patterns), but it costs L * P * P; this
+    costs L * P per pattern of the largest group.  The gather indices
+    depend on the data alone and are built with the SeqData
+    (io/sequences.group_members); index P reads a zero column."""
+    idx = seq.group_members
+    if idx is None:
+        idx = torch.as_tensor(group_members(seq.group_id.cpu().numpy()),
+                              device=x.device)
+    xp = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+    seg = xp.gather(1, idx[:, 0])
+    for j in range(1, idx.shape[1]):
+        seg = seg + xp.gather(1, idx[:, j])
+    return seg
+
+
 def lnld_from_cond(cond: torch.Tensor, gen: GenState, seq: SeqData
                    ) -> torch.Tensor:
     """Per-locus data log-likelihood from root conditionals: averages over
@@ -92,7 +115,7 @@ def lnld_from_cond(cond: torch.Tensor, gen: GenState, seq: SeqData
     root_sum = sum4(cond[ar, gen.root])                        # [L, P]
     root_sum = torch.where(seq.pattern_valid, root_sum,
                            torch.zeros_like(root_sum))
-    seg = torch.zeros_like(root_sum).scatter_add_(1, seq.group_id, root_sum)
+    seg = _group_sums(root_sum, seq)
     safe = torch.where(seq.group_count > 0, seg, torch.ones_like(seg))
     return torch.sum(
         seq.group_count * (torch.log(safe) - torch.log(4.0 * seq.group_nphases)

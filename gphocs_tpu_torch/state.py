@@ -65,6 +65,9 @@ class SeqData(NamedTuple):
     group_count: torch.Tensor   # [L, P] float: site count of group g at index g
     group_nphases: torch.Tensor  # [L, P] float: #phases of group g at index g
     pattern_valid: torch.Tensor  # [L, P] bool
+    # [L, J, P] int: the j-th pattern of group g at [l, j, g], P past the
+    # group's end (io/sequences.group_members); None: derived on use
+    group_members: Optional[torch.Tensor] = None
 
 
 class Params(NamedTuple):

@@ -2,7 +2,7 @@
 
     python -m gphocs_tpu_torch.tools.profile_main [--loci 1000] [--bp 1000]
         [--iters 25] [--rounds 2] [--profile-iters 5] [--trace PATH]
-        [--paths]
+        [--paths | --roots DIR [DIR ...]]
 
 On the standard workload (SAMPLE_CTL, data simulated with seed 20260817)
 it builds one f32 and one f64 Sampler, warms each for 5 iterations, and
@@ -17,13 +17,22 @@ host time of cudaLaunchKernel, and the top ops by device and by host
 time.  The profiler's own overhead is inside that wall time.  `--trace`
 writes the Chrome trace.
 
-With `--paths` it compares configurations instead of dtypes, all at f32
-on the same data: the standard workload (SAMPLE_CTL), the ancient-sample
-path (SAMPLE_AGE_CTL) and the same with VAR locus rates
-(SAMPLE_AGE_VAR_CTL), timed in turns (a b c c b a, `rounds` times); then
-each is profiled for `--profile-iters` iterations, so that the launches
-and the wall time that the sample-age sweep and the paired rate update
-add per iteration can be read off.
+With `--paths` it compares configurations instead of dtypes, all at f32:
+the standard workload (SAMPLE_CTL), the ancient-sample path
+(SAMPLE_AGE_CTL) and the same with VAR locus rates (SAMPLE_AGE_VAR_CTL) on
+the same data, and the ragged workload (config/samples.py RAGGED_*) in 4
+pattern buckets and dense, timed in turns (a b c d e e d c b a, `rounds`
+times); then each is profiled for `--profile-iters` iterations, so that
+the launches and the wall time that each path adds per iteration can be
+read off.
+
+With `--roots` it runs `python -m gphocs_tpu_torch.tools.profile_main`
+(the f32/f64 mode, `rounds` rounds) once per directory, in a process of
+its own with that directory first on the module path and as the working
+directory, in turns (A B B A for two), so that the standard path of two
+checkouts (say, this commit and its parent unpacked from `git archive`)
+is timed and profiled within one run on one card; each checkout runs its
+own copy of this tool and builds its own kernels under its own build/.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import argparse
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -42,7 +52,7 @@ def _card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _sampler(path, dtype, ctl=None):
+def _sampler(path, dtype, ctl=None, buckets=1):
     import torch
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import SAMPLE_CTL
@@ -51,7 +61,8 @@ def _sampler(path, dtype, ctl=None):
     cfg = parse_control_text(ctl or SAMPLE_CTL)
     cfg.mcmc.random_seed = 111
     cfg.mcmc.start_mig = 0
-    s = Sampler(cfg, seq_path=path, dtype=dtype, device="cuda")
+    s = Sampler(cfg, seq_path=path, dtype=dtype, device="cuda",
+                buckets=buckets)
     s.initialize()
     s.step_chunk(5, do_migrate=True)
     torch.cuda.synchronize()
@@ -129,16 +140,35 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-iters", type=int, default=5)
     ap.add_argument("--trace", default=None)
     ap.add_argument("--paths", action="store_true",
-                    help="compare the standard, sample-age and sample-age "
-                         "+ VAR configurations at f32 instead of f32/f64")
+                    help="compare the standard, sample-age, sample-age + "
+                         "VAR and ragged (bucketed, dense) paths at f32 "
+                         "instead of f32/f64")
+    ap.add_argument("--roots", nargs="+", default=None,
+                    help="time the standard path of each checkout in a "
+                         "process of its own, in turns")
     a = ap.parse_args(argv)
+    if a.roots:
+        child = [sys.executable, "-m", "gphocs_tpu_torch.tools.profile_main",
+                 "--loci", str(a.loci), "--bp", str(a.bp), "--iters",
+                 str(a.iters), "--rounds", str(a.rounds), "--profile-iters",
+                 str(a.profile_iters)]
+        roots = [os.path.abspath(r) for r in a.roots]
+        for root in roots + roots[::-1]:
+            print(f"== {root}", flush=True)
+            rc = subprocess.run(child, cwd=root, timeout=1800,
+                                env=dict(os.environ, PYTHONPATH=root)
+                                ).returncode
+            if rc:
+                return rc
+        return 0
 
     import torch
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import (SAMPLE_AGE_CTL,
                                                  SAMPLE_AGE_VAR_CTL,
                                                  SAMPLE_CTL)
-    from gphocs_tpu_torch.io.simulate import simulate_seq_file
+    from gphocs_tpu_torch.io.simulate import (simulate_ragged_file,
+                                              simulate_seq_file)
     from gphocs_tpu_torch.model import build_poptree
 
     if not torch.cuda.is_available():
@@ -152,11 +182,16 @@ def main(argv=None) -> int:
         simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=a.loci,
                           seq_len=a.bp, seed=20260817)
         if a.paths:
+            ragged = os.path.join(tmp, "ragged.txt")
+            simulate_ragged_file(ragged)
             samplers = {
-                name: _sampler(path, torch.float32, ctl)
-                for name, ctl in (("standard", SAMPLE_CTL),
-                                  ("sample_age", SAMPLE_AGE_CTL),
-                                  ("sample_age_var", SAMPLE_AGE_VAR_CTL))}
+                name: _sampler(data, torch.float32, ctl, buckets)
+                for name, ctl, data, buckets in (
+                    ("standard", SAMPLE_CTL, path, 1),
+                    ("sample_age", SAMPLE_AGE_CTL, path, 1),
+                    ("sample_age_var", SAMPLE_AGE_VAR_CTL, path, 1),
+                    ("ragged_buckets", SAMPLE_CTL, ragged, 4),
+                    ("ragged_dense", SAMPLE_CTL, ragged, 1))}
             order = list(samplers) + list(samplers)[::-1]
         else:
             samplers = {"f32": _sampler(path, torch.float32),

@@ -26,13 +26,23 @@ from gphocs_tpu_torch.kernels.common import band_windows, pop_end
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
-from gphocs_tpu_torch.config.samples import SAMPLE_AGE_CTL, WIDE_CTL
+from gphocs_tpu_torch.config import parse_control_text
+from gphocs_tpu_torch.config.samples import S32_CTL, SAMPLE_AGE_CTL, WIDE_CTL
+from gphocs_tpu_torch.io.simulate import simulate_seq_file
+from gphocs_tpu_torch.kernels.common import gen_log_prior
+from gphocs_tpu_torch.model import build_poptree
+from gphocs_tpu_torch.rng_host import HostRng
+from gphocs_tpu_torch.sampler.driver import Sampler
+from gphocs_tpu_torch.sampler.init import sample_pop_parameters
 from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
                                           update_sample_ages_fused,
                                           update_taus, update_taus_fused)
 from gphocs_tpu_torch.ops import cuda_lib, sweeps
 
 SHIM = Path(__file__).resolve().parent / "cuda_host"
+
+# one intra-op thread (tests/torch_twins.py says why)
+torch.set_num_threads(1)
 
 
 def _build(cxx, out, *flags):
@@ -94,6 +104,38 @@ def warm_wide(tmp_path_factory):
     L, N, P, _ = s.cond.shape
     assert 4 * P > 32 and N + s.gen.max_migs + s.ctx.num_pops + 3 > 32
     return s
+
+
+@pytest.fixture(scope="module")
+def s32_bucket(tmp_path_factory):
+    """The larger-pattern bucket of a 2-bucket S32_CTL state (32 samples:
+    N = 63 nodes, the kernels' MAXN), 2 loci x 1,500 bp of diverse data
+    (theta and tau 20 times a prior draw), so P is over a hundred and no
+    locus's conditionals fit in shared memory; the band made hot and one
+    SPR sweep taken, so that migration events exist."""
+    d = tmp_path_factory.mktemp("csrc_s32")
+    ctl = S32_CTL.format(seq=d / "seqs.txt", trace=d / "trace.log")
+    cfg = parse_control_text(ctl)
+    tree = build_poptree(cfg)
+    tp = sample_pop_parameters(tree, HostRng(5, 7))
+    tp = tp._replace(theta=tp.theta * 20, tau=tp.tau * 20)
+    simulate_seq_file(cfg, tree, str(d / "seqs.txt"), num_loci=4,
+                      seq_len=[150, 150, 1500, 1500], seed=29, params=tp)
+    cfg = parse_control_text(ctl)
+    cfg.mcmc.random_seed = 17
+    s = Sampler(cfg, device="cpu", buckets=2)
+    s.initialize()
+    s.params = s.params._replace(
+        mig_rate=torch.full_like(s.params.mig_rate, 2e5))
+    seq = s.seqs[1]
+    g, lrng, lnld, cond, _ = update_spr(s.gens[1], s.params, seq,
+                                        s.lrngs[1], s.ctx, s.lnlds[1],
+                                        s.conds[1])
+    assert int((g.mig_branch >= 0).sum()) > 0
+    return types.SimpleNamespace(
+        gen=g, params=s.params, seq=seq, ctx=s.ctx, ft=s.ft, lrng=lrng,
+        tree=s.tree, cond=cond, lnld=lnld,
+        lnp=gen_log_prior(g, s.params, s.ctx))
 
 
 def _route(monkeypatch, lib, block=None, cond_in_device_memory=False):
@@ -383,6 +425,66 @@ def test_wide_fixture_matches_plain(build, warm_wide, host_libs,
         _close(k[2] / scale, q[2] / scale, 1e-10)
         _close(k[3], q[3], 1e-9)
         _close(k[4], q[4], 1e-9)
+
+
+@pytest.mark.parametrize("build", ["forward", "reverse"])
+def test_s32_bucket_matches_plain(build, s32_bucket, host_libs, monkeypatch):
+    """N = 63 and P over a hundred, the conditionals in device memory
+    (chosen by smem_plan, not forced): every kernel against its plain
+    version, with the lane loops forwards and backwards."""
+    s = s32_bucket
+    L, N, P, _ = s.cond.shape
+    assert N == 63 and P > 100
+    for kernel in ("node_age", "rubber_band", "spr"):
+        assert not sweeps.smem_plan(kernel, N, s.gen.max_migs,
+                                    s.ctx.num_pops, s.ctx.num_bands, P, 8,
+                                    sweeps.BLOCK).cond_smem, kernel
+    _route(monkeypatch, host_libs[build])
+    scale = float(s.cond.abs().max())  # 31 levels of the x4 rescale
+    args = (s.gen, s.params, s.seq, s.lrng, s.ctx, s.ft.coal_time, s.lnld,
+            s.lnp, s.cond)
+    k = sweeps.node_age_sweep(*args)
+    q = update_internal_node_ages(*args)
+    assert int(k[1].ctr) == int(q[1].ctr)
+    assert int(k[5]) == int(q[5]) > 0
+    _close(k[0].age, q[0].age, 1e-12)
+    _close(k[2], q[2], 1e-9)
+    _close(k[3], q[3], 1e-9)
+    _close(k[4] / scale, q[4] / scale, 1e-10)
+    args = (s.gen, s.params, s.lrng, s.ctx, s.ft.mig_time, s.lnp)
+    k = sweeps.mig_age_sweep(*args)
+    q = update_mig_ages(*args)
+    assert int(k[1].ctr) == int(q[1].ctr)
+    assert int(k[3]) == int(q[3]) > 0
+    _close(k[0].mig_age, q[0].mig_age, 1e-12)
+    _close(k[2], q[2], 1e-9)
+    args = (s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld, s.cond)
+    k = sweeps.spr_sweep(*args)
+    q = update_spr(*args, sync_group=1)
+    assert int(k[1].ctr) == int(q[1].ctr)
+    assert int(k[4]) == int(q[4]) > 0
+    for f in ("father", "lson", "rson", "root", "node_pop", "mig_branch",
+              "mig_band"):
+        assert torch.equal(getattr(k[0], f), getattr(q[0], f)), f
+    _close(k[0].age, q[0].age, 1e-12)
+    _close(k[0].mig_age, q[0].mig_age, 1e-12)
+    _close(k[2], q[2], 1e-9)
+    _close(k[3] / scale, q[3] / scale, 1e-10)
+    pop = s.tree.num_pops - 1
+    b = tau_bounds(s, pop)
+    k = sweeps.rubber_band_eval(s.gen, s.params, s.seq, s.ctx, pop, False,
+                                *b, s.cond)
+    q = rubber_band_eval_plain(s.gen, s.params, s.seq, s.ctx, pop, False, *b,
+                               s.cond)
+    assert float(k[5]) == float(q[5]) > 0 and float(k[6]) == float(q[6])
+    assert bool(k[7]) == bool(q[7])
+    _close(k[0], q[0], 1e-12)
+    _close(k[1], q[1], 1e-12)
+    _close(k[2] / scale, q[2] / scale, 1e-10)
+    _close(k[3], q[3], 1e-9)
+    _close(k[4], q[4], 1e-9)
+    assert sweeps.LAUNCHES == {"node_age": 1, "mig_age": 1, "spr": 1,
+                               "rubber_band": 1, "rubber_band_sample_age": 0}
 
 
 def test_counts_are_summed_over_the_valid_loci(warm, kernels_on_host):

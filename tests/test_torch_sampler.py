@@ -85,6 +85,12 @@ def test_package_never_imports_jax():
     code = ("import sys\n"
             "import gphocs_tpu_torch\n"
             "import gphocs_tpu_torch.sampler.driver\n"
+            "import gphocs_tpu_torch.sampler.bucketed\n"
+            "import gphocs_tpu_torch.checkpoint\n"
+            "import gphocs_tpu_torch.debugcheck\n"
+            "import gphocs_tpu_torch.cli\n"
+            "import gphocs_tpu_torch.tools.coalstats_out\n"
+            "import gphocs_tpu_torch.tools.readtrace\n"
             "import gphocs_tpu_torch.ops.sweeps\n"
             "import gphocs_tpu_torch.io.simulate\n"
             "import gphocs_tpu_torch.config.samples\n"
@@ -107,18 +113,12 @@ def test_cuda_sampler_needs_a_card():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(rng_mode="legacy"), "item 17"),
     (dict(chains=2), "item 14"),
-    (dict(buckets=2), "item 13"),
+    (dict(admixed=[("five", 3, 1, "d")]), "item 10b"),
     (dict(mesh=object()), "item 15"),
 ])
 def test_unported_options_raise(kwargs, item):
     cfg = parse_control_text(SAMPLE_CTL)
+    kwargs = dict(kwargs)
+    cfg.admixed = kwargs.pop("admixed", [])
     with pytest.raises(NotImplementedError, match=item):
         Sampler(cfg, num_loci=4, device="cpu", **kwargs)
-
-
-def test_checkpoints_raise():
-    cfg = parse_control_text(SAMPLE_CTL)
-    cfg.mcmc.seq_file = "NONE"
-    s = Sampler(cfg, num_loci=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        s.run(checkpoint_path="x.ckpt")

@@ -22,6 +22,12 @@ from gphocs_tpu_torch.kernels.common import make_context
 from gphocs_tpu_torch.rng_fast import FastRngState
 from gphocs_tpu_torch.sampler.step import Finetunes
 
+# One intra-op thread: the suite runs several test processes side by side,
+# and torch's spinning thread pools, sharing the cores, slow each process
+# down by an order of magnitude (a warm-up chunk: 4 s alone, over 75 s
+# beside a second process).
+torch.set_num_threads(1)
+
 F64 = torch.float64
 
 
