@@ -79,14 +79,32 @@ script then exits non-zero without the final line):
      kernel and the sample-age mode against their plain versions at
      F64_TOL, the buckets with hundreds of patterns keeping their
      conditionals in device memory;
-  7. one JSON line per path with its it/s (the ragged ones with both
-     readings and their pattern cells), the card's line, one JSON line with
-     the kernels (launches on the paths, error against the plain version,
-     time, the plain version's time, and the least time the card could
-     take: `bound_ms`), then the result line.
+  7. four chains side by side (`Sampler(chains=4)`) on the standard
+     workload at f32: run() with a trace and --debug-check's state check
+     for 10 iterations and 3 more, each sweep kernel launched once per
+     sweep for all chains (the schedule of one chain), chain 0's rows in
+     the trace and every chain's in `chain_rows`; the device operations of
+     an iteration at C = 1 and C = 4 (torch.profiler); it/s at C = 1 and
+     C = 4 in turns (1, 4, 4, 1); every kernel against its plain version
+     on the 4-chain state made hot, at F32_TOL and on an f64 copy at
+     F64_TOL (each chain's band rate its own), and each kernel's wrapper
+     time there; every kernel and the
+     sample-age mode on 4 chains x 64 loci of SAMPLE_AGE_CTL at F32_TOL and
+     on an f64 copy; chain c of a 4-chain f64 run of 5 iterations against
+     the one-chain run with seed base + 7919 c (equal integers, counters
+     and accepts, reals within F64_TOL); and a 4-chain checkpoint at
+     iteration 10 resumed to 20, every chain's rows and the final
+     checkpoint bitwise equal to the uninterrupted run's;
+  8. one JSON line per path with its it/s (the ragged ones with both
+     readings and their pattern cells, the chains with their chain-it/s
+     and device operations per iteration), the card's line, one JSON line
+     with the kernels (launches on the paths, error against the plain
+     version, time, the time on the 4 chains' state, the plain version's
+     time, and the least time the card could take: `bound_ms`), then the
+     result line.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; a kernel's `launches` is the sum over the four paths.
+just after; a kernel's `launches` is the sum over the paths.
 
 `bound_ms` is the larger of two times: the bytes of the wrapper's input
 and output tensors (each once) over 3.35 TB/s, and a count of the
@@ -133,6 +151,11 @@ SAMPLE_AGE_POP = 3  # population D of SAMPLE_AGE_CTL
 SAMPLE_AGE_STEPS = (-0.9, -0.2, 0.01, 0.3)
 # phase 6: the ragged workload in pattern buckets; 6b: the command line
 RAGGED_BUCKETS = 4
+CHAINS = 4          # phase 7
+CHAIN_ITERS = 10    # phase 7's run() with a trace
+CHAIN_CHECK = 5     # f64 iterations of the chains held against one chain
+CHAIN_CKPT = 10     # phase 7's checkpoint, resumed to 2 * CHAIN_CKPT
+CHAIN_CKPT_LOCI = 250
 CLI_ITERS = 40
 CLI_CHECKPOINT = 20
 # phase 6c: S = 32 (N = 63, the kernels' MAXN) at f64, on the data of the
@@ -172,6 +195,14 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def same(a, b):
+    """Equal shapes and values (counters, counts, flags: [C] for C
+    chains)."""
+    import torch
+
+    return bool(torch.equal(torch.as_tensor(a), torch.as_tensor(b)))
+
+
 def maxdiff(a, b):
     if a.numel() == 0:
         return 0.0
@@ -198,10 +229,12 @@ class Compare:
         check(same, f"{kernel}: {name} differs")
 
 
-def warm_state(device, dtype, path, num_loci=64, ctl=None, seq_len=300):
+def warm_state(device, dtype, path, num_loci=64, ctl=None, seq_len=300,
+               chains=1):
     """A warmed num_loci x seq_len bp Sampler on the control text `ctl`
     (SAMPLE_CTL by default) with a hot band and migrations present (also
-    the fixture of tests/test_torch_csrc_host.py)."""
+    the fixture of tests/test_torch_csrc_host.py); with `chains`, that many
+    chains side by side, each with migrations."""
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import SAMPLE_CTL
     from gphocs_tpu_torch.io.simulate import simulate_seq_file
@@ -215,7 +248,8 @@ def warm_state(device, dtype, path, num_loci=64, ctl=None, seq_len=300):
     cfg = parse_control_text(ctl)
     cfg.mcmc.random_seed = 17
     cfg.mcmc.start_mig = 0
-    s = Sampler(cfg, seq_path=path, dtype=dtype, device=device)
+    s = Sampler(cfg, seq_path=path, dtype=dtype, device=device,
+                chains=chains)
     s.initialize()
     s._sample_mig_rates_device()
     heat(s)
@@ -224,12 +258,13 @@ def warm_state(device, dtype, path, num_loci=64, ctl=None, seq_len=300):
 
 def heat(s):
     """Set s's band rates hot (2e5) and step until migrations are present
-    (in every bucket of a bucketed sampler)."""
+    (in every bucket of a bucketed sampler, in every chain)."""
     import torch
     from gphocs_tpu_torch.kernels.common import gen_log_prior
 
     def migs():
-        return min(int((g.mig_branch >= 0).sum()) for g in s.gens)
+        return min(int((g.mig_branch >= 0).reshape(s.chains, -1).sum(
+            dim=1).min()) for g in s.gens)
 
     s.params = s.params._replace(
         mig_rate=torch.full_like(s.params.mig_rate, 2e5))
@@ -239,6 +274,18 @@ def heat(s):
         if migs() > 0:
             break
     check(migs() > 0, "no migrations in warmup")
+
+
+def spread_rates(s):
+    """Give each chain of a hot chain state a band rate of its own (heat
+    sets them all to 2e5): chain c's times 1 - 0.1 c."""
+    import torch
+    from gphocs_tpu_torch.kernels.common import gen_log_prior
+
+    scale = 1.0 - 0.1 * torch.arange(s.chains, dtype=s.dtype,
+                                     device=s.params.mig_rate.device)
+    s.params = s.params._replace(mig_rate=s.params.mig_rate * scale[:, None])
+    s.lnps = tuple(gen_log_prior(g, s.params, s.ctx) for g in s.gens)
 
 
 def bucket_view(s, k):
@@ -252,17 +299,19 @@ def bucket_view(s, k):
 
 
 def tau_bounds(s, pop):
-    """(taub0, taub1, tauold, taunew) of a rubber-band proposal for pop."""
+    """(taub0, taub1, tauold, taunew) of a rubber-band proposal for pop
+    (each [C] for C chains)."""
     import torch
 
     pr, c = s.params, s.ctx
     s0, s1 = c.pop_sons[pop, 0], c.pop_sons[pop, 1]
-    taub0 = torch.maximum(torch.maximum(pr.tau[s0], pr.tau[s1]),
-                          torch.maximum(pr.sample_age[s0],
-                                        pr.sample_age[s1]))
+    taub0 = torch.maximum(torch.maximum(pr.tau[..., s0], pr.tau[..., s1]),
+                          torch.maximum(pr.sample_age[..., s0],
+                                        pr.sample_age[..., s1]))
     taub1 = (torch.full_like(taub0, c.oldage)
-             if pop == s.tree.num_pops - 1 else pr.tau[c.father_pop[pop]])
-    tauold = pr.tau[pop]
+             if pop == s.tree.num_pops - 1
+             else pr.tau[..., c.father_pop[pop]])
+    tauold = pr.tau[..., pop]
     return taub0, taub1, tauold, tauold + 0.3 * (tauold - taub0)
 
 
@@ -273,9 +322,9 @@ def sample_age_bounds(s, pop, step):
     import torch
 
     pr, c = s.params, s.ctx
-    tauold = pr.sample_age[pop]
+    tauold = pr.sample_age[..., pop]
     taub0 = torch.zeros_like(tauold)
-    taub1 = pr.tau[c.father_pop[pop]]
+    taub1 = pr.tau[..., c.father_pop[pop]]
     room = (taub1 - tauold) if step > 0 else tauold
     return taub0, taub1, tauold, tauold + step * room
 
@@ -287,9 +336,10 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     or F32_TOL.  With need_moves, every sweep must accept some moves, so
     that the comparison covers accepted moves and not only rejections.
     Conditionals are compared after division by cond_scale (deep trees
-    carry the x4 rescale of every level).  Returns the kernels' outputs
-    (node age, migration age, SPR, then the rubber band per population),
-    for comparisons between launch shapes."""
+    carry the x4 rescale of every level).  A state of C chains compares
+    every chain's counters, counts and flags ([C]).  Returns the kernels'
+    outputs (node age, migration age, SPR, then the rubber band per
+    population), for comparisons between launch shapes."""
     from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
     from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
     from gphocs_tpu_torch.kernels.spr import update_spr
@@ -305,10 +355,11 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     k = sweeps.node_age_sweep(g, pr, sq, r, c, s.ft.coal_time, ld, lp, cond)
     q = update_internal_node_ages(g, pr, sq, r, c, s.ft.coal_time, ld, lp,
                                   cond)
-    check(int(k[1].ctr) == int(q[1].ctr), "node_age: counter")
-    check(int(k[5]) == int(q[5]), f"node_age: accepts {k[5]} {q[5]}")
-    check(int(k[5]) > 0 or not need_moves, "node_age: no accepts")
-    log(f"    accepts {int(k[5])}, counter {int(k[1].ctr)}")
+    check(same(k[1].ctr, q[1].ctr), "node_age: counter")
+    check(same(k[5], q[5]), f"node_age: accepts {k[5].tolist()} "
+          f"{q[5].tolist()}")
+    check(int(k[5].min()) > 0 or not need_moves, "node_age: no accepts")
+    log(f"    accepts {k[5].tolist()}, counter {k[1].ctr.tolist()}")
     cmp.close("node_age", "age", k[0].age, q[0].age, t_age)
     cmp.close("node_age", "lnld", k[2], q[2], t_ld)
     cmp.close("node_age", "lnp", k[3], q[3], t_ld)
@@ -319,10 +370,11 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     log("  mig_age")
     k = sweeps.mig_age_sweep(g, pr, r, c, s.ft.mig_time, lp)
     q = update_mig_ages(g, pr, r, c, s.ft.mig_time, lp)
-    check(int(k[1].ctr) == int(q[1].ctr), "mig_age: counter")
-    check(int(k[3]) == int(q[3]), f"mig_age: accepts {k[3]} {q[3]}")
-    check(int(k[3]) > 0 or not need_moves, "mig_age: no accepts")
-    log(f"    accepts {int(k[3])}, counter {int(k[1].ctr)}")
+    check(same(k[1].ctr, q[1].ctr), "mig_age: counter")
+    check(same(k[3], q[3]), f"mig_age: accepts {k[3].tolist()} "
+          f"{q[3].tolist()}")
+    check(int(k[3].min()) > 0 or not need_moves, "mig_age: no accepts")
+    log(f"    accepts {k[3].tolist()}, counter {k[1].ctr.tolist()}")
     cmp.close("mig_age", "mig_age", k[0].mig_age, q[0].mig_age, t_age)
     cmp.close("mig_age", "lnp", k[2], q[2], t_ld)
     outs += [k[0].mig_age, k[1].ctr, *k[2:]]
@@ -334,11 +386,11 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
              *(getattr(k[0], f) for f in ("father", "lson", "rson", "root",
                                           "node_pop", "mig_branch",
                                           "mig_band"))]
-    check(int(k[1].ctr) == int(q[1].ctr),
-          f"spr: counter {int(k[1].ctr)} {int(q[1].ctr)}")
-    check(int(k[4]) == int(q[4]), f"spr: accepts {k[4]} {q[4]}")
-    check(int(k[4]) > 0 or not need_moves, "spr: no accepts")
-    log(f"    accepts {int(k[4])}, counter {int(k[1].ctr)}")
+    check(same(k[1].ctr, q[1].ctr),
+          f"spr: counter {k[1].ctr.tolist()} {q[1].ctr.tolist()}")
+    check(same(k[4], q[4]), f"spr: accepts {k[4].tolist()} {q[4].tolist()}")
+    check(int(k[4].min()) > 0 or not need_moves, "spr: no accepts")
+    log(f"    accepts {k[4].tolist()}, counter {k[1].ctr.tolist()}")
     for f in ("father", "lson", "rson", "root", "node_pop", "mig_branch",
               "mig_band"):
         cmp.equal("spr", f, getattr(k[0], f), getattr(q[0], f))
@@ -352,11 +404,11 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
         b = tau_bounds(s, pop)
         k = sweeps.rubber_band_eval(g, pr, sq, c, pop, False, *b, cond)
         q = rubber_band_eval_plain(g, pr, sq, c, pop, False, *b, cond)
-        check(float(k[5]) == float(q[5]) and float(k[6]) == float(q[6]),
+        check(same(k[5], q[5]) and same(k[6], q[6]),
               f"rubber_band: Jacobian counts, pop {pop}")
-        check(bool(k[7]) == bool(q[7]), f"rubber_band: conflict, pop {pop}")
-        log(f"    pop {pop}: ntj0 {float(k[5]):.0f} ntj1 {float(k[6]):.0f} "
-            f"conflict {bool(k[7])}")
+        check(same(k[7], q[7]), f"rubber_band: conflict, pop {pop}")
+        log(f"    pop {pop}: ntj0 {k[5].tolist()} ntj1 {k[6].tolist()} "
+            f"conflict {k[7].tolist()}")
         cmp.close("rubber_band", "age", k[0], q[0], t_age)
         cmp.close("rubber_band", "mig_age", k[1], q[1], t_age)
         cmp.close("rubber_band", "cond", k[2] / cond_scale,
@@ -369,7 +421,7 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     k = update_taus_fused(*args)
     q = update_taus(*args)
     cmp.equal("rubber_band", "tau accepts", k[6], q[6])
-    check(int(k[2].ctr) == int(q[2].ctr), "tau sweep: counter")
+    check(same(k[2].ctr, q[2].ctr), "tau sweep: counter")
     cmp.close("rubber_band", "tau", k[1].tau, q[1].tau, tol["tau"])
     cmp.close("rubber_band", "sweep lnld", k[3], q[3], t_ld)
     return outs
@@ -496,6 +548,8 @@ def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False,
     check(bool(s.tree.update_sample_age[pop]), "no estimated sample age")
     name = "rubber_band_sample_age"
     log(f"  {name} (pop {pop})")
+    from gphocs_tpu_torch.kernels.common import rows
+
     S = g.num_samples
     leaves = g.node_pop[:, :S] == pop
     seen = set()
@@ -504,14 +558,15 @@ def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False,
         b = sample_age_bounds(s, pop, step)
         k = sweeps.rubber_band_eval(g, pr, sq, c, pop, True, *b, cond)
         q = rubber_band_eval_plain(g, pr, sq, c, pop, True, *b, cond)
-        check(float(k[5]) == float(q[5]) and float(k[6]) == float(q[6]),
+        check(same(k[5], q[5]) and same(k[6], q[6]),
               f"{name}: Jacobian counts, step {step}")
-        check(bool(k[7]) == bool(q[7]), f"{name}: conflict, step {step}")
-        check(bool((k[0][:, :S][leaves] == b[3]).all()),
+        check(same(k[7], q[7]), f"{name}: conflict, step {step}")
+        new_age = rows(b[3], g.num_loci, 0)[:, None].expand(g.num_loci, S)
+        check(bool((k[0][:, :S][leaves] == new_age[leaves]).all()),
               f"{name}: the pop's leaves are not at the new age")
-        seen.add(bool(k[7]))
-        log(f"    step {step:+.2f}: ntj0 {float(k[5]):.0f} ntj1 "
-            f"{float(k[6]):.0f} conflict {bool(k[7])}")
+        seen.update(k[7].reshape(-1).tolist())
+        log(f"    step {step:+.2f}: ntj0 {k[5].tolist()} ntj1 "
+            f"{k[6].tolist()} conflict {k[7].tolist()}")
         cmp.close(name, "age", k[0], q[0], tol["age"])
         cmp.close(name, "mig_age", k[1], q[1], tol["age"])
         cmp.close(name, "cond", k[2] / cond_scale, q[2] / cond_scale,
@@ -814,10 +869,11 @@ def ragged_phase(tmp, card, cmp):
     log(f"  it/s at f32, in turns: buckets {its_b1:.3f}, dense "
         f"{its_d1:.3f}, dense {its_d2:.3f}, buckets {its_b2:.3f} on {card}")
     check_carried_lnld(dense)
-    # at f32 the kernel and its plain version decide one node-age move of
-    # ~16,000 on this state differently, so the dense state is held on an
-    # f64 copy, where every decision must agree
-    log(" -- the dense path's kernels vs their plain versions (f64 copy)")
+    # the plain versions add their sums in index order, as the kernels do
+    # (utils.ordered_sum): every node-age decision agrees at f32 too
+    log(" -- the dense path's kernels vs their plain versions (f32, then "
+        "an f64 copy)")
+    kernel_checks(bucket_view(dense, 0), cmp, F32_TOL, need_moves=False)
     kernel_checks(cast_state(bucket_view(dense, 0), torch.float64), cmp,
                   F64_TOL, need_moves=False)
     del dense
@@ -967,6 +1023,199 @@ def s32_phase(tmp, cmp):
     torch.cuda.synchronize()
 
 
+def chains_phase(tmp, data, card, cmp):
+    """Phase 7: CHAINS chains side by side on the standard workload.
+    Returns (launches of its main path, its readings, the kernels' wrapper
+    ms on the chains' state)."""
+    import numpy as np
+    import torch
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_AGE_CTL, SAMPLE_CTL
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    dev = torch.device("cuda")
+
+    def sampler(seed, chains, dtype=torch.float32, iters=CHAIN_ITERS,
+                loci=-1):
+        cfg = parse_control_text(SAMPLE_CTL)
+        cfg.mcmc.random_seed = seed
+        cfg.mcmc.start_mig = 0
+        cfg.mcmc.burn_in = 0
+        cfg.mcmc.mcmc_iterations = iters
+        cfg.mcmc.iterations_per_log = 5
+        cfg.mcmc.num_loci = loci
+        return Sampler(cfg, seq_path=data, dtype=dtype, device="cuda",
+                       chains=chains)
+
+    t0 = time.perf_counter()
+    log(f" -- the main path with {CHAINS} chains: run() with a trace, "
+        f"{CHAIN_ITERS} iterations, then {WARMUP} more")
+    s4 = sampler(111, CHAINS)
+    sweeps.reset_launch_counts()
+    cols, rows = s4.run(trace_path=os.path.join(tmp, "trace_chains.log"),
+                        debug_check=True)
+    s4.step_chunk(WARMUP, do_migrate=True)
+    torch.cuda.synchronize()
+    launches = check_schedule(CHAIN_ITERS + WARMUP, 1, False)
+    check(len(s4.chain_rows) == CHAINS
+          and all(r.shape == (CHAIN_ITERS, len(cols))
+                  for r in s4.chain_rows)
+          and np.array_equal(rows, s4.chain_rows[0]),
+          "chain rows: the trace is not chain 0's")
+    check(all(np.isfinite(r).all() for r in s4.chain_rows),
+          "chain rows not finite")
+    check(not np.array_equal(s4.chain_rows[0][:, 1:], s4.chain_rows[1][:, 1:]),
+          "chains 0 and 1 wrote the same rows")
+    check_carried_lnld(s4)
+    log(f"  run() with --debug-check at every log point, {CHAINS} chains' "
+        f"rows, set-up and run {time.perf_counter() - t0:.1f} s")
+
+    log(" -- device operations per iteration, one chain against "
+        f"{CHAINS} (torch.profiler, 3 iterations)")
+    s1 = sampler(111, 1)
+    s1.initialize()
+    s1._sample_mig_rates_device()
+    s1.step_chunk(WARMUP, do_migrate=True)
+    ops = {}
+    for c, smp in ((1, s1), (CHAINS, s4)):
+        n = device_ops(lambda: smp.step_chunk(1, do_migrate=True), reps=3)
+        ops[c] = n
+    ratio = (ops[CHAINS] / ops[1]) if ops[1] and ops[CHAINS] else None
+    log(f"  device operations per iteration: C = 1 {ops[1]}, C = {CHAINS} "
+        f"{ops[CHAINS]}, ratio {ratio}")
+
+    log(f" -- it/s in turns: C = 1, {CHAINS}, {CHAINS}, 1 ({TIMED} "
+        "iterations each, f32)")
+    i1a, _ = timed_chunk(s1)
+    i4a, _ = timed_chunk(s4)
+    i4b, _ = timed_chunk(s4)
+    i1b, _ = timed_chunk(s1)
+    log(f"  it/s C = 1: {i1a:.3f}, {i1b:.3f}; C = {CHAINS}: {i4a:.3f}, "
+        f"{i4b:.3f} (chain-it/s {CHAINS * i4a:.3f}, {CHAINS * i4b:.3f}) on "
+        f"{card}")
+    del s1
+
+    log(f" -- the kernels on the {CHAINS} chains' state, hot band: f32, "
+        "then an f64 copy")
+    heat(s4)
+    spread_rates(s4)
+    kernel_checks(s4, cmp, F32_TOL)
+    kernel_checks(cast_state(s4, torch.float64), cmp, F64_TOL)
+    b = tau_bounds(s4, s4.tree.num_pops - 1)
+    pop = s4.tree.num_pops - 1
+    g, pr, sq, c = s4.gen, s4.params, s4.seq, s4.ctx
+    ms = {
+        "node_age": time_cuda(lambda: sweeps.node_age_sweep(
+            g, pr, sq, s4.lrng, c, s4.ft.coal_time, s4.lnld, s4.lnp,
+            s4.cond), 10),
+        "mig_age": time_cuda(lambda: sweeps.mig_age_sweep(
+            g, pr, s4.lrng, c, s4.ft.mig_time, s4.lnp), 10),
+        "rubber_band": time_cuda(lambda: sweeps.rubber_band_eval(
+            g, pr, sq, c, pop, False, *b, s4.cond), 10),
+        "spr": time_cuda(lambda: sweeps.spr_sweep(
+            g, pr, sq, s4.lrng, c, s4.lnld, s4.cond), 10)}
+    del s4, g, pr, sq, c
+    log(f"  {CHAINS} chains x 64 loci of SAMPLE_AGE_CTL: every kernel and "
+        "the sample-age mode, f32 then an f64 copy")
+    sa = warm_state(dev, torch.float32, os.path.join(tmp, "chains_age.txt"),
+                    ctl=SAMPLE_AGE_CTL, chains=CHAINS)
+    spread_rates(sa)
+    kernel_checks(sa, cmp, F32_TOL, need_moves=False)
+    sample_age_checks(sa, cmp, F32_TOL)
+    sa64 = cast_state(sa, torch.float64)
+    kernel_checks(sa64, cmp, F64_TOL, need_moves=False)
+    sample_age_checks(sa64, cmp, F64_TOL)
+    sb = sample_age_bounds(sa, SAMPLE_AGE_POP, 0.01)
+    ms["rubber_band_sample_age"] = time_cuda(
+        lambda: sweeps.rubber_band_eval(sa.gen, sa.params, sa.seq, sa.ctx,
+                                        SAMPLE_AGE_POP, True, *sb, sa.cond),
+        10)
+    del sa, sa64
+    log("  wrapper ms on the chains' state (CUDA events, 10 calls; the "
+        f"sample-age mode on {CHAINS} x 64 loci): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+
+    log(f" -- chain c of {CHAINS} (f64, {CHAIN_CHECK} iterations) against "
+        "the one-chain run with seed base + 7919 c")
+    base = 313
+    sc = sampler(base, CHAINS, torch.float64)
+    sc.initialize()
+    sc._sample_mig_rates_device()
+    stc, _ = sc.step_chunk(CHAIN_CHECK, do_migrate=True)
+    L = sc.num_loci
+    worst = 0.0
+    for ci in range(CHAINS):
+        s1 = sampler(base + 7919 * ci, 1, torch.float64)
+        s1.initialize()
+        s1._sample_mig_rates_device()
+        st1, _ = s1.step_chunk(CHAIN_CHECK, do_migrate=True)
+        gc, pc = sc.chain_state(ci)
+        cut = slice(ci * L, (ci + 1) * L)
+        for f in ("father", "lson", "rson", "node_pop", "root", "mig_branch",
+                  "mig_band", "valid"):
+            check(same(getattr(gc, f), getattr(s1.gen, f)),
+                  f"chain {ci}: {f} differs from its one-chain run")
+        check(same(sc.lrng.ctr[ci], s1.lrng.ctr)
+              and same(sc.grng.ctr[ci], s1.grng.ctr),
+              f"chain {ci}: counters differ")
+        for f in st1._fields:
+            mine = getattr(stc, f)[ci]
+            if f in ("rate_var_delta", "lnld_sum", "lnp_sum"):
+                continue
+            check(same(mine, getattr(st1, f)), f"chain {ci}: {f} differs")
+        for name, a, b, tol in (
+                ("age", gc.age, s1.gen.age, F64_TOL["age"]),
+                ("mig_age", gc.mig_age, s1.gen.mig_age, F64_TOL["age"]),
+                ("theta", pc.theta, s1.params.theta, F64_TOL["age"]),
+                ("tau", pc.tau, s1.params.tau, F64_TOL["age"]),
+                ("mig_rate", pc.mig_rate, s1.params.mig_rate,
+                 F64_TOL["age"] * float(s1.params.mig_rate.abs().max())),
+                ("lnld", sc.lnld[cut], s1.lnld, F64_TOL["lnld"]),
+                ("lnp", sc.lnp[cut], s1.lnp, F64_TOL["lnld"]),
+                ("cond", sc.cond[cut], s1.cond, F64_TOL["cond"])):
+            d = maxdiff(a, b)
+            worst = max(worst, d / tol)
+            check(d <= tol, f"chain {ci}: {name} differs by {d:.3e}")
+        log(f"  chain {ci}: integers, counters and accepts equal; accepts "
+            f"coal {int(st1.acc_coal_time)} spr {int(st1.acc_spr)} mixing "
+            f"{int(st1.acc_mixing)}")
+    log(f"  reals within F64_TOL (largest share of a tolerance {worst:.2e})")
+    del sc, s1
+
+    log(f" -- checkpoint at {CHAIN_CKPT} resumed to {2 * CHAIN_CKPT} ("
+        f"{CHAINS} chains x {CHAIN_CKPT_LOCI} loci, f32)")
+    runs = {}
+    for name, iters, resume in (("whole", 2 * CHAIN_CKPT, False),
+                                ("first", CHAIN_CKPT, False),
+                                ("resumed", 2 * CHAIN_CKPT, True)):
+        ck = os.path.join(tmp, f"chains_{name}.npz")
+        if resume:
+            shutil.copy(os.path.join(tmp, "chains_first.npz"), ck)
+        smp = sampler(5, CHAINS, iters=iters, loci=CHAIN_CKPT_LOCI)
+        smp.run(trace_path=os.path.join(tmp, f"chains_{name}.log"),
+                checkpoint_path=ck, checkpoint_every=CHAIN_CKPT,
+                resume=resume)
+        runs[name] = smp.chain_rows
+    for ci in range(CHAINS):
+        check(np.array_equal(runs["whole"][ci][CHAIN_CKPT:],
+                             runs["resumed"][ci]),
+              f"chain {ci}: the resumed rows differ")
+    za = np.load(os.path.join(tmp, "chains_whole.npz"))
+    zb = np.load(os.path.join(tmp, "chains_resumed.npz"))
+    check(sorted(za.files) == sorted(zb.files)
+          and all(np.array_equal(za[k], zb[k]) for k in za.files),
+          "the resumed run's final checkpoint differs")
+    log(f"  every chain's rows {CHAIN_CKPT + 1}-{2 * CHAIN_CKPT} and the "
+        f"{len(za.files)} arrays of the final checkpoint bitwise equal "
+        f"(gen_age {za['gen_age'].shape})")
+    torch.cuda.synchronize()
+    readings = {"c1": [i1a, i1b], f"c{CHAINS}": [i4a, i4b],
+                "ops_per_iteration": {"1": ops[1], str(CHAINS): ops[CHAINS]},
+                "ops_ratio": ratio}
+    return launches, readings, ms
+
+
 def main():
     import torch
 
@@ -987,6 +1236,7 @@ def main():
     from gphocs_tpu_torch.ops import cuda_lib, sweeps
 
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
     card = card_line()
     log("== phase 1: versions")
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -1211,6 +1461,13 @@ def main():
     t_phase = time.perf_counter()
     s32_phase(tmp, cmp)
     log(f"phase 6c: {time.perf_counter() - t_phase:.1f} s")
+    log(f"== phase 7: {CHAINS} chains side by side ({WORKLOAD_LOCI} loci x "
+        f"{WORKLOAD_BP} bp each)")
+    t_phase = time.perf_counter()
+    launches, chain_read, chain_ms = chains_phase(tmp, data, card, cmp)
+    paths[f"chains{CHAINS}"] = chain_read[f"c{CHAINS}"][0]
+    all_launches.append(launches)
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
@@ -1229,20 +1486,27 @@ def main():
             "source": f"gphocs_tpu_torch/csrc/{src[n][0]}",
             "replaces": src[n][1], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": cmp.err[n],
-            **times[n], "bound_ms": b_ms,
+            **times[n], f"ms_chains{CHAINS}": chain_ms[n], "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": nbytes, "bound_operations": nops,
             "library_ms": None})
         log(f"  {n:24s} {times[n]['ms']:.3f} ms; bound {b_ms * 1e3:.2f} us by "
             f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)
     for label, its in paths.items():
-        if label in ragged:
+        if label in ragged or label == f"chains{CHAINS}":
             continue
         log(json.dumps({"path": label, "it_per_s": its, "card": card}))
+    c4 = chain_read[f"c{CHAINS}"]
+    log(json.dumps({"path": f"chains{CHAINS}", "it_per_s": sum(c4) / 2,
+                    "chain_it_per_s": CHAINS * sum(c4) / 2,
+                    "readings": c4, "one_chain_readings": chain_read["c1"],
+                    "ops_per_iteration": chain_read["ops_per_iteration"],
+                    "card": card}))
     for label, (a, b, cells) in ragged.items():
         log(json.dumps({"path": label, "it_per_s": (a + b) / 2,
                         "readings": [a, b], "pattern_cells": cells,
                         "card": card}))
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

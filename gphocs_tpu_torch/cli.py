@@ -2,7 +2,7 @@
 (twin of gphocs_tpu/cli.py, same flags):
 
     python -m gphocs_tpu_torch [-v] [-n threads] <control-file> \
-        [secondary-control] [--buckets K] [--checkpoint PATH \
+        [secondary-control] [--buckets K | --chains C] [--checkpoint PATH \
         --checkpoint-every N] [--resume] [--debug-check] [--device cpu]
 
 (reference src/GPhoCS.c:28-249).  The run goes on the CUDA card unless
@@ -10,7 +10,9 @@
 falls back to the CPU.  float32 on the card and float64 on the CPU unless
 `--x64`.  The device streams are the counter-based fast RNG (the only
 mode ported); the options of modes not ported yet raise before any file
-is read.  `-n` is accepted for compatibility and ignored.
+is read.  `--chains C` runs C independent chains side by side (seeds base +
+7919 c; chain 0 writes the trace), not with `--buckets` or a coal-stats
+file.  `-n` is accepted for compatibility and ignored.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import time
 _NOT_PORTED = {
     "legacy_rng": ("--legacy-rng (the Wichmann-Hill streams)",
                    "Queue 1 item 17"),
-    "chains": ("--chains > 1", "Queue 1 item 14"),
     "mesh": ("--mesh (loci sharded over several devices)",
              "Queue 1 item 15"),
     "distributed": ("--distributed (several hosts)", "Queue 1 item 15"),
@@ -69,20 +70,24 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint if it exists")
     ap.add_argument("--chains", type=int, default=1,
-                    help="independent chains (not ported)")
+                    help="independent chains side by side (R-hat/ESS via "
+                         "tools/convergence.py); chain 0 writes the trace")
     ap.add_argument("--mesh", action="store_true",
                     help="shard loci over all visible devices (not ported)")
     ap.add_argument("--distributed", metavar="COORD:NPROC:PID",
                     help="multi-host run (not ported)")
     args = ap.parse_args(argv)
 
-    # refuse what is not ported before any file is read
+    # refuse what is not ported, or not allowed, before any file is read
     for flag, (what, item) in _NOT_PORTED.items():
-        value = getattr(args, flag)
-        if value and (flag != "chains" or value > 1):
+        if getattr(args, flag):
             raise NotImplementedError(
                 f"{what} is not ported to gphocs_tpu_torch yet "
                 f"(ROADMAP {item})")
+    if args.chains < 1:
+        ap.error("--chains takes one chain or more")
+    if args.buckets > 1 and args.chains > 1:
+        ap.error("--buckets requires one chain (as in gphocs_tpu)")
 
     import torch
 
@@ -100,15 +105,21 @@ def main(argv=None):
     use_x64 = args.x64 if args.x64 is not None else args.device == "cpu"
     dtype = torch.float64 if use_x64 else torch.float32
     cfg = parse_control_file(args.control_file, args.secondary_control)
+    if args.chains > 1 and cfg.mcmc.coal_stats_file != "NONE":
+        ap.error("--chains: a coal-stats file takes one chain (drop "
+                 "coal-stats-file from the control file)")
     print(f"gphocs_tpu_torch on {where}, "
           f"{'float64' if use_x64 else 'float32'}, fast RNG")
     t0 = time.time()
     sampler = Sampler(cfg, dtype=dtype, device=args.device,
                       legacy_rng=not args.production_rng,
-                      buckets=args.buckets)
+                      buckets=args.buckets, chains=args.chains)
     print(f"{sampler.num_loci} loci, {cfg.num_samples} samples, "
           f"{cfg.num_pops} pops, {len(cfg.bands)} migration band(s); "
           f"{cfg.num_parameters()} parameters")
+    if sampler.chains > 1:
+        print(f"{sampler.chains} chains, seeds {sampler.seed} + 7919 c; "
+              "chain 0 writes the trace")
     if sampler.buckets > 1:
         print(f"{sampler.buckets} pattern buckets: loci "
               f"{sampler.bucket_sizes}, pattern capacity "

@@ -64,12 +64,14 @@ __device__ __forceinline__ int kth_bit(unsigned mask, int k) {
 template <typename T>
 __global__ void mig_age_kernel(const SweepArgs a) {
   __shared__ PopTables<T> pt;  // filled by the whole block
-  pt.load(a, false);
+  const int c = blockIdx.y;  // the chain of this block
+  pt.load(a, false, c);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   (void)lane;
-  const int l = blockIdx.x * a.block + w;
-  if (l >= a.L) return;
-  advance_counter(a, l, lane);
+  const int li = blockIdx.x * a.block + w;  // the locus within its chain
+  if (li >= a.Lc) return;
+  const int l = c * a.Lc + li;
+  advance_counter(a, c, li, lane);
   const int N = a.N, M = a.M, B = a.B, PP = a.PP;
   const int NS = N + M;
   const T oldage = (T)a.oldage;
@@ -127,7 +129,7 @@ __global__ void mig_age_kernel(const SweepArgs a) {
     }
   }
   const uint32_t key = (uint32_t)((const i64*)a.key)[l];
-  const uint32_t ctr0 = (uint32_t)*(const i64*)a.ctr;
+  const uint32_t ctr0 = (uint32_t)((const i64*)a.ctr)[c];
   const T ft = *(const T*)a.finetune;
   int acc = 0;
 

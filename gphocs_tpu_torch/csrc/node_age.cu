@@ -121,12 +121,14 @@ __device__ uint64_t refresh_path_keep_w(T* cond, T* kept, int start,
 template <typename T>
 __global__ void node_age_kernel(const SweepArgs a) {
   __shared__ PopTables<T> pt;  // filled by the whole block
-  pt.load(a, false);
+  const int c = blockIdx.y;  // the chain of this block
+  pt.load(a, false, c);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   (void)lane;
-  const int l = blockIdx.x * a.block + w;
-  if (l >= a.L) return;
-  advance_counter(a, l, lane);
+  const int li = blockIdx.x * a.block + w;  // the locus within its chain
+  if (li >= a.Lc) return;
+  const int l = c * a.Lc + li;
+  advance_counter(a, c, li, lane);
   SWEEP_PROF_BEGIN
   const int N = a.N, S = (N + 1) / 2, M = a.M, B = a.B, P = a.P;
   const int NS = N + M;
@@ -182,7 +184,7 @@ __global__ void node_age_kernel(const SweepArgs a) {
   const T mut = ((const T*)a.mut_rate)[l];
   const bool real = ((const bool*)a.valid)[l];
   const uint32_t key = (uint32_t)((const i64*)a.key)[l];
-  const uint32_t ctr0 = (uint32_t)*(const i64*)a.ctr;
+  const uint32_t ctr0 = (uint32_t)((const i64*)a.ctr)[c];
   const T ft = *(const T*)a.finetune;
 
   // ---- what no node-age move changes ----
@@ -285,6 +287,21 @@ __global__ void node_age_kernel(const SweepArgs a) {
     const T lnacc = dlnp + (lnld_new - lnld);
     const T u = uniform<T>(key, c + 4);
     const bool accept = real && !tiny && mh(lnacc, u);
+#ifdef SWEEP_PROBE
+    // built with -DSWEEP_PROBE (tools/node_age_probe.py): the step's
+    // values into a.prof, [L, MAXN, 8] doubles, where it is given
+    if (a.prof) ONE_LANE {
+      double* o_ = (double*)a.prof + ((size_t)l * MAXN + i) * 8;
+      o_[0] = (double)tnew;
+      o_[1] = (double)dlnp;
+      o_[2] = (double)(lnld_new - lnld);
+      o_[3] = (double)u;
+      o_[4] = (double)lnacc;
+      o_[5] = accept ? 1.0 : 0.0;
+      o_[6] = (double)lnld_new;
+      o_[7] = (double)integral;
+    }
+#endif
     if (accept) {
       lnld = lnld_new;
       lnp = lnp + dlnp;

@@ -65,16 +65,20 @@ int rubber_smem_bytes(const SweepArgs& a) {
 template <typename T>
 __global__ void rubber_band_kernel(const SweepArgs a) {
   __shared__ PopTables<T> pt;  // tau/pop_end/band windows of the PROPOSAL
-  pt.load(a, a.sample_age == 0);
+  const int c = blockIdx.y;  // the chain of this block
+  pt.load(a, a.sample_age == 0, c);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   (void)lane;
-  const int l = blockIdx.x * a.block + w;
-  if (l >= a.L) return;
+  const int li = blockIdx.x * a.block + w;  // the locus within its chain
+  if (li >= a.Lc) return;
+  const int l = c * a.Lc + li;
   const int N = a.N, S = (N + 1) / 2, M = a.M, B = a.B, PP = a.PP, P = a.P;
   const int NS = N + M;
   const size_t cn = (size_t)N * P * 4;
-  const T taub0 = *(const T*)a.taub0, taub1 = *(const T*)a.taub1;
-  const T tauold = *(const T*)a.tauold, taunew = *(const T*)a.taunew;
+  const T taub0 = ((const T*)a.taub0)[c];
+  const T taub1 = ((const T*)a.taub1)[c];
+  const T tauold = ((const T*)a.tauold)[c];
+  const T taunew = ((const T*)a.taunew)[c];
   const int pop = a.pop;
   const bool is_root = a.is_root != 0;
   const bool sample_age = a.sample_age != 0;
@@ -359,7 +363,7 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
     ((T*)a.lnld_out)[l] = lnld;
     ((T*)a.lnp_out)[l] = real ? lnp : (T)0;
     if (real) {
-      int* stat = (int*)a.stat;
+      int* stat = (int*)a.stat + 3 * c;  // this chain's counts
       if (ntj0) atomicAdd(stat + 0, ntj0);
       if (ntj1) atomicAdd(stat + 1, ntj1);
       if (conflicts) atomicAdd(stat + 2, conflicts);

@@ -130,11 +130,13 @@ __device__ __forceinline__ T mig_into(T mid, int p, const PopTables<T>& pt) {
 template <typename T>
 __global__ void spr_kernel(const SweepArgs a) {
   __shared__ PopTables<T> pt;
-  pt.load(a, false);
+  const int c = blockIdx.y;  // the chain of this block
+  pt.load(a, false, c);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   (void)lane;
-  const int l = blockIdx.x * a.block + w;
-  if (l >= a.L) return;
+  const int li = blockIdx.x * a.block + w;  // the locus within its chain
+  if (li >= a.Lc) return;
+  const int l = c * a.Lc + li;
   SWEEP_PROF_BEGIN
   const int N = a.N, S = (N + 1) / 2, M = a.M, B = a.B, PP = a.PP, P = a.P;
   const int K = N + M + PP + 2 * B + 1;
@@ -202,7 +204,7 @@ __global__ void spr_kernel(const SweepArgs a) {
   const T mut = ((const T*)a.mut_rate)[l];
   const bool real = ((const bool*)a.valid)[l];
   const uint32_t key = (uint32_t)((const i64*)a.key)[l];
-  const uint32_t ctr0 = (uint32_t)*(const i64*)a.ctr;
+  const uint32_t ctr0 = (uint32_t)((const i64*)a.ctr)[c];
   T lnld = ((const T*)a.lnld_in)[l];
   int acc = 0;
   uint32_t doff = 0;
@@ -504,7 +506,7 @@ __global__ void spr_kernel(const SweepArgs a) {
     ONE_LANE {
       ((i64*)a.root_out)[l] = root;
       ((T*)a.lnld_out)[l] = lnld;
-      int* stat = (int*)a.stat;
+      int* stat = (int*)a.stat + 2 * c;  // this chain's counts
       if (acc) atomicAdd(stat + 0, acc);
       atomicMax(stat + 1, (int)doff);
     }

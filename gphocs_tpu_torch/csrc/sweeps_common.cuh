@@ -11,7 +11,12 @@
 //
 // Layout: every per-locus array is row-major [L, ...] as in the PyTorch
 // state (index arrays int64, masks bool, reals T = float or double); the
-// conditionals are [L, N, P, 4].
+// conditionals are [L, N, P, 4].  A state of C chains is chain-major: its
+// L = C * Lc loci are chain 0's Lc loci, then chain 1's, ...; theta and tau
+// are [C, PP], the migration rates [C, B], the per-locus streams' counter
+// [C] (one chain: C = 1, Lc = L).  The grid's second axis is the chain, so
+// a block's loci are one chain's and its population tables are that
+// chain's.
 //
 // One launch shape: every kernel runs one warp per locus, `block` loci per
 // block, with every per-locus table in dynamic shared memory
@@ -39,6 +44,8 @@ typedef long long i64;
 // returned by a warp-per-locus entry point whose caller's shared-memory
 // size (SweepArgs.smem_bytes) is not what the kernel's layout needs
 #define SWEEP_ERR_SMEM 9001
+// returned for a chain layout that does not cover the loci (C * Lc != L)
+#define SWEEP_ERR_CHAINS 9002
 
 // Must match gphocs_tpu_torch/ops/cuda_lib.py (PTR_FIELDS, INT_FIELDS).
 struct SweepArgs {
@@ -50,12 +57,12 @@ struct SweepArgs {
   // sequence data
   const void* group_id; const void* group_count; const void* group_nphases;
   const void* pattern_valid;
-  // population parameters as the state holds them: theta [PP], tau [PP],
-  // mig_rate [B]; popi = [father_pop (PP), band source, target (B each),
-  // anc (PP*PP)], int64, constant for a run
+  // population parameters as the state holds them: theta [C, PP], tau
+  // [C, PP], mig_rate [C, B]; popi = [father_pop (PP), band source, target
+  // (B each), anc (PP*PP)], int64, constant for a run.  ctr: [C].
   const void* theta; const void* tau; const void* mig_rate; const void* popi;
   const void* key; const void* ctr; const void* finetune;
-  // rubber band: the proposal's four 0-d reals
+  // rubber band: the proposal's four reals, one per chain ([C])
   const void* taub0; const void* taub1; const void* tauold;
   const void* taunew;
   const void* lnld_in; const void* lnp_in; const void* cond_in;
@@ -66,11 +73,12 @@ struct SweepArgs {
   void* mig_branch_out; void* mig_band_out; void* mig_age_out;
   // acc_out: node age, migration age: int64 [L] accepts per locus
   void* lnld_out; void* lnp_out; void* acc_out;
-  // node age, migration age: the counter after the sweep, (*ctr + advance)
-  // mod 2^32, written by the kernel (advance_counter)
+  // node age, migration age: each chain's counter after the sweep,
+  // (ctr[c] + advance) mod 2^32, written by the kernel (advance_counter)
   void* ctr_out;
-  // int32 sums over the valid loci, zeroed by the wrapper.  Rubber band:
-  // [ntj0, ntj1, conflicts]; SPR: [accepts, largest draw offset].
+  // int32 sums over each chain's valid loci, zeroed by the wrapper.  Rubber
+  // band: [C, 3] = [ntj0, ntj1, conflicts]; SPR: [C, 2] = [accepts,
+  // largest draw offset].
   void* stat;
   // a kernel built with -DSWEEP_PROFILE: [L, 16] int64 cycle counts, or
   // null
@@ -80,8 +88,9 @@ struct SweepArgs {
   // shared memory (else in cond_out / prop).
   // smem_bytes: dynamic shared memory of one block.
   // advance: the draws a sweep of fixed length takes from the counter.
+  // C: chains; Lc: loci per chain (L = C * Lc).
   int L, N, M, B, PP, P, root_pop, pop, is_root, block, sample_age,
-      cond_smem, smem_bytes, advance;
+      cond_smem, smem_bytes, advance, C, Lc;
   double oldage;
 };
 
@@ -128,23 +137,26 @@ struct PopTables {
     return (ancrow[i] >> j) & 1u;
   }
 
-  // Fill the tables of a __shared__ instance, all threads of the block
-  // together (two block barriers inside).  With `proposal`, tau[a.pop] is
-  // *a.taunew: the rubber band's proposed tau.  pop_end and the band
-  // windows follow from tau as kernels/common.py pop_end and band_windows
-  // compute them (a collapsed band, start >= end, sits at its target's
-  // tau): max, min and compare only, so the same bits.
-  __device__ void load(const SweepArgs& a, bool proposal) {
+  // Fill the tables of a __shared__ instance with chain c's parameters,
+  // all threads of the block together (two block barriers inside).  With
+  // `proposal`, tau[a.pop] is the chain's a.taunew: the rubber band's
+  // proposed tau.  pop_end and the band windows follow from tau as
+  // kernels/common.py pop_end and band_windows compute them (a collapsed
+  // band, start >= end, sits at its target's tau): max, min and compare
+  // only, so the same bits.
+  __device__ void load(const SweepArgs& a, bool proposal, int c) {
     const int np = a.PP, nb = a.B;
     const i64* pi = (const i64*)a.popi;
+    const T* th = (const T*)a.theta + (size_t)c * np;
+    const T* ta = (const T*)a.tau + (size_t)c * np;
+    const T* mr = (const T*)a.mig_rate + (size_t)c * nb;
     BLOCK_THREADS(j, np) {
-      theta[j] = ((const T*)a.theta)[j];
-      tau[j] = (proposal && j == a.pop) ? *(const T*)a.taunew
-                                        : ((const T*)a.tau)[j];
+      theta[j] = th[j];
+      tau[j] = (proposal && j == a.pop) ? ((const T*)a.taunew)[c] : ta[j];
       father_pop[j] = (int)pi[j];
     }
     BLOCK_THREADS(b, nb) {
-      rate[b] = ((const T*)a.mig_rate)[b];
+      rate[b] = mr[b];
       bsrc[b] = (int)pi[np + b];
       btgt[b] = (int)pi[np + nb + b];
     }
@@ -245,14 +257,15 @@ __device__ T rnd2normal8(uint32_t key, uint32_t c) {
   return u3 < (T)0.5 ? zval : -zval;
 }
 
-// The counter after a sweep whose length does not depend on the data
-// (rng_fast: ctr + n mod 2^32), written by the first locus's first lane, so
-// that the wrapper launches no tensor operation for it.
-__device__ __forceinline__ void advance_counter(const SweepArgs& a, int l,
-                                                int lane) {
-  if (l == 0 && lane == 0)
-    *(i64*)a.ctr_out = (i64)(((uint64_t)*(const i64*)a.ctr +
-                              (uint64_t)a.advance) & 0xFFFFFFFFull);
+// Chain c's counter after a sweep whose length does not depend on the
+// data (rng_fast: ctr + n mod 2^32), written by the first lane of the
+// chain's first locus (li, its index within the chain), so that the wrapper
+// launches no tensor operation for it.
+__device__ __forceinline__ void advance_counter(const SweepArgs& a, int c,
+                                                int li, int lane) {
+  if (li == 0 && lane == 0)
+    ((i64*)a.ctr_out)[c] = (i64)(((uint64_t)((const i64*)a.ctr)[c] +
+                                  (uint64_t)a.advance) & 0xFFFFFFFFull);
 }
 
 template <typename T>
@@ -477,8 +490,8 @@ __host__ __device__ inline int locus_bytes(int reals, int ints) {
 // another.
 #ifndef SWEEP_LAUNCH_WARP
 #define SWEEP_LAUNCH_WARP(K, a, stream)                                    \
-  K<<<(a->L + a->block - 1) / a->block, 32 * a->block, a->smem_bytes,       \
-      (cudaStream_t)stream>>>(*a)
+  K<<<dim3((a->Lc + a->block - 1) / a->block, a->C), 32 * a->block,         \
+      a->smem_bytes, (cudaStream_t)stream>>>(*a)
 #endif
 
 // bytes_fn<T>(a): the dynamic shared memory the kernel's layout needs.
@@ -488,6 +501,7 @@ template <typename K, typename F>
 static int launch_warp_kernel(K kernel, F bytes_fn, const SweepArgs* a,
                               void* stream) {
   if (a->block < 1 || bytes_fn(*a) != a->smem_bytes) return SWEEP_ERR_SMEM;
+  if (a->C < 1 || a->Lc < 1 || a->C * a->Lc != a->L) return SWEEP_ERR_CHAINS;
   if (a->smem_bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);

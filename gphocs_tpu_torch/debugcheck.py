@@ -247,12 +247,14 @@ def check_likelihoods(sampler) -> List[str]:
     a kernel's and a rebuild's roundings in another order, and a locus's
     prior is a difference of terms some 1e3 times larger than itself, so
     float32 drifts by tens of ulps of those terms (3e-5 on a 4,000-locus
-    run); a wrong move shifts a value by far more."""
+    run); a wrong move shifts a value by far more.  A sampler of C chains
+    is checked chain by chain, as gphocs_tpu does."""
     from gphocs_tpu_torch.kernels.common import gen_log_prior
     from gphocs_tpu_torch.ops.pruning import data_log_likelihood
 
     f32 = sampler.dtype == torch.float32
     atol, rtol = (1e-3, 1e-5) if f32 else (1e-8, 0.0)
+    C = getattr(sampler, "chains", 1)
     errs = []
     for k, (g, sq) in enumerate(zip(sampler.gens, sampler.seqs)):
         pre = f"bucket {k}: " if sampler.buckets > 1 else ""
@@ -263,6 +265,10 @@ def check_likelihoods(sampler) -> List[str]:
                  sampler.lnps[k])):
             fresh = fresh.double()
             d = (fresh - carried.double()).abs()
-            if bool((d > atol + rtol * fresh.abs()).any()):
-                errs.append(f"{pre}carried {what} drift {float(d.max())}")
+            bad = (d > atol + rtol * fresh.abs()).reshape(C, -1).any(dim=1)
+            dmax = d.reshape(C, -1).amax(dim=1)
+            for c in bad.nonzero().flatten().tolist():
+                chain = f"chain {c}: " if C > 1 else ""
+                errs.append(f"{pre}{chain}carried {what} drift "
+                            f"{float(dmax[c])}")
     return errs

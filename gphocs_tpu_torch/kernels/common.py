@@ -1,9 +1,18 @@
 """Shared static context + helpers for the MH update kernels
-(twin of gphocs_tpu/kernels/common.py)."""
+(twin of gphocs_tpu/kernels/common.py).
+
+A state of C chains (sampler/driver.py, `chains=C`) keeps its per-locus
+tensors chain-major, [C * L, ...], and its parameters with a leading chain
+axis ([C, P], [C, B]); one chain's parameters are [P], [B], as in the JAX
+package.  The JAX package vmaps one chain's functions over the chains; here
+the functions take both layouts, and `rows`, `take` and `per_chain` give a
+locus its chain's parameters and a chain its loci's sums.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -88,26 +97,66 @@ def make_context(tree: PopTree, dtype=torch.float64, device="cpu") -> Context:
     )
 
 
+def chain_count(params: Params) -> Optional[int]:
+    """C for the parameters of C chains ([C, P]), None for one chain's
+    ([P])."""
+    return None if params.theta.dim() == 1 else params.theta.shape[0]
+
+
+def rows(x: torch.Tensor, L: int, nd: int = 1) -> torch.Tensor:
+    """A table of nd dims per locus, for L loci: one chain's table as one
+    row that broadcasts over the loci ([1, ...]); C chains' tables ([C,
+    ...]) each repeated over its chain's L // C loci ([L, ...])."""
+    if x.dim() == nd:
+        return x.unsqueeze(0)
+    C = x.shape[0]
+    return x[:, None].expand(C, L // C, *x.shape[1:]).reshape(L,
+                                                             *x.shape[1:])
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] with per-locus indices idx ([L] or [L, k]) into a population
+    table x: one chain's ([P]), or C chains' ([C, P]), each locus reading
+    its own chain's row.  A negative index counts from the end."""
+    if x.dim() == 1:
+        return x[idx]
+    L = idx.shape[0]
+    return rows(x, L).gather(1, idx.reshape(L, -1) % x.shape[1]).reshape(
+        idx.shape)
+
+
+def per_chain(x: torch.Tensor, C: Optional[int], op: str = "sum"
+              ) -> torch.Tensor:
+    """Reduce a per-locus tensor x [L, ...] over its loci: over all of
+    them for one chain (C None), over each chain's for C chains ([C,
+    ...]).  op: "sum", "any" or "amax"."""
+    if C is not None:
+        x = x.reshape(C, -1, *x.shape[1:])
+    return getattr(x, op)(dim=0 if C is None else 1)
+
+
 def band_windows(ctx: Context, tau: torch.Tensor):
-    """[B] band start/end from current taus
+    """[B] band start/end from current taus ([C, B] from C chains' [C, P])
     (reference src/PopulationTree.c:439-505)."""
     if ctx.num_bands == 0:
-        z = tau.new_zeros((0,))
+        z = tau.new_zeros(tau.shape[:-1] + (0,))
         return z, z
     src, tgt = ctx.band_source, ctx.band_target
-    start = torch.maximum(tau[src], tau[tgt])
-    end = torch.minimum(tau[ctx.father_pop[src]], tau[ctx.father_pop[tgt]])
+    start = torch.maximum(tau[..., src], tau[..., tgt])
+    end = torch.minimum(tau[..., ctx.father_pop[src]],
+                        tau[..., ctx.father_pop[tgt]])
     collapsed = start >= end
-    start = torch.where(collapsed, tau[tgt], start)
-    end = torch.where(collapsed, tau[tgt], end)
+    start = torch.where(collapsed, tau[..., tgt], start)
+    end = torch.where(collapsed, tau[..., tgt], end)
     return start, end
 
 
 def pop_end(ctx: Context, tau: torch.Tensor) -> torch.Tensor:
-    """[P] top of each pop's window (tau of father, OLDAGE for root)."""
+    """[P] ([C, P]) top of each pop's window (tau of father, OLDAGE for
+    root)."""
     fa = ctx.father_pop
     return torch.where(fa < 0, torch.full_like(tau, ctx.oldage),
-                       tau[fa.clamp(min=0)])
+                       tau[..., fa.clamp(min=0)])
 
 
 def full_stats(gen: GenState, params: Params, ctx: Context):
@@ -177,9 +226,10 @@ def mh_accept(u: torch.Tensor, lnacc: torch.Tensor, mask: torch.Tensor):
 
 
 def scalar_mh_accept(rng_state, lnacc, conflict=False):
-    """MH decision on the (size-1) general stream (scalar lnacc).  The
-    uniform is drawn unconditionally, as in the JAX fast-RNG mode (the
-    counter advances by one whether or not the draw is used)."""
+    """MH decision on the (size-1) general stream (scalar lnacc; [C] on
+    the general streams of C chains).  The uniform is drawn
+    unconditionally, as in the JAX fast-RNG mode (the counter advances by
+    one whether or not the draw is used)."""
     from gphocs_tpu_torch import rng as R
 
     u, rng_state = R.general_draw_u(rng_state, lnacc.dtype)

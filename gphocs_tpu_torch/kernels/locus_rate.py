@@ -20,6 +20,10 @@ reference-coupled sweep of the legacy RNG is not ported.
 Three draws come from the per-locus streams, in this order and for every
 lane whatever the masks: rndu (the matching), rnd2normal8 (the proposal),
 rndu (the accept).  The counter advances by 5.
+
+C chains (chain-major loci, a counter per chain): every chain matches its
+own loci and keeps its own simplex; the counts and variance deltas are
+[C].
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from gphocs_tpu_torch import rng_fast as RF
+from gphocs_tpu_torch.kernels.common import per_chain
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, SeqData
 from gphocs_tpu_torch.utils import reflect
@@ -36,21 +41,26 @@ def update_locus_rates_paired(gen: GenState, seq: SeqData, rng, finetune,
                               lnld: torch.Tensor, var_alpha, cond):
     """Returns (gen, rng, lnld, cond, accepted, rate_var_delta); accepted
     counts loci (both members of an accepted pair)."""
-    L = gen.num_loci
+    C = None if rng.ctr.dim() == 0 else rng.ctr.shape[0]
+    L = gen.num_loci // (C or 1)                      # loci of one chain
     dt = lnld.dtype
     dev = lnld.device
 
-    # random perfect matching: rank the loci by a uniform each; rank 2m
-    # pairs with rank 2m+1 (odd L: the last-ranked locus sits out).  The
-    # sort is stable, as jnp.argsort is: equal uniforms keep locus order.
+    # random perfect matching of each chain's loci: rank them by a uniform
+    # each; rank 2m pairs with rank 2m+1 (odd L: the last-ranked locus sits
+    # out).  The sort is stable, as jnp.argsort is: equal uniforms keep
+    # locus order.  Ranks and ids are a chain's own, [C or 1, L].
     u_perm, rng = RF.rndu(rng, dt)
-    order = torch.argsort(u_perm, stable=True)        # [L] locus ids by rank
-    rank = torch.argsort(order, stable=True)          # rank of each locus
-    is_lo = rank % 2 == 0                             # proposer of the pair
-    mate_rank = torch.where(is_lo, rank + 1, rank - 1)
-    mate = order[mate_rank.clamp(0, L - 1)]           # partner locus id
+    order = torch.argsort(u_perm.view(-1, L), dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)   # rank of each locus
+    is_lo = (rank % 2 == 0).view(-1)                  # proposer of the pair
+    mate_rank = torch.where(rank % 2 == 0, rank + 1, rank - 1)
+    mate = torch.gather(order, 1, mate_rank.clamp(0, L - 1))
+    first = torch.arange(0, gen.num_loci, L, device=dev)[:, None]
     paired = ((mate_rank < L) & (mate != torch.arange(L, device=dev))
-              & gen.valid & gen.valid[mate])
+              ).view(-1)
+    mate = (mate + first).view(-1)                    # partner's locus id
+    paired = paired & gen.valid & gen.valid[mate]
 
     r = gen.mut_rate.to(dt)
     r_mate = r[mate]
@@ -83,6 +93,7 @@ def update_locus_rates_paired(gen: GenState, seq: SeqData, rng, finetune,
     gen = gen._replace(mut_rate=torch.where(accept, rnew, gen.mut_rate))
     lnld = torch.where(accept, lnld_prop, lnld)
     cond = torch.where(accept[:, None, None, None], cond_prop, cond)
-    dvar = torch.where(accept, rnew ** 2 - r ** 2,
-                       torch.zeros_like(r)).sum() / L
-    return gen, rng, lnld, cond, accept.sum(dtype=torch.int64), dvar
+    dvar = per_chain(torch.where(accept, rnew ** 2 - r ** 2,
+                                 torch.zeros_like(r)), C) / L
+    # (a sum of bools is int64)
+    return gen, rng, lnld, cond, per_chain(accept, C), dvar

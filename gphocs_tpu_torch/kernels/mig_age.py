@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 
 from gphocs_tpu_torch import rng_fast as RF
-from gphocs_tpu_torch.kernels.common import Context, band_windows, mh_accept
+from gphocs_tpu_torch.kernels.common import (Context, band_windows,
+                                             chain_count, mh_accept,
+                                             per_chain, take)
 from gphocs_tpu_torch.ops.coalstats import mig_age_move_delta
 from gphocs_tpu_torch.state import GenState, Params
 from gphocs_tpu_torch.utils import reflect
@@ -21,12 +23,15 @@ from gphocs_tpu_torch.utils import reflect
 
 def update_mig_ages(gen: GenState, params: Params, rng: RF.FastRngState,
                     ctx: Context, finetune, lnp: torch.Tensor):
-    """Returns (gen, rng, lnp, accepted_count)."""
+    """Returns (gen, rng, lnp, accepted_count); for C chains (chain-major
+    loci, [C, P] parameters, a counter per chain) the count is [C]."""
     L = gen.num_loci
     M = gen.max_migs
     dt = gen.age.dtype
     dev = gen.age.device
-    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    C = chain_count(params)
+    acc = torch.zeros(params.theta.shape[:-1], dtype=torch.int64,
+                      device=dev)
     if ctx.num_bands == 0:
         return gen, rng, lnp, acc
     ar = torch.arange(L, device=dev)
@@ -40,8 +45,8 @@ def update_mig_ages(gen: GenState, params: Params, rng: RF.FastRngState,
         t = gen.mig_age[:, m]
         branch = torch.where(active, gen.mig_branch[:, m], 0)
 
-        tb0 = bs[band]
-        tb1 = be[band]
+        tb0 = take(bs, band)
+        tb1 = take(be, band)
         others = (gen.mig_branch >= 0) & (gen.mig_branch == branch[:, None])
         others = others & (slots[None, :] != m)
         below = others & (gen.mig_age < t[:, None])
@@ -69,5 +74,5 @@ def update_mig_ages(gen: GenState, params: Params, rng: RF.FastRngState,
         mig_age[:, m] = torch.where(accept, tnew, t)
         gen = gen._replace(mig_age=mig_age)
         lnp = torch.where(accept, lnp + dlnp, lnp)
-        acc = acc + (accept | (active & tiny)).sum()
+        acc = acc + per_chain(accept | (active & tiny), C)
     return gen, rng, lnp, acc

@@ -21,8 +21,9 @@ import torch
 
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
-                                             first_mig_above, last_mig_below,
-                                             mh_accept)
+                                             chain_count, first_mig_above,
+                                             last_mig_below, mh_accept,
+                                             per_chain, take)
 from gphocs_tpu_torch.ops.coalstats import node_age_move_delta
 from gphocs_tpu_torch.ops.likelihood_cache import refresh_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
@@ -32,9 +33,12 @@ from gphocs_tpu_torch.utils import reflect
 def update_internal_node_ages(gen: GenState, params: Params, seq: SeqData,
                               rng: RF.FastRngState, ctx: Context, finetune,
                               lnld: torch.Tensor, lnp: torch.Tensor,
-                              cond: torch.Tensor):
+                              cond: torch.Tensor, record=None):
     """One full sweep over all internal nodes.  Returns
-    (gen, rng, lnld, lnp, cond, accepted_count)."""
+    (gen, rng, lnld, lnp, cond, accepted_count); for C chains (chain-major
+    loci, [C, P] parameters, a counter per chain) the count is [C].  A
+    list given as `record` receives one dict per node step with the step's
+    state, proposal and decision (tools/node_age_probe.py)."""
     L = gen.num_loci
     S = gen.num_samples
     N = gen.num_nodes
@@ -44,15 +48,17 @@ def update_internal_node_ages(gen: GenState, params: Params, seq: SeqData,
     loci_mask = gen.valid
     bstart, bend = band_windows(ctx, params.tau)
     inf = torch.full((L,), float("inf"), dtype=dt, device=dev)
-    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    acc = torch.zeros(params.theta.shape[:-1], dtype=torch.int64,
+                      device=dev)
+    C = chain_count(params)
 
     for inode in range(S, N):
         t = gen.age[:, inode]
         pop = gen.node_pop[:, inode]
-        tb0 = params.tau[pop]
+        tb0 = take(params.tau, pop)
         tb1 = torch.where(pop == ctx.root_pop,
                           torch.full_like(t, ctx.oldage),
-                          params.tau[ctx.father_pop[pop]])
+                          take(params.tau, ctx.father_pop[pop]))
         node_vec = torch.full((L,), inode, dtype=torch.int64, device=dev)
         fm = first_mig_above(gen, node_vec, -inf)
         is_root = gen.root == inode
@@ -83,11 +89,16 @@ def update_internal_node_ages(gen: GenState, params: Params, seq: SeqData,
 
         u, rng = RF.rndu(rng, dt)
         accept = mh_accept(u, lnacc, loci_mask & ~tiny)
+        if record is not None:
+            record.append(dict(gen=gen, node=inode, tnew=tnew, dlnp=dlnp,
+                               lnld=lnld, lnld_prop=lnld_prop,
+                               cond_prop=cond_prop, u=u, lnacc=lnacc,
+                               accept=accept))
         age = gen.age.clone()
         age[:, inode] = torch.where(accept, tnew, t)
         gen = gen._replace(age=age)
         cond = torch.where(accept[:, None, None, None], cond_prop, cond)
         lnld = torch.where(accept, lnld_prop, lnld)
         lnp = torch.where(accept, lnp_prop, lnp)
-        acc = acc + ((accept | tiny) & loci_mask).sum()
+        acc = acc + per_chain((accept | tiny) & loci_mask, C)
     return gen, rng, lnld, lnp, cond, acc

@@ -10,7 +10,10 @@ comes in closed form from the total sufficient statistics:
            proposals below 1e-5 are skipped outright (reference :3159)
 
 All P (or B) proposals are evaluated in one vector step; the statistics
-do not change under these moves, so the sweep is exactly parallel.
+do not change under these moves, so the sweep is exactly parallel.  For C
+chains ([C, P] parameters, [C] general streams) the totals are each
+chain's and every chain draws, decides and counts on its own: the [C, P]
+(or [C, B]) proposals are one vector step too.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.constants import MIN_MIG_RATE
-from gphocs_tpu_torch.kernels.common import Context
+from gphocs_tpu_torch.kernels.common import (Context, chain_count,
+                                             per_chain, rows)
 from gphocs_tpu_torch.ops.coalstats import CoalStats
 from gphocs_tpu_torch.state import GenState, Params
 
@@ -30,12 +34,15 @@ def _accept(u, lnacc):
 
 def update_thetas(gen: GenState, params: Params, rng, ctx: Context,
                   finetune, lnp: torch.Tensor, stats: CoalStats):
-    """Returns (params, rng, lnp, accepted_count)."""
+    """Returns (params, rng, lnp, accepted_count) ([C] counts for C
+    chains)."""
     dt = lnp.dtype
     P = ctx.num_pops
+    L = lnp.shape[0]
+    C = chain_count(params)
     ncoal = stats.num_coals.to(dt)
-    ncoal_tot = ncoal.sum(dim=0)                                # [P]
-    coal_tot = stats.coal_stats.sum(dim=0)
+    ncoal_tot = per_chain(ncoal, C)                             # [(C,) P]
+    coal_tot = per_chain(stats.coal_stats, C)
     z, rng = RF.batch_2normal8(rng, P, dt)
     lnc = finetune * z
     theta_old = params.theta
@@ -47,23 +54,26 @@ def update_thetas(gen: GenState, params: Params, rng, ctx: Context,
     u, rng = RF.batch_u(rng, P, dt)
     accept = _accept(u, lnacc)
     params = params._replace(theta=torch.where(accept, theta_new, theta_old))
-    dlnp = -(lnc[None, :] * ncoal + dinv[None, :] * stats.coal_stats)
-    lnp = lnp + torch.where(accept[None, :], dlnp,
+    dlnp = -(rows(lnc, L) * ncoal + rows(dinv, L) * stats.coal_stats)
+    lnp = lnp + torch.where(rows(accept, L), dlnp,
                             torch.zeros_like(dlnp)).sum(dim=1)
-    return params, rng, lnp, accept.sum()
+    return params, rng, lnp, accept.sum(dim=-1)
 
 
 def update_mig_rates(gen: GenState, params: Params, rng, ctx: Context,
                      finetune, lnp: torch.Tensor, stats: CoalStats):
-    """Returns (params, rng, lnp, accepted_count)."""
+    """Returns (params, rng, lnp, accepted_count) ([C] counts for C
+    chains)."""
     B = ctx.num_bands
     if B == 0:
-        return params, rng, lnp, torch.zeros((), dtype=torch.int64,
-                                             device=lnp.device)
+        return params, rng, lnp, torch.zeros(
+            params.theta.shape[:-1], dtype=torch.int64, device=lnp.device)
     dt = lnp.dtype
+    L = lnp.shape[0]
+    C = chain_count(params)
     nmig = stats.num_migs.to(dt)
-    nmig_tot = nmig.sum(dim=0)                                  # [B]
-    mig_tot = stats.mig_stats.sum(dim=0)
+    nmig_tot = per_chain(nmig, C)                               # [(C,) B]
+    mig_tot = per_chain(stats.mig_stats, C)
     z, rng = RF.batch_2normal8(rng, B, dt)
     lnc = finetune * z
     old = params.mig_rate
@@ -75,7 +85,7 @@ def update_mig_rates(gen: GenState, params: Params, rng, ctx: Context,
     u, rng = RF.batch_u(rng, B, dt)
     accept = ~skip & _accept(u, lnacc)
     params = params._replace(mig_rate=torch.where(accept, new, old))
-    dlnp = lnc[None, :] * nmig - (new - old)[None, :] * stats.mig_stats
-    lnp = lnp + torch.where(accept[None, :], dlnp,
+    dlnp = rows(lnc, L) * nmig - rows(new - old, L) * stats.mig_stats
+    lnp = lnp + torch.where(rows(accept, L), dlnp,
                             torch.zeros_like(dlnp)).sum(dim=1)
-    return params, rng, lnp, accept.sum()
+    return params, rng, lnp, accept.sum(dim=-1)

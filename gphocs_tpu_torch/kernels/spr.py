@@ -21,7 +21,10 @@ consecutive groups of `sync_group` lanes.  Walk trips of a group run while
 any lane of the group is still walking, at most M+3 trips; each trip
 consumes 2 draws for every lane of the group, and the MH uniform 1 more.
 Each group keeps its own draw offset, and the shared counter advances by
-the largest offset over groups.  sync_group = L is gphocs_tpu's XLA
+the largest offset over groups.  For C chains (chain-major loci, [C, P]
+parameters, a counter per chain) the groups lie within a chain, cut from
+its loci, and each chain's counter advances by the largest offset over its
+own groups.  sync_group = L is gphocs_tpu's XLA
 update_spr draw for draw; sync_group = g is spr_sweep_pallas(tile=g);
 sync_group = 1, every locus walking on its own, is the CUDA kernel
 (csrc/spr.cu, a warp per locus).  Padding loci (gen.valid False) do not
@@ -35,7 +38,9 @@ from typing import NamedTuple
 import torch
 
 from gphocs_tpu_torch import rng_fast as RF
-from gphocs_tpu_torch.kernels.common import Context, band_windows, mh_accept
+from gphocs_tpu_torch.kernels.common import (Context, band_windows,
+                                             chain_count, mh_accept,
+                                             per_chain, rows, take)
 from gphocs_tpu_torch.ops.likelihood_cache import refresh_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 
@@ -97,7 +102,11 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
     bs, be = band_windows(ctx, params.tau)
     pe = torch.where(ctx.father_pop < 0, torch.full_like(params.tau,
                                                          ctx.oldage),
-                     params.tau[ctx.father_pop.clamp(min=0)])
+                     params.tau[..., ctx.father_pop.clamp(min=0)])
+    # each locus's chain's tables, [1 | L, ...]
+    tau_l, theta_l, rate_l = (rows(params.tau, L), rows(params.theta, L),
+                              rows(params.mig_rate, L))
+    bs_l, be_l, pe_l = rows(bs, L), rows(be, L), rows(pe, L)
     act = gen.mig_branch >= 0
     on_pruned = act & (gen.mig_branch == node)
     base_migs = act.sum(dim=1) - on_pruned.sum(dim=1)
@@ -108,9 +117,9 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
     # bottoms, band window edges and the OLDAGE ceiling
     cand = [torch.full((L, 1), ctx.oldage, dtype=dt, device=dev), gen.age,
             torch.where(act, gen.mig_age, torch.zeros_like(gen.mig_age)),
-            params.tau[None, :].expand(L, P)]
+            tau_l.expand(L, P)]
     if Bn > 0:
-        cand += [bs[None, :].expand(L, Bn), be[None, :].expand(L, Bn)]
+        cand += [bs_l.expand(L, Bn), be_l.expand(L, Bn)]
     b_sorted = torch.sort(torch.cat(cand, dim=1), dim=1).values    # [L, K]
     K = b_sorted.shape[1]
     lo_base = torch.cat([torch.zeros((L, 1), dtype=dt, device=dev),
@@ -155,19 +164,19 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
         ).to(dt)
     # n_all[l,k,p] = sum_q anc[p,q] n_by_base[l,k,q] (exact small counts)
     n_all = (n_by_base[:, :, None, :] * anc_f[None, None]).sum(dim=3)
-    inwin0 = ((params.tau[None, None, :] <= mids[:, :, None])
-              & (mids[:, :, None] < pe[None, None, :]))            # [L,K,P]
+    inwin0 = ((tau_l[:, None, :] <= mids[:, :, None])
+              & (mids[:, :, None] < pe_l[:, None, :]))             # [L,K,P]
     if Bn > 0:
-        live0 = ((bs[None, None, :] <= mids[:, :, None])
-                 & (be[None, None, :] > mids[:, :, None]))         # [L,K,B]
+        live0 = ((bs_l[:, None, :] <= mids[:, :, None])
+                 & (be_l[:, None, :] > mids[:, :, None]))          # [L,K,B]
         tgt_onehot = (ctx.band_target[None, :] == pid[:, None]).to(dt)
-        rates_live = torch.where(live0, params.mig_rate[None, None, :],
+        rates_live = torch.where(live0, rate_l[:, None, :],
                                  torch.zeros_like(live0, dtype=dt))
         migr_all = (rates_live[:, :, None, :]
                     * tgt_onehot[None, None]).sum(dim=3)           # [L,K,P]
     else:
         migr_all = torch.zeros_like(n_all)
-    inv_theta = 1.0 / params.theta
+    inv_theta = (1.0 / theta_l)[:, None, :]
 
     # walk state
     pop_c = start_pop.clone()
@@ -178,15 +187,19 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
     new_age = torch.zeros((L, M), dtype=dt, device=dev)
     target = torch.zeros((L,), dtype=torch.int64, device=dev)
     coal_age = torch.zeros((L,), dtype=dt, device=dev)
-    G = max(1, min(sync_group, L))
-    ngroups = -(-L // G)
-    grp_of = ar // G
+    # trip groups of G consecutive loci, cut from each chain's Lc loci
+    Cn = chain_count(params) or 1
+    Lc = L // Cn
+    G = max(1, min(sync_group, Lc))
+    gpc = -(-Lc // G)                                   # groups per chain
+    ngroups = Cn * gpc
+    grp_of = (ar // Lc) * gpc + (ar % Lc) // G
     trips = torch.zeros((ngroups,), dtype=torch.int64, device=dev)
 
     while True:
         alive_all = status == 0
-        padded = torch.zeros((ngroups * G,), dtype=torch.bool, device=dev)
-        padded[:L] = alive_all
+        padded = torch.zeros((Cn, gpc * G), dtype=torch.bool, device=dev)
+        padded[:, :Lc] = alive_all.view(Cn, Lc)
         g_alive = padded.view(ngroups, G).any(dim=1)
         run_g = g_alive & (trips < M + 3)
         if not bool(run_g.any()):
@@ -233,7 +246,7 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
         t_event = torch.minimum(torch.maximum(t_event, lo_k), hi_k)
         hit_k = hit[ar, k]                                         # [L, P]
         pop_k = torch.argmax(hit_k.to(torch.int8), dim=1)
-        theta_k = torch.where(hit_k.any(dim=1), params.theta[pop_k],
+        theta_k = torch.where(hit_k.any(dim=1), take(params.theta, pop_k),
                               torch.zeros_like(t_event))
         migr_k = torch.gather(mig_rate, 1, kk)[:, 0]
         n_k = torch.gather(n, 1, kk)[:, 0]
@@ -245,11 +258,10 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
         over_cap = is_mig & (base_migs + n_new + 1 > M)
         if Bn > 0:
             live_k = ((ctx.band_target[None, :] == pop_k[:, None])
-                      & (bs[None, :] <= t_event[:, None])
-                      & (be[None, :] > t_event[:, None]))          # [L, B]
+                      & (bs_l <= t_event[:, None])
+                      & (be_l > t_event[:, None]))                 # [L, B]
             cumb = torch.cumsum(torch.where(
-                live_k, params.mig_rate[None, :],
-                torch.zeros_like(live_k, dtype=dt)), dim=1)
+                live_k, rate_l, torch.zeros_like(live_k, dtype=dt)), dim=1)
             chosen = torch.argmax(((cumb > esample[:, None]) & live_k
                                    ).to(torch.int8), dim=1)
             src_pop = ctx.band_source[chosen]
@@ -375,7 +387,8 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
     """One full SPR sweep over all nodes.  Returns
     (gen, rng, lnld, cond, accepted_count); the genealogy log-prior must
     be recomputed by the caller.  sync_group = 0 means L (global trip
-    synchronization)."""
+    synchronization; a chain's loci for C chains, whose counts are
+    [C])."""
     if ctx.num_admixed > 0:
         raise NotImplementedError(
             "SPR with admixture: ROADMAP Queue 1 item 10b")
@@ -386,7 +399,9 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
     nid = torch.arange(N, device=dev)[None, :]
     G = sync_group or L
     doff = torch.zeros((L,), dtype=torch.int64, device=dev)
-    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    C = chain_count(params)
+    acc = torch.zeros(params.theta.shape[:-1], dtype=torch.int64,
+                      device=dev)
 
     for inode in range(N):
         active0 = (gen.root != inode) & gen.valid
@@ -412,6 +427,6 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
                          for n_, o in zip(gen_prop, gen)))
         cond = torch.where(accept[:, None, None, None], cond_prop, cond)
         lnld = torch.where(accept, lnld_prop, lnld)
-        acc = acc + accept.sum()
-    rng = RF.bump(rng, doff.max())
+        acc = acc + per_chain(accept, C)
+    rng = RF.bump(rng, per_chain(doff, C, "amax"))
     return gen, rng, lnld, cond, acc

@@ -32,6 +32,11 @@ by f1 (never the root form); the pop's leaves move to the new sample age;
 migration events touching `pop` scale by the side of the old age they are
 on, and all of them are conflict-checked.  tau, and with it the band
 windows, do not move.
+
+C chains ([C, P] parameters, chain-major loci, [C] general streams): every
+chain draws and decides its own proposal for the population; the bounds,
+old and new values, Jacobian counts, conflict flags and decisions are [C],
+and a locus reads its chain's.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ import torch
 
 from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
-                                             gen_log_prior, scalar_mh_accept)
+                                             chain_count, gen_log_prior,
+                                             per_chain, rows,
+                                             scalar_mh_accept, take)
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 from gphocs_tpu_torch.utils import reflect
@@ -74,11 +81,18 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
 
     Returns (gen_prop, params_prop, cond_prop, lnld_prop, lnp_prop,
     ntj0 [L], ntj1 [L], conflict [L]) with the per-locus counts not yet
-    reduced."""
+    reduced.  The four bounds are 0-d, or [C] for C chains."""
     S = gen.num_samples
     N = gen.num_nodes
+    L = gen.num_loci
     dev = gen.age.device
     is_root = pop == ctx.root_pop and not is_sample_age
+    new_val = taunew
+    # each locus's chain's values, [1 | L, 1] against its [L, N] rows
+    dt = gen.age.dtype
+    taub0, taub1, tauold, taunew = (
+        rows(torch.as_tensor(x, dtype=dt, device=dev), L, 0)[:, None]
+        for x in (taub0, taub1, tauold, taunew))
 
     f0 = (taunew - taub0) / (tauold - taub0)
     f1 = f0 if is_root else (taunew - taub1) / (tauold - taub1)
@@ -95,9 +109,8 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
         # the pop's leaves sit at the sample age and move with it
         new_age = torch.where(in_pop & ~internal, taunew, new_age)
         new_tau = params.tau
-        sa = params.sample_age.clone()
-        sa[pop] = taunew
-        params_prop = params._replace(sample_age=sa)
+        params_prop = params._replace(
+            sample_age=_with(params.sample_age, pop, new_val))
     else:
         s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
         in_anc = gen.node_pop == pop
@@ -113,8 +126,7 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
         moved0 = in_sons & (age > taub0) & (age < tauold) & internal
         new_age = torch.where(moved1, anc_map, age)
         new_age = torch.where(moved0, taub0 + f0 * (age - taub0), new_age)
-        new_tau = params.tau.clone()
-        new_tau[pop] = taunew
+        new_tau = _with(params.tau, pop, new_val)
         params_prop = params._replace(tau=new_tau)
     ntj0 = moved0.sum(dim=1)
     ntj1 = moved1.sum(dim=1)
@@ -169,8 +181,8 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
         fa_age = torch.gather(gen.age, 1, fa.clamp(min=0))
         child_age = torch.gather(gen.age, 1, branch)
 
-        conf = checked & ((new_mage >= be_new[band])
-                          | (new_mage <= bs_new[band]))
+        conf = checked & ((new_mage >= take(be_new, band))
+                          | (new_mage <= take(bs_new, band)))
         moving_up = checked & ~kind_out & (new_mage > mage)
         up_src = ctx.band_source[torch.gather(band, 1, up_slot)]
         conf = conf | (moving_up & torch.isfinite(up_age) & ~exempt(up_src)
@@ -196,19 +208,21 @@ def rubber_band_eval_plain(gen: GenState, params: Params, seq: SeqData,
     """Plain version of the rubber-band kernel: one population's proposal
     evaluated for every locus.  Returns (age_prop [L,N], mag_prop [L,M],
     cond_prop, lnld_prop [L], lnp_prop [L], ntj0 [], ntj1 [], any_conflict
-    []), with ntj and conflicts masked by gen.valid.  `cond` supplies the
-    leaf conditionals in the kernel; here they are rebuilt from seq."""
+    []), with ntj and conflicts masked by gen.valid; for C chains the
+    bounds, counts and flags are [C], each chain's own.  `cond` supplies
+    the leaf conditionals in the kernel; here they are rebuilt from seq."""
     (gen_p, _params_p, cond_p, lnld_p, lnp_p, ntj0, ntj1,
      conflict) = _rubber_band_proposal(gen, params, seq, ctx, pop,
                                        is_sample_age, taub0, taub1, tauold,
                                        taunew)
     dt = gen.age.dtype
     v = gen.valid
+    C = chain_count(params)
     lnp_p = torch.where(v, lnp_p, torch.zeros_like(lnp_p))
-    ntj0 = torch.where(v, ntj0, 0).sum().to(dt)
-    ntj1 = torch.where(v, ntj1, 0).sum().to(dt)
+    ntj0 = per_chain(torch.where(v, ntj0, 0), C).to(dt)
+    ntj1 = per_chain(torch.where(v, ntj1, 0), C).to(dt)
     return (gen_p.age, gen_p.mig_age, cond_p, lnld_p, lnp_p, ntj0, ntj1,
-            (conflict & v).any())
+            per_chain(conflict & v, C, "any"))
 
 
 def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
@@ -221,22 +235,25 @@ def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
     bucket's proposal; the likelihood and prior deltas, the Jacobian counts
     and the conflict flags add up over the buckets before the one decision
     (the reference's single global accept over all loci).  Returns (gens,
-    params, rng, lnlds, lnps, conds, accepted[P], conflicts) with lists."""
+    params, rng, lnlds, lnps, conds, accepted[P], conflicts) with lists
+    ([C, P] and [C] for C chains, each chain proposing and deciding on
+    its own)."""
     gens, lnlds, lnps, conds = list(gens), list(lnlds), list(lnps), list(conds)
     dt = lnlds[0].dtype
     dev = lnlds[0].device
-    accepted = torch.zeros((params.tau.shape[0],), dtype=torch.int64,
-                           device=dev)
-    conflicts = torch.zeros((), dtype=torch.int64, device=dev)
+    C = chain_count(params)
+    accepted = torch.zeros(params.tau.shape, dtype=torch.int64, device=dev)
+    conflicts = torch.zeros(params.tau.shape[:-1], dtype=torch.int64,
+                            device=dev)
     for pop in pops:
         if is_sample_age:
             is_root = False
-            tauold = params.sample_age[pop]
-            taub0 = torch.zeros((), dtype=dt, device=dev)
-            taub1 = params.tau[ctx.father_pop[pop]]
+            tauold = params.sample_age[..., pop]
+            taub0 = torch.zeros_like(tauold)
+            taub1 = params.tau[..., ctx.father_pop[pop]]
         else:
             is_root = pop == ctx.num_pops - 1
-            tauold = params.tau[pop]
+            tauold = params.tau[..., pop]
             taub0, taub1 = _tau_window(params, ctx, pop, is_root, dt, dev)
         z, rng = R.general_draw_2normal8(rng, dt)
         taunew = reflect(tauold + finetunes_taus[pop] * z, taub0, taub1)
@@ -246,9 +263,9 @@ def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
         lnf0 = torch.log((taunew - taub0) / (tauold - taub0))
         lnf1 = lnf0 if is_root else torch.log((taunew - taub1)
                                               / (tauold - taub1))
-        dsum = torch.zeros((), dtype=dt, device=dev)
+        dsum = torch.zeros_like(tauold)
         for p, ld, lp in zip(props, lnlds, lnps):
-            dsum = dsum + torch.sum(p[3] - ld) + torch.sum(p[4] - lp)
+            dsum = dsum + per_chain(p[3] - ld, C) + per_chain(p[4] - lp, C)
         ntj0 = sum(p[5] for p in props)
         ntj1 = sum(p[6] for p in props)
         conflict = props[0][7]
@@ -259,17 +276,18 @@ def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
                  + dsum + ntj0 * lnf0 + ntj1 * lnf1)
         accept, rng = scalar_mh_accept(rng, lnacc, conflict)
         for k, (age_p, mag_p, cond_p, lnld_p, lnp_p, *_) in enumerate(props):
+            acc = rows(accept, gens[k].num_loci, 0)  # each locus's chain's
             gens[k] = gens[k]._replace(
-                age=torch.where(accept, age_p, gens[k].age),
-                mig_age=torch.where(accept, mag_p, gens[k].mig_age))
-            lnlds[k] = torch.where(accept, lnld_p, lnlds[k])
-            lnps[k] = torch.where(accept, lnp_p, lnps[k])
-            conds[k] = torch.where(accept, cond_p, conds[k])
+                age=torch.where(acc[:, None], age_p, gens[k].age),
+                mig_age=torch.where(acc[:, None], mag_p, gens[k].mig_age))
+            lnlds[k] = torch.where(acc, lnld_p, lnlds[k])
+            lnps[k] = torch.where(acc, lnp_p, lnps[k])
+            conds[k] = torch.where(acc[:, None, None, None], cond_p, conds[k])
         field = "sample_age" if is_sample_age else "tau"
         old = getattr(params, field)
         params = params._replace(**{field: torch.where(
-            accept, _with(old, pop, taunew), old)})
-        accepted[pop] += accept.to(torch.int64)
+            accept[..., None], _with(old, pop, taunew), old)})
+        accepted[..., pop] += accept.to(torch.int64)
         conflicts = conflicts + conflict.to(torch.int64)
     return gens, params, rng, lnlds, lnps, conds, accepted, conflicts
 
@@ -279,13 +297,13 @@ def _tau_window(params: Params, ctx: Context, pop: int, is_root: bool, dt,
     """(taub0, taub1): the bounds of an ancestral pop's tau, from its sons'
     ages and sample ages, its father's age (OLDAGE for the root) and the
     current windows of the bands touching it or its sons (reference
-    :3279-3294)."""
+    :3279-3294); [C] each for C chains."""
     s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
-    taub0 = torch.maximum(
-        torch.maximum(params.tau[s0], params.tau[s1]),
-        torch.maximum(params.sample_age[s0], params.sample_age[s1]))
-    taub1 = (torch.full((), ctx.oldage, dtype=dt, device=dev) if is_root
-             else params.tau[ctx.father_pop[pop]])
+    tau, sa = params.tau, params.sample_age
+    taub0 = torch.maximum(torch.maximum(tau[..., s0], tau[..., s1]),
+                          torch.maximum(sa[..., s0], sa[..., s1]))
+    taub1 = (torch.full(tau.shape[:-1], ctx.oldage, dtype=dt, device=dev)
+             if is_root else tau[..., ctx.father_pop[pop]])
     if ctx.num_bands > 0:
         bs, be = band_windows(ctx, params.tau)
         src, tgt = ctx.band_source, ctx.band_target
@@ -294,15 +312,16 @@ def _tau_window(params: Params, ctx: Context, pop: int, is_root: bool, dt,
                                    | (tgt == s0) | (tgt == s1)))
         inf = float("inf")
         taub1 = torch.minimum(taub1, torch.where(
-            touch_anc, be, torch.full_like(be, inf)).min())
+            touch_anc, be, torch.full_like(be, inf)).amin(dim=-1))
         taub0 = torch.maximum(taub0, torch.where(
-            touch_son, bs, torch.full_like(bs, -inf)).max())
+            touch_son, bs, torch.full_like(bs, -inf)).amax(dim=-1))
     return taub0, taub1
 
 
 def _with(t: torch.Tensor, pop: int, value) -> torch.Tensor:
+    """t with its entry pop (each chain's, for [C, P]) set to value."""
     out = t.clone()
-    out[pop] = value
+    out[..., pop] = value
     return out
 
 

@@ -19,7 +19,9 @@ from typing import NamedTuple
 import torch
 
 from gphocs_tpu_torch.constants import OLDAGE
+from gphocs_tpu_torch.kernels.common import rows, take
 from gphocs_tpu_torch.state import GenState, Params
+from gphocs_tpu_torch.utils import ordered_sum
 
 INF = float("inf")
 
@@ -100,7 +102,7 @@ def segments(gen: GenState, band_source: torch.Tensor,
 
 def _pop_end(father_pop, tau, oldage):
     return torch.where(father_pop < 0, torch.full_like(tau, oldage),
-                       tau[father_pop.clamp(min=0)])
+                       tau[..., father_pop.clamp(min=0)])
 
 
 def sufficient_stats(gen: GenState, params: Params,
@@ -109,19 +111,23 @@ def sufficient_stats(gen: GenState, params: Params,
                      band_start: torch.Tensor, band_end: torch.Tensor,
                      oldage: float = OLDAGE) -> CoalStats:
     """Full recomputation of all sufficient statistics (pairwise-overlap
-    form, with the tight root-edge cap of gphocs_tpu)."""
-    P = params.theta.shape[0]
+    form, with the tight root-edge cap of gphocs_tpu).  The parameters and
+    band windows are one chain's ([P], [B]) or C chains' ([C, P], [C, B],
+    the loci chain-major); the root cap is each chain's own."""
+    L = gen.num_loci
+    P = params.theta.shape[-1]
     S = gen.num_samples
     cap = gen.age.max(dim=1).values
-    if params.tau.shape[0]:
-        cap = torch.maximum(cap, params.tau.max())
-    if band_end.shape[0] > 0:
-        cap = torch.maximum(cap, band_end.max())
+    if params.tau.shape[-1]:
+        cap = torch.maximum(cap, rows(params.tau.amax(dim=-1), L, 0))
+    if band_end.shape[-1] > 0:
+        cap = torch.maximum(cap, rows(band_end.amax(dim=-1), L, 0))
     segs = segments(gen, band_source, oldage, root_cap=cap)
-    pend = _pop_end(father_pop, params.tau, oldage)
+    tau = rows(params.tau, L)
+    pend = rows(_pop_end(father_pop, params.tau, oldage), L)
 
-    lo = torch.maximum(segs.start[:, None, :], params.tau[None, :, None])
-    hi = torch.minimum(segs.end[:, None, :], pend[None, :, None])
+    lo = torch.maximum(segs.start[:, None, :], tau[:, :, None])
+    hi = torch.minimum(segs.end[:, None, :], pend[:, :, None])
     # anc[r, base[l, s]]: is r ancestral-or-equal to the segment's base pop
     anc_of_base = is_ancestral[:, segs.base_pop].permute(1, 0, 2)  # [L,P,NS]
     present = segs.valid[:, None, :] & anc_of_base & (hi > lo)
@@ -137,8 +143,10 @@ def sufficient_stats(gen: GenState, params: Params,
 
     B = band_source.shape[0]
     if B > 0:
-        lo_t = torch.maximum(lo[:, band_target, :], band_start[None, :, None])
-        hi_t = torch.minimum(hi[:, band_target, :], band_end[None, :, None])
+        lo_t = torch.maximum(lo[:, band_target, :],
+                             rows(band_start, L)[:, :, None])
+        hi_t = torch.minimum(hi[:, band_target, :],
+                             rows(band_end, L)[:, :, None])
         pres_t = present[:, band_target, :] & (hi_t > lo_t)
         mig = torch.where(pres_t, torch.clamp(hi_t - lo_t, min=0.0),
                           torch.zeros_like(lo_t)).sum(dim=2)
@@ -162,17 +170,18 @@ def sufficient_stats(gen: GenState, params: Params,
 
 
 def genealogy_log_prior(stats: CoalStats, params: Params) -> torch.Tensor:
-    """Per-locus log prior of the genealogy given parameters
-    (reference gtreeLnLikelihood, src/patch.c:2702-2738)."""
+    """Per-locus log prior of the genealogy given parameters (one chain's
+    or C chains') (reference gtreeLnLikelihood, src/patch.c:2702-2738)."""
+    L = stats.coal_stats.shape[0]
     th = params.theta
-    lnl = torch.sum(stats.num_coals * torch.log(2.0 / th)[None, :]
-                    - stats.coal_stats / th[None, :], dim=1)
-    if params.mig_rate.shape[0] > 0:
+    lnl = torch.sum(stats.num_coals * rows(torch.log(2.0 / th), L)
+                    - stats.coal_stats / rows(th, L), dim=1)
+    if params.mig_rate.shape[-1] > 0:
         m = params.mig_rate
         safe_m = torch.where(m > 0.0, m, torch.ones_like(m))
-        term = (stats.num_migs * torch.log(safe_m)[None, :]
-                - stats.mig_stats * m[None, :])
-        lnl = lnl + torch.where(m[None, :] > 0.0, term,
+        term = (stats.num_migs * rows(torch.log(safe_m), L)
+                - stats.mig_stats * rows(m, L))
+        lnl = lnl + torch.where(rows(m, L) > 0.0, term,
                                 torch.zeros_like(term)).sum(dim=1)
     return lnl
 
@@ -217,7 +226,7 @@ def mig_age_move_delta(gen: GenState, params: Params, ctx, slot: int,
     W the branch's base pop switches between the band's target p (below
     the event) and source s (above), so one lineage moves between anc(p)
     and anc(s) during W (see gphocs_tpu/ops/coalstats.py)."""
-    P = params.theta.shape[0]
+    L = gen.num_loci
     active = gen.mig_branch[:, slot] >= 0
     band = torch.where(active, gen.mig_band[:, slot], 0)
     t = gen.mig_age[:, slot]
@@ -236,36 +245,37 @@ def mig_age_move_delta(gen: GenState, params: Params, ctx, slot: int,
     remm = in_R & ~in_A
 
     segs = segments(gen, ctx.band_source, ctx.oldage)
-    pend = _pop_end(ctx.father_pop, params.tau, ctx.oldage)
+    tau = rows(params.tau, L)
+    pend = rows(_pop_end(ctx.father_pop, params.tau, ctx.oldage), L)
     lo = torch.maximum(torch.maximum(segs.start[:, None, :],
-                                     params.tau[None, :, None]),
+                                     tau[:, :, None]),
                        w0[:, None, None])
     hi = torch.minimum(torch.minimum(segs.end[:, None, :],
-                                     pend[None, :, None]),
+                                     pend[:, :, None]),
                        w1[:, None, None])
     anc_of_base = anc[:, segs.base_pop].permute(1, 0, 2)      # [L, P, NS]
     present = segs.valid[:, None, :] & anc_of_base
     integ = torch.where(present, torch.clamp(hi - lo, min=0.0),
                         torch.zeros_like(lo)).sum(dim=2)      # [L, P]
     wlen_r = torch.clamp(
-        torch.minimum(w1[:, None], pend[None, :])
-        - torch.maximum(w0[:, None], params.tau[None, :]), min=0.0)
+        torch.minimum(w1[:, None], pend)
+        - torch.maximum(w0[:, None], tau), min=0.0)
 
     zero = torch.zeros_like(integ)
     dcoal = torch.where(addm, 2.0 * integ,
                         torch.where(remm, -2.0 * (integ - wlen_r), zero))
-    dlnp = -torch.sum(dcoal / params.theta[None, :], dim=1)
+    dlnp = -torch.sum(dcoal / rows(params.theta, L), dim=1)
 
     if ctx.num_bands > 0:
         tb = ctx.band_target                                  # [B]
         ov = torch.clamp(
-            torch.minimum(w1[:, None], band_end[None, :])
-            - torch.maximum(w0[:, None], band_start[None, :]), min=0.0)
+            torch.minimum(w1[:, None], rows(band_end, L))
+            - torch.maximum(w0[:, None], rows(band_start, L)), min=0.0)
         add_b = addm[:, tb]
         rem_b = remm[:, tb]
         dmig = torch.where(add_b, ov, torch.where(rem_b, -ov,
                                                   torch.zeros_like(ov)))
-        dlnp = dlnp - torch.sum(dmig * params.mig_rate[None, :], dim=1)
+        dlnp = dlnp - torch.sum(dmig * rows(params.mig_rate, L), dim=1)
     return torch.where(active, dlnp, torch.zeros_like(dlnp))
 
 
@@ -294,17 +304,18 @@ def node_age_move_delta(gen: GenState, params: Params, ctx,
                                            segs.base_pop)
     lo = torch.maximum(segs.start, w0[:, None])
     hi = torch.minimum(segs.end, w1[:, None])
-    integral = torch.where(present, torch.clamp(hi - lo, min=0.0),
-                           torch.zeros_like(lo)).sum(dim=1)
+    # the segments in index order, as the node-age kernel adds them
+    integral = ordered_sum(torch.where(present, torch.clamp(hi - lo, min=0.0),
+                                       torch.zeros_like(lo)))
     wlen = w1 - w0
     dcoal = torch.where(raising, 2.0 * integral, -2.0 * (integral - wlen))
-    dlnp = -dcoal / params.theta[pop]
+    dlnp = -dcoal / take(params.theta, pop)
     if ctx.num_bands > 0:
         ov = torch.clamp(
-            torch.minimum(w1[:, None], band_end[None, :])
-            - torch.maximum(w0[:, None], band_start[None, :]), min=0.0)
+            torch.minimum(w1[:, None], rows(band_end, L))
+            - torch.maximum(w0[:, None], rows(band_start, L)), min=0.0)
         into_p = ctx.band_target[None, :] == pop[:, None]
         dmig = torch.where(into_p, torch.where(raising[:, None], ov, -ov),
                            torch.zeros_like(ov))
-        dlnp = dlnp - torch.sum(dmig * params.mig_rate[None, :], dim=1)
+        dlnp = dlnp - torch.sum(dmig * rows(params.mig_rate, L), dim=1)
     return dlnp

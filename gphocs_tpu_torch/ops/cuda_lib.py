@@ -49,6 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAXN, MAXPP, MAXB = 63, 16, 8
 SMEM_LIMIT = 232448
 ERR_SMEM = 9001
+# ... and for a chain layout that does not cover the loci (C * Lc != L)
+ERR_CHAINS = 9002
 
 # SweepArgs field order: must match struct SweepArgs in sweeps_common.cuh
 PTR_FIELDS = (
@@ -64,7 +66,8 @@ PTR_FIELDS = (
     "lnld_out", "lnp_out", "acc_out", "ctr_out", "stat", "prof",
 )
 INT_FIELDS = ("L", "N", "M", "B", "PP", "P", "root_pop", "pop", "is_root",
-              "block", "sample_age", "cond_smem", "smem_bytes", "advance")
+              "block", "sample_age", "cond_smem", "smem_bytes", "advance",
+              "C", "Lc")
 
 
 class SweepArgs(ctypes.Structure):
@@ -168,6 +171,9 @@ def launch(entry: str, args: SweepArgs, stream: int) -> None:
         raise RuntimeError(f"CUDA kernel {entry}: {args.smem_bytes} bytes of "
                            f"shared memory for blocks of {args.block} loci "
                            "is not what the kernel's layout needs")
+    if err == ERR_CHAINS:
+        raise RuntimeError(f"CUDA kernel {entry}: {args.C} chains of "
+                           f"{args.Lc} loci for {args.L} loci")
     if err != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")

@@ -17,6 +17,7 @@ from gphocs_tpu_torch.io.sequences import group_members
 from gphocs_tpu_torch.ops.pruning import (edge_p, jc_combine,
                                           leaf_conditionals, sum4)
 from gphocs_tpu_torch.state import GenState, SeqData
+from gphocs_tpu_torch.utils import ordered_sum
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -108,7 +109,8 @@ def lnld_from_cond(cond: torch.Tensor, gen: GenState, seq: SeqData
     """Per-locus data log-likelihood from root conditionals: averages over
     the 4 root bases and all phasings of each het-pattern group
     (reference src/LocusDataLikelihood.c:471-479), weighted by site counts,
-    minus the (S-1) log 4 of the x4 rescale."""
+    minus the (S-1) log 4 of the x4 rescale.  The groups add in index
+    order."""
     L, N, P, _ = cond.shape
     S = (N + 1) // 2
     ar = torch.arange(L, device=cond.device)
@@ -117,10 +119,10 @@ def lnld_from_cond(cond: torch.Tensor, gen: GenState, seq: SeqData
                            torch.zeros_like(root_sum))
     seg = _group_sums(root_sum, seq)
     safe = torch.where(seq.group_count > 0, seg, torch.ones_like(seg))
-    return torch.sum(
+    # the groups in index order, as the kernels add them (utils.ordered_sum)
+    return ordered_sum(
         seq.group_count * (torch.log(safe) - torch.log(4.0 * seq.group_nphases)
-                           - (S - 1) * math.log(4.0)),
-        dim=1)
+                           - (S - 1) * math.log(4.0)))
 
 
 def full_rebuild_and_lnld(gen: GenState, seq: SeqData):

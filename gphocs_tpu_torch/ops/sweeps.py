@@ -27,15 +27,26 @@ SPR walk trips (kernels/spr.py): on CUDA every locus walks on its own
 (the plain version at sync_group = 1), whatever the block size; on the
 CPU the trips synchronize over all L loci, so the CPU path reproduces
 gphocs_tpu's XLA update_spr.
+
+C chains (sampler/driver.py, `chains=C`): the state's loci are
+chain-major, [C * Lc, ...], its parameters [C, P] and [C, B], the
+per-locus streams' counter [C].  Every wrapper still launches its kernel
+once, over all C * Lc loci: a block's loci are one chain's (the grid's
+second axis is the chain), and the block's population tables are its
+chain's.  The rubber band's four proposal reals are [C], its counts
+[C, 3]; SPR's counts are [C, 2] and each chain's counter advances by its
+own largest draw offset; node age and migration age write each chain's
+counter.  The accept counts come back per chain, [C].
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from gphocs_tpu_torch.kernels.common import Context
+from gphocs_tpu_torch.kernels.common import Context, chain_count, per_chain
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
@@ -147,6 +158,12 @@ def _real_suffix(dt) -> str:
     raise TypeError(f"sweep kernels take float32 or float64, not {dt}")
 
 
+def _chains(params: Params) -> tuple:
+    """The leading shape of a per-chain value: () for one chain, (C,) for
+    C chains."""
+    return params.theta.shape[:-1]
+
+
 def _args(gen: GenState, params: Params, ctx: Context, seq,
           rng) -> cuda_lib.SweepArgs:
     """SweepArgs with the state inputs filled in and checked."""
@@ -156,6 +173,10 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
     B = ctx.num_bands
     dt = gen.age.dtype
     i64 = torch.int64
+    ch = _chains(params)
+    C = ch[0] if ch else 1
+    if L % C:
+        raise ValueError(f"{L} loci are not {C} chains of equal length")
     for name, v, cap in (("nodes", N, cuda_lib.MAXN),
                          ("populations", PP, cuda_lib.MAXPP),
                          ("bands", B, cuda_lib.MAXB)):
@@ -180,17 +201,18 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
         a.pattern_valid = _check(seq.pattern_valid, "pattern_valid",
                                  torch.bool, (L, P))
         a.P = P
-    a.theta = _check(params.theta, "theta", dt, (PP,))
-    a.tau = _check(params.tau, "tau", dt, (PP,))
-    a.mig_rate = _check(params.mig_rate, "mig_rate", dt, (B,))
+    a.theta = _check(params.theta, "theta", dt, ch + (PP,))
+    a.tau = _check(params.tau, "tau", dt, ch + (PP,))
+    a.mig_rate = _check(params.mig_rate, "mig_rate", dt, ch + (B,))
     if ctx.popi is None or ctx.popi.device != gen.age.device:
         raise ValueError("the Context carries no integer tables on the "
                          "state's device: build it with make_context")
     a.popi = _check(ctx.popi, "popi", i64, (PP + 2 * B + PP * PP,))
     if rng is not None:
         a.key = _check(rng.key, "key", i64, (L,))
-        a.ctr = _check(rng.ctr, "ctr", i64, ())
+        a.ctr = _check(rng.ctr, "ctr", i64, ch)
     a.L, a.N, a.M, a.B, a.PP = L, N, M, B, PP
+    a.C, a.Lc = C, L // C
     a.root_pop = ctx.root_pop
     a.oldage = ctx.oldage
     return a
@@ -206,12 +228,16 @@ def _plan_into(a: cuda_lib.SweepArgs, kernel: str, itemsize: int) -> SmemPlan:
     return plan
 
 
-def _scalar(x, dt, device, keep: list) -> int:
-    """Pointer to x as a 0-d tensor of dtype dt on `device`: x itself where
-    it already is one, else a copy."""
+def _scalar(x, dt, device, keep: list, shape=()) -> int:
+    """Pointer to x as a contiguous tensor of dtype dt on `device` and of
+    `shape` (0-d, or [C] for one value per chain): x itself where it
+    already is one, else a copy."""
     if not (isinstance(x, torch.Tensor) and x.dtype == dt
-            and x.device == device and x.numel() == 1):
-        x = torch.as_tensor(x, dtype=dt, device=device).reshape(())
+            and x.device == device and x.shape == shape
+            and x.is_contiguous()):
+        x = torch.as_tensor(x, dtype=dt, device=device)
+        x = (x.reshape(shape) if x.numel() == math.prod(shape)
+             else x.expand(shape)).contiguous()
     keep.append(x)
     return x.data_ptr()
 
@@ -278,7 +304,8 @@ def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
     LAUNCHES["node_age"] += 1
     o = p.out
     return (gen._replace(age=o["age"]), rng._replace(ctr=o["ctr"]),
-            o["lnld"], o["lnp"], o["cond"], o["acc"].sum())
+            o["lnld"], o["lnp"], o["cond"],
+            per_chain(o["acc"], chain_count(params)))
 
 
 def prepare_mig_age(gen: GenState, params: Params, rng: FastRngState,
@@ -309,14 +336,14 @@ def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
     if not _on_cuda(gen.age, lnp, rng.key):
         return update_mig_ages(gen, params, rng, ctx, finetune, lnp)
     if ctx.num_bands == 0:
-        return gen, rng, lnp, torch.zeros((), dtype=torch.int64,
+        return gen, rng, lnp, torch.zeros(_chains(params), dtype=torch.int64,
                                           device=lnp.device)
     p = prepare_mig_age(gen, params, rng, ctx, finetune, lnp)
     p.launch(lnp.device)
     LAUNCHES["mig_age"] += 1
     o = p.out
     return (gen._replace(mig_age=o["mig_age"]), rng._replace(ctr=o["ctr"]),
-            o["lnp"], o["acc"].sum())
+            o["lnp"], per_chain(o["acc"], chain_count(params)))
 
 
 def prepare_rubber_band(gen: GenState, params: Params, seq: SeqData,
@@ -324,7 +351,7 @@ def prepare_rubber_band(gen: GenState, params: Params, seq: SeqData,
                         taub0, taub1, tauold, taunew, cond) -> Prepared:
     """Check the inputs of the rubber-band kernel and allocate its outputs
     (CUDA tensors only).  `stat` = int32 [ntj0, ntj1, conflicts], summed
-    over the valid loci by the kernel."""
+    over the valid loci by the kernel ([C, 3]: each chain's)."""
     L, N, P, _ = cond.shape
     dt = gen.age.dtype
     dev = cond.device
@@ -332,9 +359,10 @@ def prepare_rubber_band(gen: GenState, params: Params, seq: SeqData,
     # tau mode: the kernel puts taunew in place of tau[pop] and derives the
     # proposal's pop_end and band windows; a sample-age move leaves them
     a = _args(gen, params, ctx, seq, None)
+    ch = _chains(params)
     for f, x in (("taub0", taub0), ("taub1", taub1), ("tauold", tauold),
                  ("taunew", taunew)):
-        setattr(a, f, _scalar(x, dt, dev, keep))
+        setattr(a, f, _scalar(x, dt, dev, keep, ch))
     a.pop = int(pop)
     a.is_root = int(pop == ctx.root_pop and not is_sample_age)
     a.sample_age = int(is_sample_age)
@@ -344,7 +372,7 @@ def prepare_rubber_band(gen: GenState, params: Params, seq: SeqData,
            "mig_age": torch.empty_like(gen.mig_age),
            "lnld": torch.empty((L,), dtype=dt, device=dev),
            "lnp": torch.empty((L,), dtype=dt, device=dev),
-           "stat": torch.zeros((3,), dtype=torch.int32, device=dev)}
+           "stat": torch.zeros(ch + (3,), dtype=torch.int32, device=dev)}
     a.cond_out = out["cond"].data_ptr()
     a.age_out, a.mig_age_out = out["age"].data_ptr(), out["mig_age"].data_ptr()
     a.lnld_out, a.lnp_out = out["lnld"].data_ptr(), out["lnp"].data_ptr()
@@ -360,7 +388,7 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
     current population and the proposal moves its sample age; otherwise it
     is an ancestral population and the proposal moves its tau.  Returns
     (age_prop, mag_prop, cond_prop, lnld_prop, lnp_prop, ntj0 [], ntj1 [],
-    any_conflict [])."""
+    any_conflict []), the last three [C] for C chains."""
     is_sample_age = bool(is_sample_age)
     if not _on_cuda(gen.age, cond):
         return rubber_band_eval_plain(gen, params, seq, ctx, pop,
@@ -372,15 +400,16 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
     LAUNCHES["rubber_band_sample_age" if is_sample_age
              else "rubber_band"] += 1
     o = p.out
-    ntj = o["stat"][:2].to(gen.age.dtype)
-    return (o["age"], o["mig_age"], o["cond"], o["lnld"], o["lnp"], ntj[0],
-            ntj[1], o["stat"][2] > 0)
+    ntj = o["stat"][..., :2].to(gen.age.dtype)
+    return (o["age"], o["mig_age"], o["cond"], o["lnld"], o["lnp"],
+            ntj[..., 0], ntj[..., 1], o["stat"][..., 2] > 0)
 
 
 def prepare_spr(gen: GenState, params: Params, seq: SeqData,
                 rng: FastRngState, ctx: Context, lnld, cond) -> Prepared:
     """Check the inputs of the SPR kernel and allocate its outputs (CUDA
-    tensors only).  `stat` = int32 [accepts, largest draw offset]."""
+    tensors only).  `stat` = int32 [accepts, largest draw offset] ([C, 2]:
+    each chain's)."""
     L, N, P, _ = cond.shape
     dt = gen.age.dtype
     dev = cond.device
@@ -395,7 +424,8 @@ def prepare_spr(gen: GenState, params: Params, seq: SeqData,
         setattr(a, f + "_out", t.data_ptr())
     out["cond"] = torch.empty_like(cond)
     out["lnld"] = torch.empty_like(lnld)
-    out["stat"] = torch.zeros((2,), dtype=torch.int32, device=dev)
+    out["stat"] = torch.zeros(_chains(params) + (2,), dtype=torch.int32,
+                              device=dev)
     keep = []
     if not plan.cond_smem:  # the proposal copy of the conditionals
         keep.append(torch.empty_like(cond))
@@ -421,5 +451,5 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     o = p.out
     stat = o["stat"].to(torch.int64)
     moved = {f: o[f] for f in o if f not in ("cond", "lnld", "stat")}
-    return (gen._replace(**moved), _advance(rng, stat[1]), o["lnld"],
-            o["cond"], stat[0])
+    return (gen._replace(**moved), _advance(rng, stat[..., 1]), o["lnld"],
+            o["cond"], stat[..., 0])

@@ -14,15 +14,22 @@ from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.rng_fast import FastRngState
 
 
+def _scalar(x: torch.Tensor, state: FastRngState) -> torch.Tensor:
+    """One chain's draw as a 0-d tensor; C chains' draws stay [C]."""
+    return x[0] if state.ctr.dim() == 0 else x
+
+
 def general_draw_u(state: FastRngState, dtype
                    ) -> Tuple[torch.Tensor, FastRngState]:
-    """Scalar U(0,1) from a size-1 (general) stream."""
-    u, state = RF.rndu(state, dtype)
-    return u[0], state
+    """Scalar U(0,1) from a size-1 (general) stream ([C] from the general
+    streams of C chains)."""
+    u, new = RF.rndu(state, dtype)
+    return _scalar(u, state), new
 
 
 def general_draw_2normal8(state: FastRngState, dtype
                           ) -> Tuple[torch.Tensor, FastRngState]:
-    """Scalar rnd2normal8 from a size-1 (general) stream."""
-    z, state = RF.rnd2normal8(state, dtype)
-    return z[0], state
+    """Scalar rnd2normal8 from a size-1 (general) stream ([C] for C
+    chains)."""
+    z, new = RF.rnd2normal8(state, dtype)
+    return _scalar(z, state), new

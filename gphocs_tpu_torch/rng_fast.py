@@ -10,7 +10,10 @@ so that no int64 product overflows.
 
 Keys and counter are int64 tensors holding uint32 values; the counter is a
 0-d tensor on the sampler's device, so advancing it never synchronizes
-with the host.
+with the host.  A state of C chains (sampler/driver.py, `chains=C`) keeps
+one counter per chain, [C], over the keys of all chains, chain-major
+([C * K] for the per-locus streams, [C] for the general stream): lane l
+reads the counter of chain l // K.
 
 `init_fast` gives gphocs_tpu's keys for the same seed: the raw per-lane
 bits are jax.random.bits(jax.random.key(seed), (n,), uint32) under JAX's
@@ -37,8 +40,18 @@ S2N = math.sqrt(1.0 / 9.0)
 class FastRngState(NamedTuple):
     """Per-lane keys + a shared draw counter; advancing = ctr + 1."""
 
-    key: torch.Tensor   # [K] int64 holding uint32
-    ctr: torch.Tensor   # [] int64 holding uint32
+    key: torch.Tensor   # [K] (chains: [C * K]) int64 holding uint32
+    ctr: torch.Tensor   # [] (chains: [C]) int64 holding uint32
+
+
+def lane_ctr(state: FastRngState) -> torch.Tensor:
+    """The counter of every lane: the 0-d counter of one chain, or each
+    chain's counter repeated over its lanes."""
+    ctr = state.ctr
+    K, C = state.key.shape[0], ctr.shape[0] if ctr.dim() else 0
+    if C in (0, K):
+        return ctr
+    return ctr[:, None].expand(C, K // C).reshape(K)
 
 
 def _mul32(z: torch.Tensor, c: int) -> torch.Tensor:
@@ -116,7 +129,7 @@ def raw_bits(key: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
 def raw_u(state: FastRngState, offset, dtype) -> torch.Tensor:
     """U(0,1) for every lane at counter position ctr+offset (stateless).
     `offset` may be an int or a per-lane int64 tensor."""
-    return bits_to_unit(raw_bits(state.key, state.ctr + offset), dtype)
+    return bits_to_unit(raw_bits(state.key, lane_ctr(state) + offset), dtype)
 
 
 def bump(state: FastRngState, n) -> FastRngState:
@@ -152,21 +165,25 @@ def rndexp(state: FastRngState, mean, dtype
 
 
 def _raw_u_batch(state: FastRngState, n: int, offset: int, dtype):
-    """[n] uniforms from lane 0 at counter positions ctr+offset+0..n-1."""
-    c = state.ctr + offset + torch.arange(n, dtype=torch.int64,
-                                          device=state.key.device)
-    return bits_to_unit(raw_bits(state.key[0], c), dtype)
+    """[n] uniforms from lane 0 at counter positions ctr+offset+0..n-1;
+    [C, n] from each chain's lane of a chains' general stream."""
+    c = state.ctr[..., None] + offset + torch.arange(
+        n, dtype=torch.int64, device=state.key.device)
+    key = state.key[0] if state.ctr.dim() == 0 else state.key[:, None]
+    return bits_to_unit(raw_bits(key, c), dtype)
 
 
 def batch_u(state: FastRngState, n: int, dtype
             ) -> Tuple[torch.Tensor, FastRngState]:
-    """[n] U(0,1) draws from the (scalar) general stream in one step."""
+    """[n] U(0,1) draws from the (scalar) general stream in one step
+    ([C, n] for C chains)."""
     return _raw_u_batch(state, n, 1, dtype), bump(state, n)
 
 
 def batch_2normal8(state: FastRngState, n: int, dtype
                    ) -> Tuple[torch.Tensor, FastRngState]:
-    """[n] mixture-kernel draws from the general stream in one step."""
+    """[n] ([C, n]) mixture-kernel draws from the general stream in one
+    step."""
     u1 = _raw_u_batch(state, n, 1, dtype)
     u2 = _raw_u_batch(state, n, 1 + n, dtype)
     u3 = _raw_u_batch(state, n, 1 + 2 * n, dtype)

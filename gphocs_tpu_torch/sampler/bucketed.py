@@ -28,6 +28,12 @@ and the rubber band, which the plain versions equal, so the CPU path
 compares draw for draw.  Each bucket keeps its loci's own streams.
 Everything stays on the sampler's device: accept counts are 0-d tensors,
 and the host reads them once per chunk.
+
+C chains (one bucket of chain-major loci, [C, P] parameters, a counter per
+chain; sampler/driver.py) run through the same code with no loop over the
+chains: every move is drawn, decided and counted per chain, the totals and
+trace entries get a chain axis ([C], [C, P]), and each sweep kernel is
+launched once for all chains.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from typing import Sequence
 
 import torch
 
-from gphocs_tpu_torch.kernels.common import (full_stats, gen_log_prior,
+from gphocs_tpu_torch.kernels.common import (chain_count, full_stats,
+                                             gen_log_prior,
                                              gen_log_prior_from_stats)
 from gphocs_tpu_torch.kernels.locus_rate import update_locus_rates_paired
 from gphocs_tpu_torch.kernels.mixing import update_mixing_buckets
@@ -82,9 +89,11 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
     gens, lrngs = list(gens), list(lrngs)
     lnlds, lnps, conds = list(lnlds), list(lnps), list(conds)
     dev = lnlds[0].device
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    C = chain_count(params)
+    ch = params.theta.shape[:-1]         # () for one chain, (C,) for C
+    zero = torch.zeros(ch, dtype=torch.int64, device=dev)
     acc_ct = acc_mt = acc_spr = acc_lr = zero
-    dvar = torch.zeros((), dtype=lnlds[0].dtype, device=dev)
+    dvar = torch.zeros(ch, dtype=lnlds[0].dtype, device=dev)
     for gs in range(genetree_samples):
         for k in range(K):
             g, sq, r = gens[k], seqs[k], lrngs[k]
@@ -144,14 +153,17 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                                   lnlds, lnps, conds, stats_list,
                                   num_cur_pops)
 
+    def total(x):  # over a bucket's loci (and slots), or per chain
+        return x.sum() if C is None else x.reshape(C, -1).sum(dim=1)
+
     out = StepStats(
         acc_coal_time=acc_ct, acc_mig_time=acc_mt, acc_spr=acc_spr,
         acc_theta=acc_th, acc_mig_rate=acc_mr, acc_taus=acc_taus,
         acc_mixing=acc_mix, acc_locus_rate=acc_lr, rate_var_delta=dvar,
         tau_conflicts=conflicts,
-        num_migs_total=sum((g.mig_branch >= 0).sum() for g in gens),
-        lnld_sum=sum(x.sum() for x in lnlds),
-        lnp_sum=sum(x.sum() for x in lnps))
+        num_migs_total=sum(total(g.mig_branch >= 0) for g in gens),
+        lnld_sum=sum(total(x) for x in lnlds),
+        lnp_sum=sum(total(x) for x in lnps))
     return gens, params, lrngs, grng, lnlds, lnps, conds, out
 
 

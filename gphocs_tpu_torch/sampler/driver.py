@@ -1,6 +1,6 @@
 """Sampler driver: the performMCMC orchestration loop (twin of the
-fast-RNG, single-device, single-chain part of gphocs_tpu/sampler/driver.py,
-pattern buckets included).
+fast-RNG, single-device part of gphocs_tpu/sampler/driver.py, pattern
+buckets and chains included).
 
 Initialization, burn-in + sampling loop with the per-iteration schedule
 (sampler/bucketed.py), start-mig gating, trace emission, acceptance-rate
@@ -13,8 +13,21 @@ The per-locus state is held per pattern bucket (`gens`, `seqs`, `lrngs`,
 `bucket_perm`); an unbucketed sampler has one bucket, and for it `gen`,
 `seq`, `lrng`, `lnld`, `lnp` and `cond` name that bucket's entries.
 
+`chains=C` runs C independent chains, as gphocs_tpu's vmapped chains do:
+chain c is initialized from seed base + 7919 c (its host stream, its
+genealogies, its per-locus and general streams), shares the sequence data,
+and draws and decides every move on its own, so that it equals a one-chain
+run with its seed.  The state holds the chains side by side, not in a
+loop: the per-locus tensors chain-major ([C * L, ...], one bucket), the
+parameters [C, P], the counters [C] (kernels/common.py).  Every sweep
+kernel is launched once per sweep for all C * L loci.  Chain 0 writes the
+trace; `chain_rows` keeps every chain's rows of the last run().  The
+acceptance log shows the chains' mean (gphocs_tpu sums them, C times the
+rate).  Chains are refused with pattern buckets, as in gphocs_tpu, and
+with a coal-stats file, whose writer takes one chain.
+
 Not ported yet; asking for them raises NotImplementedError naming the
-ROADMAP item: the legacy Wichmann-Hill RNG, meshes, chains and admixture.
+ROADMAP item: the legacy Wichmann-Hill RNG, meshes and admixture.
 """
 
 from __future__ import annotations
@@ -40,7 +53,7 @@ from gphocs_tpu_torch.io.sequences import (build_seq_data,
 from gphocs_tpu_torch.kernels.common import gen_log_prior, make_context
 from gphocs_tpu_torch.model.poptree import PopTree, build_poptree
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
-from gphocs_tpu_torch.rng_fast import init_fast
+from gphocs_tpu_torch.rng_fast import FastRngState, init_fast
 from gphocs_tpu_torch.rng_host import HostRng
 from gphocs_tpu_torch.sampler.bucketed import mcmc_chunk_buckets
 from gphocs_tpu_torch.sampler.init import (init_gen_state_fast,
@@ -106,7 +119,23 @@ class AcceptCounts:
         self.coal_time = self.mig_time = self.spr = 0
         self.theta = self.mig_rate = self.mixing = self.locus_rate = 0
         self.conflicts = 0
-        self.taus = np.zeros(P, int)
+        self.taus = np.zeros(P)
+
+    def add(self, st, chains: int) -> None:
+        """Add a chunk's totals (StepStats), the chains' mean."""
+        def total(x):
+            return float(x.sum()) / chains
+
+        self.coal_time += total(st.acc_coal_time)
+        self.mig_time += total(st.acc_mig_time)
+        self.spr += total(st.acc_spr)
+        self.theta += total(st.acc_theta)
+        self.mig_rate += total(st.acc_mig_rate)
+        self.taus += st.acc_taus.reshape(chains, -1).sum(dim=0).cpu(
+        ).numpy() / chains
+        self.mixing += total(st.acc_mixing)
+        self.locus_rate += total(st.acc_locus_rate)
+        self.conflicts += total(st.tau_conflicts)
 
 
 def _one_bucket(name: str):
@@ -153,16 +182,29 @@ class Sampler:
 
         buckets: sort the loci by phased-pattern count into at most this
         many buckets, each padded only to its own largest count
-        (io/sequences.build_seq_data_buckets, which may use fewer)."""
+        (io/sequences.build_seq_data_buckets, which may use fewer).
+
+        chains: independent chains run side by side (the module's
+        docstring); not with buckets or a coal-stats file."""
         if rng_mode != "fast":
             raise _todo("rng_mode='legacy' (Wichmann-Hill streams)",
                         "Queue 1 item 17")
         if mesh is not None:
             raise _todo("multi-device loci sharding", "Queue 1 item 15")
-        if chains != 1:
-            raise _todo("chains > 1", "Queue 1 item 14")
+        if chains < 1:
+            raise ValueError(f"chains={chains}: at least one chain")
+        if chains > 1 and buckets > 1:
+            raise ValueError("pattern buckets require one chain (as in "
+                             "gphocs_tpu): drop buckets or chains")
+        if chains > 1 and cfg.mcmc.coal_stats_file != "NONE":
+            raise ValueError("a coal-stats file takes one chain: its "
+                             "writer reads one chain's state (gphocs_tpu "
+                             "hands it the stacked chains); drop "
+                             "coal-stats-file or chains")
         if cfg.admixed:
             raise _todo("admixture", "Queue 1 item 10b")
+        self.chains = chains
+        self.legacy_rng = legacy_rng
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Sampler(device='cuda'): no CUDA device")
@@ -206,6 +248,10 @@ class Sampler:
                 group_nphases=np.ones((self.num_loci, 1)),
                 pattern_valid=np.zeros((self.num_loci, 1), bool),
                 group_members=group_members(gid))]
+        if chains > 1:  # the chains share the data: [C * L, ...]
+            seqs = [SeqData(*(None if x is None
+                              else np.concatenate([x] * chains)
+                              for x in seqs[0]))]
         self.seqs = tuple(from_numpy(sq, device=self.device, dtype=dtype)
                           for sq in seqs)
         # the cost-minimizing partition may use fewer buckets than asked
@@ -216,10 +262,11 @@ class Sampler:
     def bucket_sizes(self):
         return [sq.group_id.shape[0] for sq in self.seqs]
 
-    # -- initialization (reference initializeMCMC, src/GPhoCS.c:1122) --
-    def initialize(self):
+    def _initial_chain(self, seed: int, host_rng: HostRng):
+        """One chain's starting state from `seed` and its host stream:
+        (gen, params, per-locus stream, general stream, rate variance)."""
         cfg = self.cfg
-        params = sample_pop_parameters(self.tree, self.host_rng)
+        params = sample_pop_parameters(self.tree, host_rng)
         fixed = None
         if cfg.mcmc.mut_rate_mode == 2:
             # per-locus rates normalized to mean 1 (readRateFile)
@@ -227,18 +274,39 @@ class Sampler:
             if len(fixed) < self.num_loci:
                 raise ValueError(f"rate file has {len(fixed)} rates, "
                                  f"need {self.num_loci}")
-        rates, self.rate_var = sample_locus_rates(
-            self.num_loci, cfg.mcmc.mut_rate_mode, self.host_rng, fixed)
-        gen_np = init_gen_state_fast(self.tree, params,
-                                     self.seed ^ 0x243F6A88, self.num_loci,
-                                     rates)
-        gen = from_numpy(gen_np, GenState, device=self.device,
-                         dtype=self.dtype)
-        self.params = from_numpy(params._replace(admix_coeff=None), Params,
-                                 device=self.device, dtype=self.dtype)
+        rates, rate_var = sample_locus_rates(
+            self.num_loci, cfg.mcmc.mut_rate_mode, host_rng, fixed)
+        gen_np = init_gen_state_fast(self.tree, params, seed ^ 0x243F6A88,
+                                     self.num_loci, rates)
+        conv = dict(device=self.device, dtype=self.dtype)
         # per-locus streams [L] and the general stream [1]
-        lrng = init_fast(self.num_loci, self.seed, self.device)
-        self.grng = init_fast(1, self.seed + 0x5F3759DF, self.device)
+        return (from_numpy(gen_np, GenState, **conv),
+                from_numpy(params._replace(admix_coeff=None), Params, **conv),
+                init_fast(self.num_loci, seed, self.device),
+                init_fast(1, seed + 0x5F3759DF, self.device), rate_var)
+
+    # -- initialization (reference initializeMCMC, src/GPhoCS.c:1122) --
+    def initialize(self):
+        cfg = self.cfg
+        if self.chains == 1:
+            gen, self.params, lrng, self.grng, self.rate_var = \
+                self._initial_chain(self.seed, self.host_rng)
+        else:
+            # chain c from seed base + 7919 c, side by side; the variance
+            # is the last chain's, as gphocs_tpu leaves it
+            parts = [self._initial_chain(
+                seed, HostRng(self.num_loci + 1, seed,
+                              legacy=self.legacy_rng))
+                for seed in (self.seed + 7919 * c
+                             for c in range(self.chains))]
+            gens, params, lrngs, grngs, rvars = zip(*parts)
+            gen = GenState(*(torch.cat(f) for f in zip(*gens)))
+            self.params = Params(*(None if f[0] is None else torch.stack(f)
+                                   for f in zip(*params)))
+            lrng, self.grng = (FastRngState(
+                key=torch.cat([r.key for r in rs]),
+                ctr=torch.stack([r.ctr for r in rs])) for rs in (lrngs, grngs))
+            self.rate_var = rvars[-1]
         if self.bucket_perm is not None:
             # loci in bucket order; every locus keeps its own key, every
             # bucket's counter starts at 0
@@ -293,14 +361,23 @@ class Sampler:
         rates = []
         for b in range(B):
             u, self.grng = R.general_draw_u(self.grng, self.dtype)
-            rates.append(means[b] * (0.9 + 0.2 * u))
+            rates.append(means[b] * (0.9 + 0.2 * u))  # [C] for C chains
         if B:
-            self.params = self.params._replace(mig_rate=torch.stack(rates))
+            self.params = self.params._replace(
+                mig_rate=torch.stack(rates, dim=-1))
         self.lnps = tuple(gen_log_prior(g, self.params, self.ctx)
                           for g in self.gens)
 
+    def _var_deltas(self, deltas: torch.Tensor) -> torch.Tensor:
+        """The VAR rate variance's change per iteration: the chains' mean
+        (gphocs_tpu: the chunk's sum over chains / C)."""
+        if self.chains == 1:
+            return deltas
+        return deltas.sum(dim=-1) / self.chains
+
     def step_chunk(self, n_iters: int, do_migrate: bool):
-        """Run n_iters iterations; returns (totals, trace)."""
+        """Run n_iters iterations; returns (totals, trace), each chain's
+        ([C, ...] fields) for C chains."""
         cfg = self.cfg
         tree = self.tree
         sample_age_mask = tuple(
@@ -328,7 +405,8 @@ class Sampler:
         self.lnlds, self.lnps, self.conds = (tuple(lnlds), tuple(lnps),
                                              tuple(conds))
         if cfg.mcmc.mut_rate_mode == 1:
-            self.rate_var = _running(self.rate_var, trace.rate_var_delta)[-1]
+            self.rate_var = _running(
+                self.rate_var, self._var_deltas(trace.rate_var_delta))[-1]
         return stats, trace
 
     def _tau_pops(self):
@@ -377,7 +455,9 @@ class Sampler:
         debug_check=True runs check_state() at every log point (reference
         checkAll, src/GPhoCS.c:1814-1821) and raises on a violation.
         A `coal-stats-file` in the control file gets one row per iteration
-        (tools/coalstats_out.py) from the current state of all buckets."""
+        (tools/coalstats_out.py) from the current state of all buckets.
+        With chains, the trace is chain 0's, and `chain_rows` gets every
+        chain's rows."""
         from gphocs_tpu_torch import checkpoint as ckpt
 
         cfg = self.cfg
@@ -393,7 +473,9 @@ class Sampler:
         var_mut = cfg.mcmc.mut_rate_mode == 1
         header = trace_io.trace_header(tree, var_mut)
         factors = trace_io.print_factors(tree, var_mut)
-        rows = []
+        C = self.chains
+        chain_rows = [[] for _ in range(C)]
+        rows = chain_rows[0]
         counts = AcceptCounts()
         counts.reset(P)
         log_count = 0
@@ -438,36 +520,34 @@ class Sampler:
                 rate_var = self.rate_var
                 st, tr = self.step_chunk(
                     n_iters, do_migrate=iteration > cfg.mcmc.start_mig)
-                counts.coal_time += int(st.acc_coal_time)
-                counts.mig_time += int(st.acc_mig_time)
-                counts.spr += int(st.acc_spr)
-                counts.theta += int(st.acc_theta)
-                counts.mig_rate += int(st.acc_mig_rate)
-                counts.taus += st.acc_taus.cpu().numpy()
-                counts.mixing += int(st.acc_mixing)
-                counts.locus_rate += int(st.acc_locus_rate)
-                counts.conflicts += int(st.tau_conflicts)
-                mig_nodes_accum += int(st.num_migs_total)
+                counts.add(st, C)
+                mig_nodes_accum += float(st.num_migs_total.sum()) / C
                 log_count += n_iters
 
-                tr_np = [t.cpu().numpy() for t in tr]
-                theta, tau, sage, mrate, lnld_s, lnp_s, dvar = tr_np
+                # [K, C, ...] for C chains
+                theta, tau, sage, mrate, lnld_s, lnp_s, dvar = (
+                    t.cpu().numpy() for t in tr)
                 # the variance after each iteration of the chunk
-                rate_var = _running(rate_var, dvar)
+                rate_var = _running(rate_var, self._var_deltas(
+                    torch.as_tensor(dvar)))
                 for j in range(n_iters):
                     it = iteration + j
-                    if it >= 0 and it % (cfg.mcmc.mcmc_sample_skip + 1) == 0:
-                        full = (float(lnld_s[j]) + float(lnp_s[j])) / L
+                    if it < 0 or it % (cfg.mcmc.mcmc_sample_skip + 1):
+                        continue
+                    for c in range(C):
+                        pick = ((lambda x: x[j]) if C == 1  # noqa: E731
+                                else (lambda x: x[j, c]))
+                        ld = float(pick(lnld_s))
+                        full = (ld + float(pick(lnp_s))) / L
                         vals = trace_io.record_param_vals(
-                            tree, theta[j], tau[j], sage[j], mrate[j],
-                            rate_var[j] if var_mut else None)
-                        rows.append([it] + [v * f for v, f in
-                                            zip(vals, factors)]
-                                    + [full, float(lnld_s[j])])
-                        if tf:
+                            tree, pick(theta), pick(tau), pick(sage),
+                            pick(mrate), rate_var[j] if var_mut else None)
+                        chain_rows[c].append(
+                            [it] + [v * f for v, f in zip(vals, factors)]
+                            + [full, ld])
+                        if tf and c == 0:
                             tf.write(trace_io.format_row(
-                                it, vals, factors, full,
-                                float(lnld_s[j])) + "\n")
+                                it, vals, factors, full, ld) + "\n")
                 if tf:
                     tf.flush()
 
@@ -477,9 +557,9 @@ class Sampler:
                 if iteration % spl == 0:
                     pct = self._percents(counts, log_count, total_coals,
                                          mig_nodes_accum)
-                    if progress:
-                        lnld_avg = (float(lnld_s[-1])
-                                    + float(lnp_s[-1])) / L
+                    if progress:  # chain 0's
+                        lnld_avg = (float(lnld_s[-1].flat[0])
+                                    + float(lnp_s[-1].flat[0])) / L
                         print(self._log_line(iteration - 1, pct, lnld_avg,
                                              time.time() - t0),
                               file=sys.stderr)
@@ -510,22 +590,34 @@ class Sampler:
             for f in (tf, cs_file):
                 if f:
                     f.close()
+        self.chain_rows = [np.asarray(r) for r in chain_rows]
         return header.split("\t"), np.asarray(rows)
 
     def check_state(self) -> list:
         """The state check of --debug-check (debugcheck.py): structural
         invariants of every bucket's genealogies and the carried lnld/lnp
         against a recomputation.  Returns the violations, each naming its
-        bucket where there are several."""
+        bucket or its chain where there are several."""
         from gphocs_tpu_torch.debugcheck import (check_gen_state,
                                                  check_likelihoods)
 
         errs = []
-        for k, g in enumerate(self.gens):
+        if self.chains > 1:
+            for c in range(self.chains):
+                errs += [f"chain {c}: " + e
+                         for e in check_gen_state(*self.chain_state(c),
+                                                  self.tree)]
+        for k, g in enumerate(self.gens if self.chains == 1 else ()):
             pre = f"bucket {k}: " if self.buckets > 1 else ""
             errs += [pre + e for e in check_gen_state(g, self.params,
                                                       self.tree)]
         return errs + check_likelihoods(self)
+
+    def chain_state(self, c: int):
+        """Chain c's genealogies and parameters, as one chain's (views)."""
+        L = self.num_loci
+        return (GenState(*(x[c * L:(c + 1) * L] for x in self.gen)),
+                Params(*(None if x is None else x[c] for x in self.params)))
 
     def _percents(self, c: AcceptCounts, log_count, total_coals,
                   mig_nodes_accum):

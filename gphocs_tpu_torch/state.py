@@ -14,6 +14,13 @@ the JAX package.
 convert any of these NamedTuples (or the RNG state, finetunes, ...) field
 by field, so a state built by the JAX sampler can be carried into the port
 as `np.asarray` of its arrays.
+
+C chains: the JAX package stacks them on a leading axis ([C, L, ...] per
+locus, [C, P] parameters, [C] counters, general-stream keys [C, 1]); the
+port keeps its per-locus tensors chain-major, [C * L, ...], beside [C, P]
+parameters and [C] counters and keys (kernels/common.py).
+`from_numpy(..., chains=True)` and `to_numpy(..., chains=C)` convert
+between the two.
 """
 
 from __future__ import annotations
@@ -92,28 +99,43 @@ def _to_tensor(x, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def from_numpy(obj, cls=None, *, device="cpu", dtype=torch.float64):
+def from_numpy(obj, cls=None, *, device="cpu", dtype=torch.float64,
+               chains: bool = False):
     """Convert a NamedTuple of arrays (numpy, or anything np.asarray takes)
     into `cls` (default: the same type) holding tensors on `device`.
 
     Real arrays take `dtype`, bool arrays stay bool, integer arrays become
-    int64.  A single array converts to a single tensor; None stays None."""
+    int64.  A single array converts to a single tensor; None stays None.
+    chains=True takes the JAX package's stacked chains of a per-locus
+    state or stream: the two leading axes of every array of two or more
+    dimensions merge ([C, L, ...] -> [C * L, ...], keys [C, 1] -> [C]);
+    the counters [C] stay."""
     if obj is None:
         return None
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         cls = cls or type(obj)
         return cls(**{f: from_numpy(getattr(obj, f), device=device,
-                                    dtype=dtype)
+                                    dtype=dtype, chains=chains)
                       for f in cls._fields if hasattr(obj, f)})
+    if chains and np.ndim(obj) >= 2:
+        a = np.asarray(obj)
+        obj = a.reshape(-1, *a.shape[2:])
     return _to_tensor(obj, device, dtype)
 
 
-def to_numpy(obj):
-    """Inverse of from_numpy: tensors -> numpy arrays, field by field."""
+def to_numpy(obj, chains: int = 0):
+    """Inverse of from_numpy: tensors -> numpy arrays, field by field.
+    chains=C gives a per-locus state's arrays of C chains the JAX
+    package's leading chain axis ([C * L, ...] -> [C, L, ...]; an array
+    of C entries or fewer, a counter, stays)."""
     if obj is None:
         return None
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(to_numpy(v) for v in obj))
+        return type(obj)(*(to_numpy(v, chains) for v in obj))
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
-    return np.asarray(obj)
+        a = obj.detach().cpu().numpy()
+    else:
+        a = np.asarray(obj)
+    if chains and a.ndim and a.shape[0] > chains:
+        a = a.reshape(chains, -1, *a.shape[1:])
+    return a

@@ -20,8 +20,10 @@ writes the Chrome trace.
 With `--paths` it compares configurations instead of dtypes, all at f32:
 the standard workload (SAMPLE_CTL), the ancient-sample path
 (SAMPLE_AGE_CTL) and the same with VAR locus rates (SAMPLE_AGE_VAR_CTL) on
-the same data, and the ragged workload (config/samples.py RAGGED_*) in 4
-pattern buckets and dense, timed in turns (a b c d e e d c b a, `rounds`
+the same data, the ragged workload (config/samples.py RAGGED_*) in 4
+pattern buckets and dense, and the standard workload as 4 chains side by
+side (its it/s is iterations of all four: chain-it/s is 4x), timed in
+turns (a b c d e e d c b a, `rounds`
 times); then each is profiled for `--profile-iters` iterations, so that
 the launches and the wall time that each path adds per iteration can be
 read off.
@@ -52,7 +54,7 @@ def _card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _sampler(path, dtype, ctl=None, buckets=1):
+def _sampler(path, dtype, ctl=None, buckets=1, chains=1):
     import torch
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import SAMPLE_CTL
@@ -62,7 +64,7 @@ def _sampler(path, dtype, ctl=None, buckets=1):
     cfg.mcmc.random_seed = 111
     cfg.mcmc.start_mig = 0
     s = Sampler(cfg, seq_path=path, dtype=dtype, device="cuda",
-                buckets=buckets)
+                buckets=buckets, chains=chains)
     s.initialize()
     s.step_chunk(5, do_migrate=True)
     torch.cuda.synchronize()
@@ -141,8 +143,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None)
     ap.add_argument("--paths", action="store_true",
                     help="compare the standard, sample-age, sample-age + "
-                         "VAR and ragged (bucketed, dense) paths at f32 "
-                         "instead of f32/f64")
+                         "VAR, ragged (bucketed, dense) and 4-chain paths "
+                         "at f32 instead of f32/f64")
     ap.add_argument("--roots", nargs="+", default=None,
                     help="time the standard path of each checkout in a "
                          "process of its own, in turns")
@@ -185,13 +187,14 @@ def main(argv=None) -> int:
             ragged = os.path.join(tmp, "ragged.txt")
             simulate_ragged_file(ragged)
             samplers = {
-                name: _sampler(data, torch.float32, ctl, buckets)
-                for name, ctl, data, buckets in (
-                    ("standard", SAMPLE_CTL, path, 1),
-                    ("sample_age", SAMPLE_AGE_CTL, path, 1),
-                    ("sample_age_var", SAMPLE_AGE_VAR_CTL, path, 1),
-                    ("ragged_buckets", SAMPLE_CTL, ragged, 4),
-                    ("ragged_dense", SAMPLE_CTL, ragged, 1))}
+                name: _sampler(data, torch.float32, ctl, buckets, chains)
+                for name, ctl, data, buckets, chains in (
+                    ("standard", SAMPLE_CTL, path, 1, 1),
+                    ("sample_age", SAMPLE_AGE_CTL, path, 1, 1),
+                    ("sample_age_var", SAMPLE_AGE_VAR_CTL, path, 1, 1),
+                    ("ragged_buckets", SAMPLE_CTL, ragged, 4, 1),
+                    ("ragged_dense", SAMPLE_CTL, ragged, 1, 1),
+                    ("chains4", SAMPLE_CTL, path, 1, 4))}
             order = list(samplers) + list(samplers)[::-1]
         else:
             samplers = {"f32": _sampler(path, torch.float32),

@@ -34,6 +34,18 @@ def reflect(x: torch.Tensor, a, b) -> torch.Tensor:
     return torch.where(empty, (a + b) / 2.0, torch.where(inside, x, xnew))
 
 
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in index order, ((x0 + x1) + x2) + ...: the
+    order of the kernels' loops (csrc/), on every device.  torch.sum adds
+    in a tree on CUDA, which at f32 moves a 4,000 bp locus's lnld by an
+    ulp (~5e-4) and so decides a near-threshold move differently from the
+    kernel (PERF.md, PR 6).  One addition per column."""
+    out = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        out = out + x[..., j]
+    return out
+
+
 def log_gamma_density(alpha, beta, val):
     """log Gamma(alpha, beta) density (reference src/GPhoCS.c:860-866)."""
     logp = torch.where(alpha != 1.0, -torch.lgamma(alpha),

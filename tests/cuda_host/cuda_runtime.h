@@ -1,7 +1,8 @@
 // Host stand-in for <cuda_runtime.h>: lets a host C++ compiler build
 // gphocs_tpu_torch/csrc/*.cu for tests/test_torch_csrc_host.py.
 //
-// The loci run one after another.  Every kernel runs a warp per locus:
+// The loci run one after another, chain after chain (the grid's second
+// axis).  Every kernel runs a warp per locus:
 // the stand-in runs each locus as one "warp" of a block of a->block loci,
 // with the block's dynamic shared memory an ordinary buffer (filled with
 // 0xA5, not zeros) carved up by the kernel as on the card.  That warp is a
@@ -29,7 +30,7 @@
 typedef void* cudaStream_t;
 
 struct HostDim3 {
-  unsigned x;
+  unsigned x, y;
 };
 static HostDim3 blockIdx, blockDim, threadIdx;
 static unsigned char* sweep_smem;
@@ -70,11 +71,13 @@ using std::isfinite;
     const int lpb_ = (a)->block;                                          \
     std::vector<unsigned char> buf_((a)->smem_bytes + 16, 0xA5);          \
     sweep_smem = buf_.data() + (16 - (uintptr_t)buf_.data() % 16) % 16;   \
-    for (int b_ = 0; b_ * lpb_ < (a)->L; ++b_)                            \
-      for (int w_ = 0; w_ < lpb_; ++w_) {                                 \
-        blockIdx.x = b_;                                                  \
-        blockDim.x = 32 * lpb_;                                           \
-        threadIdx.x = 32 * w_;                                            \
-        K(*(a));                                                          \
-      }                                                                   \
+    for (int c_ = 0; c_ < (a)->C; ++c_)                                   \
+      for (int b_ = 0; b_ * lpb_ < (a)->Lc; ++b_)                         \
+        for (int w_ = 0; w_ < lpb_; ++w_) {                               \
+          blockIdx.x = b_;                                                \
+          blockIdx.y = c_;                                                \
+          blockDim.x = 32 * lpb_;                                         \
+          threadIdx.x = 32 * w_;                                          \
+          K(*(a));                                                        \
+        }                                                                 \
   } while (0)

@@ -8,10 +8,10 @@
 extern "C" void pop_tables_probe_f64(const SweepArgs* a, int proposal,
                                      double* out) {
   static PopTables<double> pt;
-  blockIdx.x = 0;
+  blockIdx.x = blockIdx.y = 0;
   blockDim.x = 1;
   threadIdx.x = 0;
-  pt.load(*a, proposal != 0);
+  pt.load(*a, proposal != 0, 0);
   const int PP = a->PP, B = a->B;
   for (int j = 0; j < PP; ++j) {
     out[j] = pt.theta[j];

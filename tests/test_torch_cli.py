@@ -67,11 +67,19 @@ def test_cli_run_equals_sampler_run(ragged, tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--legacy-rng"], "item 17"),
-    (["--chains", "2"], "item 14"),
+    # chains are ported; with pattern buckets the command line refuses
+    # them (a usage error, as gphocs_tpu's)
+    (["--chains", "2", "--buckets", "2"], "requires one chain"),
     (["--mesh"], "item 15"),
     (["--distributed", "host:2:0"], "item 15"),
 ])
-def test_unported_flags_raise_before_reading_files(flags, item, tmp_path):
+def test_unported_flags_raise_before_reading_files(flags, item, tmp_path,
+                                                   capsys):
+    if "--chains" in flags:
+        with pytest.raises(SystemExit):
+            cli.main([str(tmp_path / "no-such-file.ctl"), *flags])
+        assert item in capsys.readouterr().err
+        return
     with pytest.raises(NotImplementedError, match=item):
         cli.main([str(tmp_path / "no-such-file.ctl"), *flags])
 
@@ -150,3 +158,25 @@ def test_debug_check_names_the_bucket(ragged, tmp_path):
     s.lnlds = (s.lnlds[0], s.lnlds[1], s.lnlds[2] + 1e-3)
     assert any(e.startswith("bucket 2: carried data lnL drift")
                for e in s.check_state())
+
+
+def test_cli_runs_chains_with_debug_check(ragged, tmp_path):
+    """`python -m gphocs_tpu_torch ctl --chains 2 --device cpu
+    --debug-check` exits 0; the trace is chain 0's, one row per iteration,
+    and chain 0 equals the one-chain run with the base seed (CONST rates:
+    with VAR rates the trace's variance is the chains' mean, as in
+    gphocs_tpu)."""
+    ctl = tmp_path / "run.ctl"
+    ctl.write_text(_ctl(SAMPLE_CTL, ragged, tmp_path / "cli.log", 4, 2))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--chains",
+         "2", "--device", "cpu", "--debug-check"],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "2 chains, seeds 7 + 7919 c" in out.stdout
+    s = Sampler(parse_control_text(ctl.read_text()), device="cpu")
+    s.run(trace_path=str(tmp_path / "one.log"))
+    cli_trace = (tmp_path / "cli.log").read_text()
+    assert len(cli_trace.splitlines()) == 5
+    assert cli_trace == (tmp_path / "one.log").read_text()

@@ -21,7 +21,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import sample_age_bounds, tau_bounds, warm_state
+from chip_smoke import (F64_TOL, Compare, kernel_checks, sample_age_bounds,
+                        sample_age_checks, tau_bounds, warm_state)
 from gphocs_tpu_torch.kernels.common import band_windows, pop_end
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
@@ -38,6 +39,8 @@ from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
                                           update_sample_ages_fused,
                                           update_taus, update_taus_fused)
 from gphocs_tpu_torch.ops import cuda_lib, sweeps
+
+from chip_smoke import SAMPLE_AGE_STEPS
 
 SHIM = Path(__file__).resolve().parent / "cuda_host"
 
@@ -637,3 +640,69 @@ def test_entry_refuses_a_wrong_smem_size(which, warm, kernels_on_host):
     p.args.smem_bytes += 16
     with pytest.raises(RuntimeError, match="shared memory"):
         cuda_lib.launch(p.entry, p.args, 0)
+
+
+@pytest.fixture(scope="module")
+def warm_chains(tmp_path_factory):
+    """Two chains side by side on SAMPLE_AGE_CTL (f64, plain versions
+    only): 11 loci each, not a multiple of the loci per block, with a hot
+    band and migrations in both; the chains' theta, tau and migration
+    rates differ (their own seeds' draws)."""
+    path = str(tmp_path_factory.mktemp("csrc_chains") / "seqs.txt")
+    s = warm_state(torch.device("cpu"), torch.float64, path, num_loci=11,
+                   ctl=SAMPLE_AGE_CTL, chains=2)
+    # both bands were made equally hot: give chain 1 a rate of its own
+    s.params = s.params._replace(
+        mig_rate=s.params.mig_rate * torch.tensor([[1.0], [0.7]],
+                                                  dtype=torch.float64))
+    s.lnp = gen_log_prior(s.gen, s.params, s.ctx)
+    pr = s.params
+    assert s.gen.num_loci == 22
+    for x in (pr.theta, pr.tau, pr.sample_age, pr.mig_rate):
+        assert not torch.equal(x[0], x[1])
+    return s
+
+
+def _chain(s, c):
+    """Chain c of a chain state as a one-chain state (views)."""
+    L = s.num_loci
+    cut = slice(c * L, (c + 1) * L)
+    gen, params = s.chain_state(c)
+    return types.SimpleNamespace(
+        gen=gen, params=params, ctx=s.ctx, ft=s.ft, tree=s.tree,
+        seq=type(s.seq)(*(None if x is None else x[cut] for x in s.seq)),
+        lrng=s.lrng._replace(key=s.lrng.key[cut], ctr=s.lrng.ctr[c]),
+        grng=s.grng._replace(key=s.grng.key[c:c + 1], ctr=s.grng.ctr[c]),
+        cond=s.cond[cut], lnld=s.lnld[cut], lnp=s.lnp[cut])
+
+
+@pytest.mark.parametrize("block", [8, 3])
+def test_two_chains_match_plain_and_each_chain_alone(block, warm_chains,
+                                                     host_libs, monkeypatch):
+    """Every kernel and both rubber-band modes on two chains at once (one
+    launch each, a block's loci one chain's) against their plain versions
+    (chip_smoke's checks, F64_TOL: equal counters, counts and flags per
+    chain), and each chain's outputs bitwise equal to the kernel's on that
+    chain alone: the population tables, counters, proposal values and
+    counts are the chain's own."""
+    _route(monkeypatch, host_libs["forward"], block=block)
+    s = warm_chains
+    both = kernel_checks(s, Compare(), F64_TOL)
+    both += sample_age_checks(s, Compare(), F64_TOL)
+    # one launch per call for both chains (the tau sweep through the
+    # kernel adds one per ancestral pop)
+    assert sweeps.LAUNCHES["node_age"] == 1 and sweeps.LAUNCHES["spr"] == 1
+    assert sweeps.LAUNCHES["rubber_band_sample_age"] == len(SAMPLE_AGE_STEPS)
+    L = s.num_loci
+    for c in range(2):
+        alone = kernel_checks(_chain(s, c), Compare(), F64_TOL,
+                              need_moves=False)
+        alone += sample_age_checks(_chain(s, c), Compare(), F64_TOL)
+        assert len(alone) == len(both)
+        for x, y in zip(both, alone):
+            if x.dim() and x.shape[0] == 2 * L:        # per locus
+                assert torch.equal(x[c * L:(c + 1) * L], y)
+            elif x.dim() and x.shape[0] == 2:          # per chain
+                assert torch.equal(x[c], y)
+            else:
+                raise AssertionError(f"output of shape {tuple(x.shape)}")

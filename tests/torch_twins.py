@@ -59,18 +59,27 @@ def warm_jax_sampler(tmp_dir, num_loci=24, seq_len=300, ctl=SAMPLE_CTL):
 
 
 def carry(s) -> dict:
-    """The JAX sampler's state as port objects (CPU, f64)."""
+    """The JAX sampler's state as port objects (CPU, f64).  A sampler of C
+    chains (stacked on a leading axis) gives the port's chain layout: the
+    per-locus state and streams chain-major, the shared sequence data
+    repeated for every chain, the parameters [C, P]."""
     conv = dict(device="cpu", dtype=F64)
+    C = getattr(s, "chains", 1)
+    per = dict(conv, chains=C > 1)
+    seq = TS.from_numpy(s.seq, TS.SeqData, **conv)
+    if C > 1:
+        seq = TS.SeqData(*(None if x is None else x.repeat(
+            C, *[1] * (x.dim() - 1)) for x in seq))
     return dict(
-        gen=TS.from_numpy(s.gen, TS.GenState, **conv),
+        gen=TS.from_numpy(s.gen, TS.GenState, **per),
         params=TS.from_numpy(s.params._replace(admix_coeff=None), TS.Params,
                              **conv),
-        seq=TS.from_numpy(s.seq, TS.SeqData, **conv),
-        lrng=TS.from_numpy(s.lrng, FastRngState, **conv),
-        grng=TS.from_numpy(s.grng, FastRngState, **conv),
-        lnld=TS.from_numpy(s.lnld, **conv),
-        lnp=TS.from_numpy(s.lnp, **conv),
-        cond=TS.from_numpy(s.cond, **conv),
+        seq=seq,
+        lrng=TS.from_numpy(s.lrng, FastRngState, **per),
+        grng=TS.from_numpy(s.grng, FastRngState, **per),
+        lnld=TS.from_numpy(s.lnld, **per),
+        lnp=TS.from_numpy(s.lnp, **per),
+        cond=TS.from_numpy(s.cond, **per),
         ft=TS.from_numpy(s.ft, Finetunes, **conv),
         ctx=make_context(s.tree, F64),
     )
