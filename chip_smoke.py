@@ -95,7 +95,23 @@ script then exits non-zero without the final line):
      and accepts, reals within F64_TOL); and a 4-chain checkpoint at
      iteration 10 resumed to 20, every chain's rows and the final
      checkpoint bitwise equal to the uninterrupted run's;
-  8. one JSON line per path with its it/s (the ragged ones with both
+  8. the admixed path (ADMIX_CTL: sample `one` named in B as well, so
+     its two haploid leaves are admixed) on the standard workload's data
+     at f32, driven as in phase 4 (the launch schedule of the standard
+     path), the coefficients moved, the carried lnld and lnp against a
+     rebuild and gen_log_prior (admixture terms included),
+     admixture-trace.out with 1 + A L shares in [0, 1] and the A...
+     trace columns inside (0, 1); every kernel against its plain version
+     on that state at F32_TOL and on an f64 copy at F64_TOL, SPR's
+     admixed mode with at least one admixed leaf moved to its other
+     population and one kept, and its time beside the plain version's;
+     both rubber-band modes under admixture on 64 loci of ADMIX_AGE_CTL
+     (D's sample age estimated) at f64 and f32; chain c of 2 admixed f64
+     chains (64 loci) against its one-chain run; and `python -m
+     gphocs_tpu_torch` on the card with an admixed control file: a
+     checkpoint at 10 resumed to 20 (rows and checkpoint bitwise equal to
+     the uninterrupted run's), and --chains 2;
+  9. one JSON line per path with its it/s (the ragged ones with both
      readings and their pattern cells, the chains with their chain-it/s
      and device operations per iteration), the card's line, one JSON line
      with the kernels (launches on the paths, error against the plain
@@ -104,7 +120,10 @@ script then exits non-zero without the final line):
      result line.
 
 The launch counts are set to 0 just before each path is driven and read
-just after; a kernel's `launches` is the sum over the paths.
+just after; a kernel's `launches` is the sum over the paths.  The entry
+`spr_admix` is SPR's admixed mode: its launches are the admixed path's
+SPR launches (counted under `spr` as well), its times and bound those
+on the admixed path's state.
 
 `bound_ms` is the larger of two times: the bytes of the wrapper's input
 and output tensors (each once) over 3.35 TB/s, and a count of the
@@ -577,6 +596,33 @@ def sample_age_checks(s, cmp, tol, want_conflict=False, want_clean=False,
     check(True in seen or not want_conflict, f"{name}: no conflict covered")
     check(False in seen or not want_clean,
           f"{name}: no conflict-free proposal covered")
+    return outs
+
+
+def admix_checks(s, cmp, tol, need_moves=True):
+    """Every kernel against its plain version on an admixed state (SPR's
+    admixed mode, and the rubber band's prior with the admixture terms in
+    both modes where the tree estimates a sample age), with the criteria
+    of kernel_checks, integer arrays (node_pop included) equal.  The SPR
+    comparison must not be vacuous: on some valid locus an admixed leaf
+    must move to its other population, and on some it must stay.  Returns
+    the kernels' outputs."""
+    from gphocs_tpu_torch.ops import sweeps
+
+    check(s.ctx.num_admixed > 0, "the state has no admixed leaves")
+    outs = kernel_checks(s, cmp, tol, need_moves)
+    if bool(s.tree.update_sample_age[SAMPLE_AGE_POP]):
+        outs += sample_age_checks(s, cmp, tol)
+    k = sweeps.spr_sweep(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
+                         s.cond)
+    slots, valid = s.ctx.admix_slot, s.gen.valid[:, None]
+    moved = (k[0].node_pop[:, slots] != s.gen.node_pop[:, slots]) & valid
+    flipped = int(moved.sum())
+    stayed = int((~moved & valid).sum())
+    log(f"  spr admixed mode: {flipped} admixed leaves moved to their other "
+        f"population, {stayed} stayed")
+    check(flipped > 0 and stayed > 0,
+          "spr admixed mode: no leaf moved, or every leaf moved")
     return outs
 
 
@@ -1216,6 +1262,209 @@ def chains_phase(tmp, data, card, cmp):
     return launches, readings, ms
 
 
+def admix_phase(tmp, data, card, cmp, times, bounds):
+    """Phase 8: the admixed path (ADMIX_CTL: sample `one` also in B, two
+    admixed leaves) on the standard workload's data at f32.  Adds SPR's
+    admixed mode to `times` and `bounds` (entry "spr_admix") and the
+    rubber band's readings on the admixed state to its entry.  Returns
+    (it/s, launches of the path, device operations per iteration)."""
+    import numpy as np
+    import torch
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import (ADMIX_AGE_CTL, ADMIX_CTL,
+                                                 with_settings)
+    from gphocs_tpu_torch.kernels.common import gen_log_prior
+    from gphocs_tpu_torch.kernels.spr import update_spr
+    from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    dev = torch.device("cuda")
+    acmp = Compare()  # SPR's errors here are its admixed mode's
+    s, its, launches, st = drive_path("admixture", ADMIX_CTL, data, tmp,
+                                      card, sample_age=False)
+    A = s.ctx.num_admixed
+    check(A == 2, f"{A} admixed leaves")
+    log(f"  admixture: {int(st.acc_admix)} of {A * TIMED} coefficient moves "
+        f"accepted in the timed chunk, coefficients "
+        f"{s.params.admix_coeff.tolist()}")
+    check(not s.check_state(), "the admixed state fails its check")
+    lnp = gen_log_prior(s.gen, s.params, s.ctx)
+    rel = float(((lnp - s.lnp).abs() / lnp.abs().clamp(min=1.0)).max())
+    log(f"  carried lnp vs gen_log_prior (admixture terms included): max "
+        f"rel err {rel:.2e}")
+    check(rel <= 1e-3, "carried lnp disagrees with gen_log_prior")
+    vals = open(os.path.join(tmp, "admixture-trace.out")).read().split()
+    shares = np.array(vals[1:], float)
+    check(int(vals[0]) == RUN_ITERS - 1 and shares.size == A * s.num_loci
+          and bool(((shares >= 0) & (shares <= 1)).all()),
+          f"admixture-trace.out: {len(vals)} values")
+    rows = np.loadtxt(os.path.join(tmp, "trace_admixture.log"), skiprows=1)
+    head = open(os.path.join(tmp, "trace_admixture.log")).readline().split()
+    acols = [i for i, c in enumerate(head) if c.startswith("A")]
+    check(len(acols) == A and bool(((rows[:, acols] > 0)
+                                    & (rows[:, acols] < 1)).all()),
+          "the A... columns leave (0, 1)")
+    log(f"  admixture-trace.out: iteration {vals[0]}, {shares.size} shares "
+        f"in [0, 1] (mean {shares.mean():.3f}); trace columns "
+        f"{[head[i] for i in acols]} inside (0, 1)")
+    ops = device_ops(lambda: s.step_chunk(1, do_migrate=True), reps=3)
+    log(f"  device operations per iteration: {ops}")
+
+    log(" -- the kernels on the admixed path's state: f32, then an f64 copy")
+    admix_checks(s, acmp, F32_TOL, need_moves=False)
+    admix_checks(cast_state(s, torch.float64), acmp, F64_TOL,
+                 need_moves=False)
+    g, pr, sq, c = s.gen, s.params, s.seq, s.ctx
+    spr_args = (g, pr, sq, s.lrng, c, s.lnld, s.cond)
+    plain = update_spr(*spr_args, sync_group=1)
+    k1 = time_cuda(lambda: sweeps.spr_sweep(*spr_args), 10)
+    p1 = time_cuda(lambda: update_spr(*spr_args, sync_group=1), 2)
+    prep = sweeps.prepare_spr(*spr_args)
+    d1 = time_cuda(lambda: prep.launch(dev), 20)
+    times["spr_admix"] = {"ms": k1, "plain_ms": p1, "device_ms": d1,
+                          "loci_per_block": prep.plan.loci_per_block,
+                          "smem_bytes_per_block": prep.plan.smem_bytes}
+    spr_draws = int(plain[1].ctr) - int(s.lrng.ctr)
+    v = op_models(s, spr_draws)["spr"]
+    bounds["spr_admix"] = bound(*v) + v
+    pop = s.tree.num_pops - 1
+    b = tau_bounds(s, pop)
+    rb = (g, pr, sq, c, pop, False, *b, s.cond)
+    prep = sweeps.prepare_rubber_band(*rb)
+    times["rubber_band"].update(
+        admix_ms=time_cuda(lambda: sweeps.rubber_band_eval(*rb), 10),
+        admix_device_ms=time_cuda(lambda: prep.launch(dev), 20),
+        admix_plain_ms=time_cuda(lambda: rubber_band_eval_plain(*rb), 2))
+    log(f"  spr admixed mode: wrapper call {k1:.3f} ms, launch alone "
+        f"{d1:.4f} ms, plain {p1:.3f} ms; rubber band on this state: "
+        f"{times['rubber_band']['admix_ms']:.3f} ms, launch alone "
+        f"{times['rubber_band']['admix_device_ms']:.4f} ms")
+    del s, g, pr, sq, c, spr_args, plain, prep, rb
+
+    log(" -- both rubber-band modes under admixture (64 loci of "
+        "ADMIX_AGE_CTL: f64, then f32)")
+    sa = warm_state(dev, torch.float64, os.path.join(tmp, "admix_age.txt"),
+                    ctl=ADMIX_AGE_CTL)
+    admix_checks(sa, acmp, F64_TOL)
+    admix_checks(cast_state(sa, torch.float32), acmp, F32_TOL,
+                 need_moves=False)
+    del sa
+    for k, v in acmp.err.items():
+        name = "spr_admix" if k == "spr" else k
+        cmp.err[name] = max(cmp.err.get(name, 0.0), v)
+
+    def sampler(seed, chains, dtype, iters=CHAIN_CHECK, loci=64):
+        cfg = parse_control_text(ADMIX_CTL)
+        cfg.mcmc.random_seed = seed
+        cfg.mcmc.start_mig = 0
+        cfg.mcmc.burn_in = 0
+        cfg.mcmc.mcmc_iterations = iters
+        cfg.mcmc.num_loci = loci
+        return Sampler(cfg, seq_path=data, dtype=dtype, device="cuda",
+                       chains=chains)
+
+    log(f" -- chain c of 2 admixed chains (f64, 64 loci, {CHAIN_CHECK} "
+        "iterations) against the one-chain run with seed base + 7919 c")
+    base = 29
+    sc = sampler(base, 2, torch.float64)
+    sc.initialize()
+    stc, trc = sc.step_chunk(CHAIN_CHECK, do_migrate=True)
+    L = sc.num_loci
+    for ci in range(2):
+        s1 = sampler(base + 7919 * ci, 1, torch.float64)
+        s1.initialize()
+        st1, tr1 = s1.step_chunk(CHAIN_CHECK, do_migrate=True)
+        gc, pc = sc.chain_state(ci)
+        cut = slice(ci * L, (ci + 1) * L)
+        for f in gc._fields:
+            check(same(getattr(gc, f), getattr(s1.gen, f)),
+                  f"admixed chain {ci}: {f} differs from its one-chain run")
+        for f in ("theta", "tau", "mig_rate", "admix_coeff"):
+            check(same(getattr(pc, f), getattr(s1.params, f)),
+                  f"admixed chain {ci}: {f} differs")
+        check(same(sc.lnld[cut], s1.lnld) and same(sc.lnp[cut], s1.lnp)
+              and same(sc.lrng.ctr[ci], s1.lrng.ctr)
+              and same(sc.grng.ctr[ci], s1.grng.ctr),
+              f"admixed chain {ci}: lnld, lnp or counters differ")
+        for f in st1._fields:
+            check(same(getattr(stc, f)[ci], getattr(st1, f)),
+                  f"admixed chain {ci}: {f} differs")
+        log(f"  chain {ci}: bitwise equal to its one-chain run; coefficient "
+            f"moves accepted {int(st1.acc_admix)}, SPR {int(st1.acc_spr)}")
+    del sc, s1
+
+    log(f" -- python -m gphocs_tpu_torch on the card: a checkpoint at "
+        f"{CHAIN_CKPT} resumed to {2 * CHAIN_CKPT}, and --chains 2 "
+        f"({CHAIN_CKPT_LOCI} loci, f32)")
+
+    def ctl(name, iterations):
+        path = os.path.join(tmp, f"admix_{name}.ctl")
+        with open(path, "w") as f:
+            f.write(with_settings(
+                ADMIX_CTL, seq_file=data, num_loci=CHAIN_CKPT_LOCI,
+                trace_file=os.path.join(tmp, f"admix_{name}", "trace.log"),
+                mcmc_iterations=iterations, iterations_per_log=CHAIN_CKPT,
+                random_seed=5, burn_in=0, start_mig=0))
+        os.makedirs(os.path.join(tmp, f"admix_{name}"), exist_ok=True)
+        return path
+
+    def start(name, iterations, *flags):
+        out = open(os.path.join(tmp, f"admix_{name}.out"), "w")
+        return subprocess.Popen(
+            [sys.executable, "-m", "gphocs_tpu_torch", ctl(name, iterations),
+             "--checkpoint", os.path.join(tmp, f"admix_{name}.npz"),
+             "--checkpoint-every", str(CHAIN_CKPT), *flags],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT), out
+
+    def finish(name, proc_out):
+        proc, out = proc_out
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            out.close()
+        text = open(out.name).read()
+        log(f"  {name}: exit {rc}; " + " | ".join(text.splitlines()[:3]))
+        check(rc == 0, f"admixed CLI run {name} failed:\n{text[-3000:]}")
+        return text
+
+    runs = {"whole": start("whole", 2 * CHAIN_CKPT, "--debug-check"),
+            "first": start("first", CHAIN_CKPT),
+            "chains": start("chains", CHAIN_CKPT, "--chains", "2",
+                            "--debug-check")}
+    texts = {name: finish(name, pr) for name, pr in runs.items()}
+    check("AdmxCoefs" in texts["whole"], "no AdmxCoefs column in the log")
+    shutil.copy(os.path.join(tmp, "admix_first.npz"),
+                os.path.join(tmp, "admix_resumed.npz"))
+    finish("resumed", start("resumed", 2 * CHAIN_CKPT, "--resume"))
+
+    def lines(name):
+        return open(os.path.join(tmp, f"admix_{name}", "trace.log")
+                    ).read().splitlines()
+
+    a, b = lines("whole"), lines("resumed")
+    check(a[CHAIN_CKPT + 1:] == b[1:] and len(b) == CHAIN_CKPT + 1,
+          "the resumed admixed run's trace rows differ")
+    za = np.load(os.path.join(tmp, "admix_whole.npz"))
+    zb = np.load(os.path.join(tmp, "admix_resumed.npz"))
+    check(sorted(za.files) == sorted(zb.files)
+          and all(np.array_equal(za[k], zb[k]) for k in za.files),
+          "the resumed admixed run's final checkpoint differs")
+    check(za["params_admix_coeff"].shape == (A,), "no coefficients saved")
+    adm = open(os.path.join(tmp, "admix_whole", "admixture-trace.out")
+               ).read().split()
+    check(len(adm) == 1 + A * CHAIN_CKPT_LOCI, "admixture-trace.out size")
+    check(len(lines("chains")) == CHAIN_CKPT + 1
+          and "A0[B]" in lines("chains")[0], "the 2-chain trace")
+    log(f"  rows {CHAIN_CKPT + 1}-{2 * CHAIN_CKPT} and the {len(za.files)} "
+        "checkpoint arrays of the resumed run bitwise equal; "
+        f"admixture-trace.out {len(adm)} values; --chains 2 ran")
+    torch.cuda.synchronize()
+    return its, launches, ops
+
+
 def main():
     import torch
 
@@ -1468,6 +1717,15 @@ def main():
     paths[f"chains{CHAINS}"] = chain_read[f"c{CHAINS}"][0]
     all_launches.append(launches)
     log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    log(f"== phase 8: the admixed path ({WORKLOAD_LOCI} loci x "
+        f"{WORKLOAD_BP} bp of the standard workload, ADMIX_CTL, f32)")
+    t_phase = time.perf_counter()
+    paths["admixture"], launches, admix_ops = admix_phase(
+        tmp, data, card, cmp, times, bounds)
+    all_launches.append(launches)
+    log(f"  device operations per iteration: admixed {admix_ops}, standard "
+        f"{chain_read['ops_per_iteration']['1']} (phase 7)")
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
@@ -1475,20 +1733,27 @@ def main():
                            "gphocs_tpu/ops/sweeps_pallas.py:891"),
            "rubber_band_sample_age": (
                "rubber_band.cu", "gphocs_tpu/ops/sweeps_pallas.py:891"),
-           "spr": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413")}
+           "spr": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413"),
+           # SPR's admixed mode: the Pallas SPR leaves admixture out, so
+           # its semantics are those of gphocs_tpu/kernels/spr.py:504-531
+           "spr_admix": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413")}
     kernels = []
     for n in src:
-        by_path = dict(zip(paths, (la[n] for la in all_launches)))
+        if n == "spr_admix":  # the admixed path's SPR launches
+            by_path = {"admixture": launches["spr"]}
+        else:
+            by_path = dict(zip(paths, (la[n] for la in all_launches)))
         check(sum(by_path.values()) > 0, f"{n}: never launched on a path")
         b_ms, b_by, nbytes, nops = bounds[n]
         kernels.append({
             "name": n, "route": "cuda",
             "source": f"gphocs_tpu_torch/csrc/{src[n][0]}",
             "replaces": src[n][1], "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": cmp.err[n],
-            **times[n], f"ms_chains{CHAINS}": chain_ms[n], "bound_ms": b_ms,
-            "bound_by": b_by, "bound_bytes": nbytes, "bound_operations": nops,
-            "library_ms": None})
+            "launches_by_path": by_path,
+            "max_abs_err": cmp.err[n],
+            **times[n], f"ms_chains{CHAINS}": chain_ms.get(n),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+            "bound_operations": nops, "library_ms": None})
         log(f"  {n:24s} {times[n]['ms']:.3f} ms; bound {b_ms * 1e3:.2f} us by "
             f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)

@@ -14,7 +14,9 @@ sampler writes `gen_*`, `lrng_*`, `lnld`, `lnp`, `cond`; a bucketed one
 a file written on a TPU with the Pallas kernels' lane layout is not.  A
 sampler of C chains writes gphocs_tpu's stacked layout: a leading chain
 axis on every per-chain array ([C, L, ...] per locus, [C, P] parameters,
-[C] counters, the general streams' keys [C, 1]).
+[C] counters, the general streams' keys [C, 1]).  The admixture
+coefficients are `params_admix_coeff`, [A] ([C, A]), with A = 0 where the
+run has no admixed leaves.
 """
 
 from __future__ import annotations
@@ -74,10 +76,7 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
         # from the carried values
         arrays[f"{p}cond"] = per_locus(sampler.conds[k])
     for name in Params._fields:
-        val = getattr(sampler.params, name)
-        arrays[f"params_{name}"] = (
-            np.zeros(sampler.params.theta.shape[:-1] + (0,), real)
-            if val is None else _np(val, real))
+        arrays[f"params_{name}"] = _np(getattr(sampler.params, name), real)
     arrays["grng_key"], arrays["grng_ctr"] = _rng_np(sampler.grng, C)
     arrays["iteration"] = np.asarray(iteration)
     arrays["rate_var"] = np.asarray(sampler.rate_var)
@@ -128,12 +127,13 @@ def load_checkpoint(sampler, path: str) -> int:
                             ctr=from_numpy(data[f"{pre}_ctr"], **conv))
 
     admix = data["params_admix_coeff"]
-    if admix.size:
-        raise NotImplementedError(
-            f"{path}: admixture coefficients (ROADMAP Queue 1 item 10b)")
+    A = sampler.ctx.num_admixed
+    if admix.shape[-1] != A:
+        raise ValueError(f"{path}: a checkpoint of {admix.shape[-1]} "
+                         f"admixed leaves, this sampler has {A}")
     sampler.params = Params(**{
         name: from_numpy(data[f"params_{name}"], **conv)
-        for name in Params._fields if name != "admix_coeff"})
+        for name in Params._fields})
     sampler.grng = rng("grng")
     pre = ([f"b{k}_" for k in range(n_buckets)] if n_buckets > 1 else [""])
     gens, lrngs, lnlds, lnps, conds = [], [], [], [], []

@@ -12,7 +12,9 @@ falls back to the CPU.  float32 on the card and float64 on the CPU unless
 mode ported); the options of modes not ported yet raise before any file
 is read.  `--chains C` runs C independent chains side by side (seeds base +
 7919 c; chain 0 writes the trace), not with `--buckets` or a coal-stats
-file.  `-n` is accepted for compatibility and ignored.
+file.  A control file with admixed samples runs without `--buckets` (as
+in gphocs_tpu) and writes admixture-trace.out beside the trace.  `-n` is
+accepted for compatibility and ignored.
 """
 
 from __future__ import annotations
@@ -105,6 +107,9 @@ def main(argv=None):
     use_x64 = args.x64 if args.x64 is not None else args.device == "cpu"
     dtype = torch.float64 if use_x64 else torch.float32
     cfg = parse_control_file(args.control_file, args.secondary_control)
+    if args.buckets > 1 and cfg.admixed:
+        ap.error("--buckets: admixture requires one pattern bucket (as in "
+                 "gphocs_tpu)")
     if args.chains > 1 and cfg.mcmc.coal_stats_file != "NONE":
         ap.error("--chains: a coal-stats file takes one chain (drop "
                  "coal-stats-file from the control file)")

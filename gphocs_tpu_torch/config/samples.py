@@ -23,6 +23,15 @@ diploid samples (S = 32 haploid, N = 63 nodes, the kernels' MAXN) in
 SAMPLE_CTL's population tree and band.  It has `{seq}` and `{trace}`
 placeholders for str.format.
 
+ADMIX_CTL is the admixed configuration of gphocs_tpu's
+tests/test_sampler.py:test_admixture_end_to_end: SAMPLE_CTL with
+`admixture TRUE`, `finetune-admix 0.05`, and sample `one` named in B as
+well as in A, so that its two haploid slots are admixed leaves (A = 2)
+between A (first) and B (second).  Sequence files simulated under
+SAMPLE_CTL serve it: the sample names are the same.  ADMIX_AGE_CTL adds
+SAMPLE_AGE_CTL's estimated sample age on D, so that one state drives the
+rubber band's two modes under admixture.
+
 `with_settings` replaces or adds GENERAL-INFO settings of a control text.
 
 RAGGED_* describe the ragged workload of gphocs_tpu's
@@ -121,6 +130,14 @@ SAMPLE_AGE_VAR_CTL = SAMPLE_AGE_CTL.replace(
     "\tlocus-mut-rate          CONST",
     "\tlocus-mut-rate      VAR 1.0\n\tfinetune-locus-rate 0.3")
 assert "VAR 1.0" in SAMPLE_AGE_VAR_CTL
+
+ADMIX_CTL = SAMPLE_CTL.replace(
+    "GENERAL-INFO-END",
+    "admixture TRUE\nfinetune-admix 0.05\nGENERAL-INFO-END").replace(
+    "samples\t\ttwo d", "samples\t\ttwo d one d")
+assert "two d one d" in ADMIX_CTL and "admixture TRUE" in ADMIX_CTL
+ADMIX_AGE_CTL = ADMIX_CTL.replace(_D_POP, _D_POP + "\t\tage\t\t0.00002\te\n")
+assert "age\t\t0.00002" in ADMIX_AGE_CTL
 
 WIDE_CTL = SAMPLE_CTL
 for _name in ("one", "two", "three", "five"):

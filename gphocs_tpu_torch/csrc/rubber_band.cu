@@ -11,7 +11,11 @@
 // new band windows and the neighbouring events, a full bottom-up rebuild
 // of the conditionals (post-order, one combine per internal node) with the
 // root log-likelihood, and the genealogy log-prior from scratch (pairwise
-// overlaps of the segment set with the tight root cap).  No RNG.
+// overlaps of the segment set with the tight root cap), with the
+// admixture terms where the run has admixed leaves (a.A > 0: log c or
+// log(1 - c) per admixed leaf, in index order, as the plain version's
+// gen_log_prior; the JAX package's Pallas kernel leaves them out, its XLA
+// update_taus does not).  No RNG.
 //
 // Sample-age mode (a.sample_age != 0): `pop` is a current population whose
 // sample age moves from tauold to taunew inside (taub0, taub1) = (0, its
@@ -355,6 +359,9 @@ __global__ void rubber_band_kernel(const SweepArgs a) {
     }
     lnp += sm;
   }
+  // the admixture terms: a tau or sample-age move leaves the leaves'
+  // populations, so these are the state's own
+  if (a.A > 0) lnp += admix_lnp<T>(a, npop, c);
   // integer sums over the valid loci; an invalid locus adds nothing
   ntj0 = warp_sum(ntj0);
   ntj1 = warp_sum(ntj1);

@@ -12,6 +12,17 @@
 // conditionals along the root paths of f and of the old grandfather on a
 // proposal copy; MH on the data likelihood (1 draw).
 //
+// Admixed mode (a.A > 0; plain version: kernels/spr.py's admixed branch,
+// reference src/GPhoCS.c:2670-2696): every node step first takes one
+// uniform u at the locus's next offset, whatever the node (the JAX
+// package's fast rndu consumes it unmasked).  On an admixed leaf that is
+// not the root the leaf's population becomes its second one where u < c
+// (the block's chain's coefficient), else its first: the walk starts from
+// that population and the commit writes it, so a rejected move keeps the
+// old one.  The leaf table is read from popi, the coefficient from
+// a.admix_coeff; nothing is added to shared memory.  With A = 0 none of
+// this runs.
+//
 // RNG schedule: a locus walks on its own.  Its trips end when its own
 // status leaves 0, it keeps its own draw offset, and the wrapper advances
 // the shared counter by the largest offset over the valid and invalid loci
@@ -212,6 +223,18 @@ __global__ void spr_kernel(const SweepArgs a) {
 
   for (int i = 0; i < N; ++i) {
     const bool active0 = real && root != i;
+    int pop_i = npop[i];  // the population node i walks from
+    if (a.A > 0) {
+      const i64* adm = admix_table(a);
+      int q = -1;
+      for (int r = 0; r < a.A; ++r) q = (int)adm[r] == i ? r : q;
+      if (q >= 0 && active0) {
+        const T u = uniform<T>(key, ctr0 + doff + 1);
+        const T cf = ((const T*)a.admix_coeff)[(size_t)c * a.A + q];
+        pop_i = (int)adm[(u < cf ? 2 : 1) * a.A + q];
+      }
+      doff += 1;
+    }
     // ---- per-step tables: edge tops, mig windows, boundary grid ----
     int base_migs = 0;
     bool any_mig = false;  // the locus has migration events
@@ -260,7 +283,7 @@ __global__ void spr_kernel(const SweepArgs a) {
     SWEEP_TICK(2)
     // ---- the walk ----
     int status = active0 ? 0 : -2;
-    int pop_c = npop[i];
+    int pop_c = pop_i;
     T age_c = age[i];
     int n_new = 0, target = 0;
     T coal_age = (T)0;
@@ -406,7 +429,7 @@ __global__ void spr_kernel(const SweepArgs a) {
       const bool tc = ok && target != sib && target != f;
       LANES(v, N) {
         age_p[v] = (ok && v == f) ? coal_age : age[v];
-        pop_p[v] = (ok && v == f) ? pop_c : npop[v];
+        pop_p[v] = (ok && v == f) ? pop_c : (v == i ? pop_i : npop[v]);
         int x = father[v];
         if (tc && v == sib) x = g;
         if (tc && v == f) x = tgt_fa;

@@ -59,7 +59,8 @@ struct SweepArgs {
   const void* pattern_valid;
   // population parameters as the state holds them: theta [C, PP], tau
   // [C, PP], mig_rate [C, B]; popi = [father_pop (PP), band source, target
-  // (B each), anc (PP*PP)], int64, constant for a run.  ctr: [C].
+  // (B each), anc (PP*PP), admixed leaf, its first pop, its second pop (A
+  // each)], int64, constant for a run.  ctr: [C].
   const void* theta; const void* tau; const void* mig_rate; const void* popi;
   const void* key; const void* ctr; const void* finetune;
   // rubber band: the proposal's four reals, one per chain ([C])
@@ -83,14 +84,16 @@ struct SweepArgs {
   // a kernel built with -DSWEEP_PROFILE: [L, 16] int64 cycle counts, or
   // null
   void* prof;
+  // the admixture coefficients [C, A] (null where A = 0)
+  const void* admix_coeff;
   // sample_age: rubber band in its sample-age mode (pop is a current pop).
   // block: loci per block.  cond_smem: the locus's conditionals live in
   // shared memory (else in cond_out / prop).
   // smem_bytes: dynamic shared memory of one block.
   // advance: the draws a sweep of fixed length takes from the counter.
-  // C: chains; Lc: loci per chain (L = C * Lc).
+  // C: chains; Lc: loci per chain (L = C * Lc).  A: admixed leaves.
   int L, N, M, B, PP, P, root_pop, pop, is_root, block, sample_age,
-      cond_smem, smem_bytes, advance, C, Lc;
+      cond_smem, smem_bytes, advance, C, Lc, A;
   double oldage;
 };
 
@@ -192,6 +195,8 @@ struct PopTables {
 // ---- math overloads ------------------------------------------------------
 __device__ __forceinline__ float d_log(float x) { return logf(x); }
 __device__ __forceinline__ double d_log(double x) { return log(x); }
+__device__ __forceinline__ float d_log1p(float x) { return log1pf(x); }
+__device__ __forceinline__ double d_log1p(double x) { return log1p(x); }
 __device__ __forceinline__ float d_exp(float x) { return expf(x); }
 __device__ __forceinline__ double d_exp(double x) { return exp(x); }
 __device__ __forceinline__ float d_cos(float x) { return cosf(x); }
@@ -445,6 +450,29 @@ __device__ T root_lnld_w(const T* cond, int root, const int* gid,
   T lnl = (T)0;
   for (int g = 0; g < P; ++g) lnl += gsum[g];
   return lnl;
+}
+
+// ---- admixture -------------------------------------------------------
+// The admixed leaves' table in popi: leaf q is adm[q], its first and
+// second populations adm[A + q] and adm[2A + q].
+__device__ __forceinline__ const i64* admix_table(const SweepArgs& a) {
+  return (const i64*)a.popi + a.PP + 2 * a.B + a.PP * a.PP;
+}
+
+// The prior's admixture terms of one locus (kernels/common.py
+// gen_log_prior_from_stats): log c where leaf q sits in its second
+// population, log(1 - c) in its first, added over q in index order.
+template <typename T>
+__device__ T admix_lnp(const SweepArgs& a, const int* npop, int c) {
+  const i64* adm = admix_table(a);
+  const T* cf = (const T*)a.admix_coeff + (size_t)c * a.A;
+  T s = (T)0;
+  for (int q = 0; q < a.A; ++q) {
+    const T x = npop[adm[q]] == (int)adm[2 * a.A + q] ? d_log(cf[q])
+                                                      : d_log1p(-cf[q]);
+    s = q == 0 ? x : s + x;
+  }
+  return s;
 }
 
 // Bytes of one locus's shared-memory region: `reals` T's, then `ints`

@@ -14,11 +14,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gphocs_tpu_torch.constants import OLDAGE
 from gphocs_tpu_torch.model.poptree import PopTree
 from gphocs_tpu_torch.state import GenState, Params
+from gphocs_tpu_torch.utils import ordered_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +48,8 @@ class Context:
     num_cur_pops: int = 0
     oldage: float = OLDAGE
     # the CUDA kernels' integer tables, built once by make_context:
-    # [father_pop (P), band_source (B), band_target (B), is_ancestral (P*P)]
+    # [father_pop (P), band_source (B), band_target (B), is_ancestral (P*P),
+    #  admix_slot (A), admix_pops[:, 0] (A), admix_pops[:, 1] (A)]
     popi: torch.Tensor | None = None
 
     @property
@@ -69,9 +72,12 @@ def make_context(tree: PopTree, dtype=torch.float64, device="cpu") -> Context:
     def real(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    pairs = np.asarray(tree.admix_pops).reshape(-1, 2)
     popi = torch.cat([i64(tree.father), i64(tree.band_source),
                       i64(tree.band_target),
-                      i64(tree.is_ancestral).reshape(-1)]).contiguous()
+                      i64(tree.is_ancestral).reshape(-1),
+                      i64(tree.admix_slot), i64(pairs[:, 0]),
+                      i64(pairs[:, 1])]).contiguous()
     return Context(
         popi=popi,
         father_pop=i64(tree.father),
@@ -173,14 +179,22 @@ def full_stats(gen: GenState, params: Params, ctx: Context):
 
 def gen_log_prior_from_stats(stats, gen: GenState, params: Params,
                              ctx: Context) -> torch.Tensor:
-    """Per-locus genealogy log prior from precomputed sufficient stats.
-    Admixture terms are not ported yet (the driver refuses admixture)."""
+    """Per-locus genealogy log prior from precomputed sufficient stats,
+    with the admixture assignment terms where the run has admixed leaves
+    (reference gtreeLnLikelihood, src/patch.c:2725-2735): log c where the
+    leaf sits in its second population, log(1 - c) in its first, added
+    over the admixed leaves in index order (the rubber-band kernel's
+    order, csrc/rubber_band.cu)."""
     from gphocs_tpu_torch.ops.coalstats import genealogy_log_prior
 
+    lnp = genealogy_log_prior(stats, params)
     if ctx.num_admixed > 0:
-        raise NotImplementedError(
-            "admixture: ROADMAP Queue 1 item 10b")
-    return genealogy_log_prior(stats, params)
+        in_second = (gen.node_pop[:, ctx.admix_slot]
+                     == ctx.admix_pops[None, :, 1])            # [L, A]
+        c = rows(params.admix_coeff, gen.num_loci)
+        lnp = lnp + ordered_sum(torch.where(in_second, torch.log(c),
+                                            torch.log1p(-c)))
+    return lnp
 
 
 def gen_log_prior(gen: GenState, params: Params, ctx: Context) -> torch.Tensor:

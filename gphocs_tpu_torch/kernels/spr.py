@@ -1,5 +1,5 @@
 """UpdateGB_MigSPR: subtree-prune-regraft with migration, all loci batched
-(twin of gphocs_tpu/kernels/spr.py, fast-RNG mode, no admixture).
+(twin of gphocs_tpu/kernels/spr.py, fast-RNG mode).
 
 This is the plain PyTorch version of the SPR kernel (csrc/spr.cu).
 
@@ -15,6 +15,14 @@ For each node (sequential sweep, loci parallel):
   3. lnacceptance = data-likelihood delta only (reference
      src/GPhoCS.c:2702-2714).
   4. On accept, rewire topology and migration events (_apply_spr).
+
+Admixture (reference src/GPhoCS.c:2670-2696): where the run has admixed
+leaves, every node step first takes one uniform u per locus, whatever the
+node (gphocs_tpu's fast rndu consumes it unmasked).  On an admixed leaf
+that is not the root, the leaf's population becomes its second one where
+u < c (its chain's coefficient), else its first; the walk starts from
+that population, an accepted move keeps it, and a rejected one restores
+the old population.
 
 RNG schedule (`sync_group`, the repo's deviation 9): loci are split into
 consecutive groups of `sync_group` lanes.  Walk trips of a group run while
@@ -389,9 +397,6 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
     be recomputed by the caller.  sync_group = 0 means L (global trip
     synchronization; a chain's loci for C chains, whose counts are
     [C])."""
-    if ctx.num_admixed > 0:
-        raise NotImplementedError(
-            "SPR with admixture: ROADMAP Queue 1 item 10b")
     L, N = gen.father.shape
     dt = gen.age.dtype
     dev = gen.age.device
@@ -403,12 +408,28 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
     acc = torch.zeros(params.theta.shape[:-1], dtype=torch.int64,
                       device=dev)
 
+    leaves = ctx.admix_slot.tolist()
+    pairs = ctx.admix_pops.tolist()
     for inode in range(N):
         active0 = (gen.root != inode) & gen.valid
-        sim = _simulate_reconnect(gen, params, ctx, inode, rng, doff,
+        gen_sim = gen
+        if leaves:
+            u_adm = RF.raw_u(rng, doff + 1, dt)
+            doff = doff + 1
+            if inode in leaves:
+                a = leaves.index(inode)
+                first, second = pairs[a]
+                coeff = rows(params.admix_coeff, L)[:, a]
+                old = gen.node_pop[:, inode]
+                new_pop = torch.where(u_adm < coeff, second, first)
+                node_pop = gen.node_pop.clone()
+                node_pop[:, inode] = torch.where(gen.root != inode, new_pop,
+                                                 old)
+                gen_sim = gen._replace(node_pop=node_pop)
+        sim = _simulate_reconnect(gen_sim, params, ctx, inode, rng, doff,
                                   active0, G)
         ok = sim.status == 1
-        gen_prop = _apply_spr(gen, inode, ok, sim)
+        gen_prop = _apply_spr(gen_sim, inode, ok, sim)
         # dirty: f (new age/sons), the old grandfather (lost son f) and the
         # target's old father (gained son f), plus their ancestors
         f = gen.father[:, inode]

@@ -64,10 +64,11 @@ PTR_FIELDS = (
     "age_out", "lson_out", "rson_out", "father_out", "node_pop_out",
     "root_out", "mig_branch_out", "mig_band_out", "mig_age_out",
     "lnld_out", "lnp_out", "acc_out", "ctr_out", "stat", "prof",
+    "admix_coeff",
 )
 INT_FIELDS = ("L", "N", "M", "B", "PP", "P", "root_pop", "pop", "is_root",
               "block", "sample_age", "cond_smem", "smem_bytes", "advance",
-              "C", "Lc")
+              "C", "Lc", "A")
 
 
 class SweepArgs(ctypes.Structure):

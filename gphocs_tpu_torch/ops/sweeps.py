@@ -17,7 +17,11 @@ the plain version or from CUDA to the CPU.
 
 The kernels read theta, tau and the migration rates from the state's own
 tensors and make pop_end and the band windows themselves; the integer
-tables are built once per Context (`Context.popi`).  The rubber band and
+tables are built once per Context (`Context.popi`, the admixed leaves
+and their populations included).  Where the run has admixed leaves, SPR
+resamples a leaf's population before its walk and the rubber band adds
+the prior's admixture terms; both read the coefficients [A] ([C, A]) from
+the state's own tensor.  The rubber band and
 SPR also reduce their per-locus counts on the card, so their wrappers
 launch a fill, the kernel and two small conversions; node age and
 migration age write the advanced counter themselves and count accepts per
@@ -207,12 +211,16 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
     if ctx.popi is None or ctx.popi.device != gen.age.device:
         raise ValueError("the Context carries no integer tables on the "
                          "state's device: build it with make_context")
-    a.popi = _check(ctx.popi, "popi", i64, (PP + 2 * B + PP * PP,))
+    A = ctx.num_admixed
+    a.popi = _check(ctx.popi, "popi", i64, (PP + 2 * B + PP * PP + 3 * A,))
+    if A:
+        a.admix_coeff = _check(params.admix_coeff, "admix_coeff", dt,
+                               ch + (A,))
     if rng is not None:
         a.key = _check(rng.key, "key", i64, (L,))
         a.ctr = _check(rng.ctr, "ctr", i64, ch)
     a.L, a.N, a.M, a.B, a.PP = L, N, M, B, PP
-    a.C, a.Lc = C, L // C
+    a.C, a.Lc, a.A = C, L // C, A
     a.root_pop = ctx.root_pop
     a.oldage = ctx.oldage
     return a
@@ -437,14 +445,12 @@ def prepare_spr(gen: GenState, params: Params, seq: SeqData,
 
 def spr_sweep(gen: GenState, params: Params, seq: SeqData,
               rng: FastRngState, ctx: Context, lnld, cond):
-    """Fused SPR sweep (gphocs_tpu's spr_sweep_pallas, no admixture).
-    Returns (gen, rng, lnld, cond, acc)."""
+    """Fused SPR sweep (gphocs_tpu's spr_sweep_pallas; with admixed
+    leaves, the semantics of its XLA update_spr, which the Pallas kernel
+    leaves out).  Returns (gen, rng, lnld, cond, acc)."""
     if not _on_cuda(gen.age, cond, lnld, rng.key):
         return update_spr(gen, params, seq, rng, ctx, lnld, cond,
                           sync_group=gen.num_loci)
-    if ctx.num_admixed > 0:
-        raise NotImplementedError(
-            "SPR with admixture: ROADMAP Queue 1 item 10b")
     p = prepare_spr(gen, params, seq, rng, ctx, lnld, cond)
     p.launch(cond.device)
     LAUNCHES["spr"] += 1

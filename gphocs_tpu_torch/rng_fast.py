@@ -180,6 +180,14 @@ def batch_u(state: FastRngState, n: int, dtype
     return _raw_u_batch(state, n, 1, dtype), bump(state, n)
 
 
+def normal8(u1, u2, u3) -> torch.Tensor:
+    """The mixture-kernel draw of rnd2normal8 from its three uniforms:
+    Box-Muller from u1, u2, the sign from u3."""
+    nrm = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    zval = M2N + nrm * S2N
+    return torch.where(u3 < 0.5, zval, -zval)
+
+
 def batch_2normal8(state: FastRngState, n: int, dtype
                    ) -> Tuple[torch.Tensor, FastRngState]:
     """[n] ([C, n]) mixture-kernel draws from the general stream in one
@@ -187,6 +195,4 @@ def batch_2normal8(state: FastRngState, n: int, dtype
     u1 = _raw_u_batch(state, n, 1, dtype)
     u2 = _raw_u_batch(state, n, 1 + n, dtype)
     u3 = _raw_u_batch(state, n, 1 + 2 * n, dtype)
-    nrm = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
-    zval = M2N + nrm * S2N
-    return torch.where(u3 < 0.5, zval, -zval), bump(state, 3 * n)
+    return normal8(u1, u2, u3), bump(state, 3 * n)

@@ -16,7 +16,8 @@ Update schedule (reference performMCMC, src/GPhoCS.c:1476-1705):
     full_stats per bucket; theta and [migration rates if iteration >
     start-mig] on the concatenated statistics;
     one tau rubber-band proposal per ancestral pop, [one sample-age
-    proposal per current pop with an estimated sample age], [mixing]:
+    proposal per current pop with an estimated sample age], [the
+    admixture coefficients], [mixing]:
     each proposed once from the general stream, evaluated per bucket,
     accepted once for all buckets (the reference's one global decision)
 
@@ -34,6 +35,12 @@ chain; sampler/driver.py) run through the same code with no loop over the
 chains: every move is drawn, decided and counted per chain, the totals and
 trace entries get a chain axis ([C], [C, P]), and each sweep kernel is
 launched once for all chains.
+
+Admixed leaves (one bucket, as in gphocs_tpu, which refuses them with
+buckets): SPR resamples their populations, the prior carries their terms,
+and the coefficients move after the sample ages.  A chunk also adds up,
+on the device, how often each admixed leaf of each locus sat in its
+second population (for admixture-trace.out).
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from typing import Sequence
 
 import torch
 
+from gphocs_tpu_torch.kernels.admix import (in_second_pop,
+                                            update_admix_coeffs)
 from gphocs_tpu_torch.kernels.common import (chain_count, full_stats,
                                              gen_log_prior,
                                              gen_log_prior_from_stats)
@@ -86,6 +95,9 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
     conds: carried pruning conditionals, consistent with (gens, seqs) on
     entry and on return."""
     K = len(gens)
+    if K > 1 and ctx.num_admixed > 0:
+        raise ValueError("admixture requires one pattern bucket (as in "
+                         "gphocs_tpu)")
     gens, lrngs = list(gens), list(lrngs)
     lnlds, lnps, conds = list(lnlds), list(lnps), list(conds)
     dev = lnlds[0].device
@@ -144,6 +156,11 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                                        num_cur_pops, sample_age_mask)
         acc_taus = acc_taus + acc_sa
         conflicts = conflicts + conf_sa
+    acc_adm = zero
+    if ctx.num_admixed > 0:
+        params, grng, lnp0, acc_adm = update_admix_coeffs(
+            gens[0], params, grng, ctx, ft.admix, lnps[0])
+        lnps = [lnp0]
     acc_mix = zero
     if do_mixing and mixing_on:
         # mixing reads only event counts, which theta/mig-rate/tau moves
@@ -163,15 +180,19 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
         tau_conflicts=conflicts,
         num_migs_total=sum(total(g.mig_branch >= 0) for g in gens),
         lnld_sum=sum(total(x) for x in lnlds),
-        lnp_sum=sum(total(x) for x in lnps))
+        lnp_sum=sum(total(x) for x in lnps), acc_admix=acc_adm)
     return gens, params, lrngs, grng, lnlds, lnps, conds, out
 
 
 def mcmc_chunk_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps, conds,
                        ft: Finetunes, *, ctx, n_iters: int, **flags):
     """Run n_iters iterations.  Returns (gens, params, lrngs, grng, lnlds,
-    lnps, conds, totals: StepStats summed over the chunk, ChunkTrace)."""
+    lnps, conds, totals: StepStats summed over the chunk, ChunkTrace,
+    in2): in2 [L, A] int64 counts, for each admixed leaf of each valid
+    locus, the iterations that ended with it in its second population
+    (None without admixed leaves)."""
     stats, rows = [], []
+    in2 = None
     for _ in range(n_iters):
         gens, params, lrngs, grng, lnlds, lnps, conds, st = \
             mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds,
@@ -179,7 +200,10 @@ def mcmc_chunk_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps, conds,
         stats.append(st)
         rows.append((params.theta, params.tau, params.sample_age,
                      params.mig_rate, st.lnld_sum, st.lnp_sum,
-                     st.rate_var_delta))
+                     st.rate_var_delta, params.admix_coeff))
+        if ctx.num_admixed > 0:
+            x = in_second_pop(gens[0], ctx).to(torch.int64)
+            in2 = x if in2 is None else in2 + x
     totals = StepStats(*(torch.stack(f).sum(dim=0) for f in zip(*stats)))
     trace = ChunkTrace(*(torch.stack(f) for f in zip(*rows)))
-    return gens, params, lrngs, grng, lnlds, lnps, conds, totals, trace
+    return gens, params, lrngs, grng, lnlds, lnps, conds, totals, trace, in2

@@ -26,8 +26,17 @@ acceptance log shows the chains' mean (gphocs_tpu sums them, C times the
 rate).  Chains are refused with pattern buckets, as in gphocs_tpu, and
 with a coal-stats file, whose writer takes one chain.
 
+Admixture (`admixture TRUE` and a sample named in two current
+populations): the coefficients move every iteration and get their
+finetune search and `AdmxCoefs` column in the acceptance log, the trace
+gains an `A<slot>[<pop>]` column per admixed leaf (chain 0's), and a
+one-chain run writes admixture-trace.out beside the trace at every log
+point: the iteration, then each admixed leaf's share of the sampling
+iterations in its second population, per locus (reference
+src/GPhoCS.c:1781-1805).  Refused with pattern buckets, as in gphocs_tpu.
+
 Not ported yet; asking for them raises NotImplementedError naming the
-ROADMAP item: the legacy Wichmann-Hill RNG, meshes and admixture.
+ROADMAP item: the legacy Wichmann-Hill RNG and meshes.
 """
 
 from __future__ import annotations
@@ -79,6 +88,21 @@ def _todo(what: str, item: str):
         f"{what} is not ported to gphocs_tpu_torch yet (ROADMAP {item})")
 
 
+def _write_admix_trace(trace_path: str, iteration: int,
+                       in2: torch.Tensor, count: int) -> None:
+    """admixture-trace.out beside the trace file (gphocs_tpu's twin of
+    reference src/GPhoCS.c:1781-1805): one overwritten row, the iteration,
+    then per admixed leaf and locus (leaf-major) the share of the `count`
+    counted iterations that ended with the leaf in its second population
+    (in2 [L, A] holds the counts)."""
+    shares = in2.cpu().numpy().astype(np.float64).T / count
+    path = os.path.join(os.path.dirname(trace_path) or ".",
+                        "admixture-trace.out")
+    with open(path, "w") as f:
+        f.write(str(iteration) + "".join("\t%f" % v for v in shares.ravel())
+                + "\n")
+
+
 @dataclass
 class _FinetuneSearch:
     """One binary-search tracker (reference src/GPhoCS.c:1898-2250)."""
@@ -113,12 +137,13 @@ class AcceptCounts:
     taus: Optional[np.ndarray] = None
     mixing: int = 0
     locus_rate: int = 0
+    admix: int = 0
     conflicts: int = 0
 
     def reset(self, P: int):
         self.coal_time = self.mig_time = self.spr = 0
         self.theta = self.mig_rate = self.mixing = self.locus_rate = 0
-        self.conflicts = 0
+        self.admix = self.conflicts = 0
         self.taus = np.zeros(P)
 
     def add(self, st, chains: int) -> None:
@@ -135,6 +160,7 @@ class AcceptCounts:
         ).numpy() / chains
         self.mixing += total(st.acc_mixing)
         self.locus_rate += total(st.acc_locus_rate)
+        self.admix += total(st.acc_admix)
         self.conflicts += total(st.tau_conflicts)
 
 
@@ -201,8 +227,9 @@ class Sampler:
                              "writer reads one chain's state (gphocs_tpu "
                              "hands it the stacked chains); drop "
                              "coal-stats-file or chains")
-        if cfg.admixed:
-            raise _todo("admixture", "Queue 1 item 10b")
+        if cfg.admixed and buckets > 1:
+            raise ValueError("admixture requires one pattern bucket (as in "
+                             "gphocs_tpu): drop buckets")
         self.chains = chains
         self.legacy_rng = legacy_rng
         self.device = torch.device(device)
@@ -281,7 +308,7 @@ class Sampler:
         conv = dict(device=self.device, dtype=self.dtype)
         # per-locus streams [L] and the general stream [1]
         return (from_numpy(gen_np, GenState, **conv),
-                from_numpy(params._replace(admix_coeff=None), Params, **conv),
+                from_numpy(params, Params, **conv),
                 init_fast(self.num_loci, seed, self.device),
                 init_fast(1, seed + 0x5F3759DF, self.device), rate_var)
 
@@ -377,13 +404,15 @@ class Sampler:
 
     def step_chunk(self, n_iters: int, do_migrate: bool):
         """Run n_iters iterations; returns (totals, trace), each chain's
-        ([C, ...] fields) for C chains."""
+        ([C, ...] fields) for C chains.  With admixed leaves, `chunk_in2`
+        then holds the chunk's counts of each leaf of each locus in its
+        second population ([L, A], on the device)."""
         cfg = self.cfg
         tree = self.tree
         sample_age_mask = tuple(
             bool(x) for x in tree.update_sample_age[:tree.num_cur_pops])
         (gens, self.params, lrngs, self.grng, lnlds, lnps, conds, stats,
-         trace) = mcmc_chunk_buckets(
+         trace, self.chunk_in2) = mcmc_chunk_buckets(
             self.gens, self.params, self.seqs, self.lrngs, self.grng,
             self.lnlds, self.lnps, self.conds, self.ft, ctx=self.ctx,
             n_iters=n_iters,
@@ -420,6 +449,8 @@ class Sampler:
         """Reference stdout header (src/GPhoCS.c:1357-1374)."""
         cols = ["Samples", "CoalTimes", "MigTimes", "SPRs", "Thetas",
                 "MigRates"]
+        if self.ctx.num_admixed:
+            cols.append("AdmxCoefs")
         cols += [f"TAU_{pop:2d}" for pop in self._tau_pops()]
         cols += ["RbberBnd", "MutRates", "Mixing"]
         line = "".join(f"{c:<10}" for c in cols)
@@ -430,6 +461,8 @@ class Sampler:
         parts = [f"{iteration + 1:7d}  "]
         for key in ("coal_time", "mig_time", "spr", "theta", "mig_rate"):
             parts.append(f"{pct[key]:5.1f}%    ")
+        if self.ctx.num_admixed:
+            parts.append(f"{pct['admix']:5.1f}%    ")
         for pop in self._tau_pops():
             parts.append(f"{pct['taus'][pop]:5.1f}%    ")
         parts.append(f"{pct['rubberband']:6.1f}%    ")
@@ -456,6 +489,8 @@ class Sampler:
         checkAll, src/GPhoCS.c:1814-1821) and raises on a violation.
         A `coal-stats-file` in the control file gets one row per iteration
         (tools/coalstats_out.py) from the current state of all buckets.
+        With admixed leaves and one chain, admixture-trace.out goes beside
+        the trace file (the module's docstring).
         With chains, the trace is chain 0's, and `chain_rows` gets every
         chain's rows."""
         from gphocs_tpu_torch import checkpoint as ckpt
@@ -480,6 +515,8 @@ class Sampler:
         counts.reset(P)
         log_count = 0
         mig_nodes_accum = 0
+        A = self.ctx.num_admixed
+        admix_in2, admix_count = None, 0
         finding = cfg.mcmc.find_finetunes
         spl = (cfg.mcmc.find_finetunes_samples_per_step if finding
                else cfg.mcmc.iterations_per_log)
@@ -524,8 +561,15 @@ class Sampler:
                 mig_nodes_accum += float(st.num_migs_total.sum()) / C
                 log_count += n_iters
 
+                if (self.chunk_in2 is not None and iteration >= 0
+                        and C == 1):
+                    # the sampling iterations (a chunk never spans 0, a
+                    # log point), added up on the device
+                    admix_in2 = (self.chunk_in2 if admix_in2 is None
+                                 else admix_in2 + self.chunk_in2)
+                    admix_count += n_iters
                 # [K, C, ...] for C chains
-                theta, tau, sage, mrate, lnld_s, lnp_s, dvar = (
+                theta, tau, sage, mrate, lnld_s, lnp_s, dvar, adm = (
                     t.cpu().numpy() for t in tr)
                 # the variance after each iteration of the chunk
                 rate_var = _running(rate_var, self._var_deltas(
@@ -541,7 +585,8 @@ class Sampler:
                         full = (ld + float(pick(lnp_s))) / L
                         vals = trace_io.record_param_vals(
                             tree, pick(theta), pick(tau), pick(sage),
-                            pick(mrate), rate_var[j] if var_mut else None)
+                            pick(mrate), rate_var[j] if var_mut else None,
+                            pick(adm) if A else None)
                         chain_rows[c].append(
                             [it] + [v * f for v, f in zip(vals, factors)]
                             + [full, ld])
@@ -555,6 +600,9 @@ class Sampler:
                 if iteration == cfg.mcmc.start_mig + 1:
                     self._sample_mig_rates_device()
                 if iteration % spl == 0:
+                    if admix_count and trace_path and C == 1:
+                        _write_admix_trace(trace_path, iteration - 1,
+                                           admix_in2, admix_count)
                     pct = self._percents(counts, log_count, total_coals,
                                          mig_nodes_accum)
                     if progress:  # chain 0's
@@ -627,6 +675,7 @@ class Sampler:
         L = max(self.num_loci, 2)
         lc = max(log_count, 1)
         n_anc = max(self.tree.num_pops - self.tree.num_cur_pops, 1)
+        A = self.ctx.num_admixed
         return {
             "coal_time": c.coal_time * 100.0 / (lc * total_coals * gts),
             "mig_time": c.mig_time * 100.0 / (mig_nodes_accum + 1e-6),
@@ -637,14 +686,19 @@ class Sampler:
             "mixing": c.mixing * 100.0 / lc,
             "rubberband": c.conflicts * 100.0 / (lc * n_anc),
             # reference: accepted / (logCount * (numLoci-1) * genetreeSamples)
+            # (src/GPhoCS.c:1842-1846) and / (logCount * #admixed) (:1848)
             "locus_rate": c.locus_rate * 100.0 / (lc * (L - 1) * gts),
+            "admix": (c.admix * 100.0 / (lc * A)) if A else 0.0,
         }
 
     def _adjust_finetunes(self, pct):
         for k in ("coal_time", "mig_time", "theta", "mig_rate", "mixing"):
             self.ft_search[k].adjust(pct[k])
+        # locus-rate / admixture finetunes (reference src/GPhoCS.c:2163-2185)
         if self.cfg.mcmc.mut_rate_mode == 1:
             self.ft_search["locus_rate"].adjust(pct["locus_rate"])
+        if self.ctx.num_admixed:
+            self.ft_search["admix"].adjust(pct["admix"])
         for p in self._tau_pops():
             self.ft_taus[p].adjust(pct["taus"][p])
         self._update_ft_device()

@@ -38,6 +38,7 @@ class StepStats(NamedTuple):
     num_migs_total: torch.Tensor
     lnld_sum: torch.Tensor
     lnp_sum: torch.Tensor
+    acc_admix: torch.Tensor  # admixture coefficients
 
 
 class ChunkTrace(NamedTuple):
@@ -50,3 +51,4 @@ class ChunkTrace(NamedTuple):
     lnld_sum: torch.Tensor     # [K]
     lnp_sum: torch.Tensor      # [K]
     rate_var_delta: torch.Tensor  # [K]
+    admix_coeff: torch.Tensor  # [K, A] (A = 0 without admixed leaves)

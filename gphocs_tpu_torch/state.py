@@ -84,7 +84,7 @@ class Params(NamedTuple):
     tau: torch.Tensor         # [P]: age of each pop (0 for current pops)
     sample_age: torch.Tensor  # [P]: ancient-sample age per (current) pop
     mig_rate: torch.Tensor    # [B]
-    admix_coeff: Optional[torch.Tensor] = None  # [A]
+    admix_coeff: Optional[torch.Tensor] = None  # [A]; A = 0: none
 
 
 def _to_tensor(x, device, dtype) -> torch.Tensor:

@@ -21,10 +21,10 @@ With `--paths` it compares configurations instead of dtypes, all at f32:
 the standard workload (SAMPLE_CTL), the ancient-sample path
 (SAMPLE_AGE_CTL) and the same with VAR locus rates (SAMPLE_AGE_VAR_CTL) on
 the same data, the ragged workload (config/samples.py RAGGED_*) in 4
-pattern buckets and dense, and the standard workload as 4 chains side by
-side (its it/s is iterations of all four: chain-it/s is 4x), timed in
-turns (a b c d e e d c b a, `rounds`
-times); then each is profiled for `--profile-iters` iterations, so that
+pattern buckets and dense, the standard workload as 4 chains side by
+side (its it/s is iterations of all four: chain-it/s is 4x), and the
+admixed path (ADMIX_CTL on the standard workload's data), timed in
+turns (a b c ... c b a, `rounds` times); then each is profiled for `--profile-iters` iterations, so that
 the launches and the wall time that each path adds per iteration can be
 read off.
 
@@ -143,8 +143,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None)
     ap.add_argument("--paths", action="store_true",
                     help="compare the standard, sample-age, sample-age + "
-                         "VAR, ragged (bucketed, dense) and 4-chain paths "
-                         "at f32 instead of f32/f64")
+                         "VAR, ragged (bucketed, dense), 4-chain and "
+                         "admixed paths at f32 instead of f32/f64")
     ap.add_argument("--roots", nargs="+", default=None,
                     help="time the standard path of each checkout in a "
                          "process of its own, in turns")
@@ -166,7 +166,7 @@ def main(argv=None) -> int:
 
     import torch
     from gphocs_tpu_torch.config import parse_control_text
-    from gphocs_tpu_torch.config.samples import (SAMPLE_AGE_CTL,
+    from gphocs_tpu_torch.config.samples import (ADMIX_CTL, SAMPLE_AGE_CTL,
                                                  SAMPLE_AGE_VAR_CTL,
                                                  SAMPLE_CTL)
     from gphocs_tpu_torch.io.simulate import (simulate_ragged_file,
@@ -194,7 +194,8 @@ def main(argv=None) -> int:
                     ("sample_age_var", SAMPLE_AGE_VAR_CTL, path, 1, 1),
                     ("ragged_buckets", SAMPLE_CTL, ragged, 4, 1),
                     ("ragged_dense", SAMPLE_CTL, ragged, 1, 1),
-                    ("chains4", SAMPLE_CTL, path, 1, 4))}
+                    ("chains4", SAMPLE_CTL, path, 1, 4),
+                    ("admixture", ADMIX_CTL, path, 1, 1))}
             order = list(samplers) + list(samplers)[::-1]
         else:
             samplers = {"f32": _sampler(path, torch.float32),

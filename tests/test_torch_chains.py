@@ -213,9 +213,48 @@ def test_acceptance_log_shows_the_chains_mean():
         acc_taus=n([[0, 1, 2], [2, 3, 4]]), acc_mixing=n([1, 0]),
         acc_locus_rate=n([6, 8]), rate_var_delta=n([0.0, 0.0]),
         tau_conflicts=n([0, 1]), num_migs_total=n([5, 7]),
-        lnld_sum=n([0.0, 0.0]), lnp_sum=n([0.0, 0.0]))
+        lnld_sum=n([0.0, 0.0]), lnp_sum=n([0.0, 0.0]), acc_admix=n([3, 1]))
     c.add(st, 2)
     assert (c.coal_time, c.mig_time, c.spr, c.theta, c.mig_rate) == (
         5, 2, 2, 4, 1)
     assert c.taus.tolist() == [1, 2, 3]
-    assert (c.mixing, c.locus_rate, c.conflicts) == (0.5, 7, 0.5)
+    assert (c.mixing, c.locus_rate, c.conflicts, c.admix) == (0.5, 7, 0.5, 2)
+
+
+def test_admixed_chains_equal_one_chain_runs(seqs):
+    """ADMIX_CTL (two admixed leaves): two chains for three iterations
+    against the one-chain runs with their seeds, bitwise, the coefficients
+    [C, A], their accept counts and the leaves' populations included."""
+    from gphocs_tpu_torch.config.samples import ADMIX_CTL
+
+    def sampler(seed, chains):
+        cfg = parse_control_text(ADMIX_CTL)
+        cfg.mcmc.random_seed = seed
+        cfg.mcmc.start_mig = 0
+        s = Sampler(cfg, seq_path=seqs, dtype=torch.float64, device="cpu",
+                    chains=chains)
+        s.initialize()
+        return s
+
+    sc = sampler(BASE, 2)
+    stc, trc = sc.step_chunk(3, do_migrate=True)
+    assert sc.params.admix_coeff.shape == (2, 2)
+    L = sc.num_loci
+    for c in range(2):
+        s1 = sampler(BASE + 7919 * c, 1)
+        st1, tr1 = s1.step_chunk(3, do_migrate=True)
+        gen, params = sc.chain_state(c)
+        cut = slice(c * L, (c + 1) * L)
+        for f in gen._fields:
+            assert torch.equal(getattr(gen, f), getattr(s1.gen, f)), f
+        for f in params._fields:
+            assert torch.equal(getattr(params, f), getattr(s1.params, f)), f
+        assert torch.equal(sc.lnp[cut], s1.lnp)
+        assert torch.equal(sc.grng.ctr[c], s1.grng.ctr)
+        assert torch.equal(sc.lrng.ctr[c], s1.lrng.ctr)
+        for f in StepStats._fields:
+            assert torch.equal(getattr(stc, f)[c], getattr(st1, f)), f
+        assert torch.equal(trc.admix_coeff[:, c], tr1.admix_coeff)
+        assert torch.equal(sc.chunk_in2[cut], s1.chunk_in2)
+        assert int(st1.acc_admix) > 0
+    assert not torch.equal(trc.admix_coeff[:, 0], trc.admix_coeff[:, 1])

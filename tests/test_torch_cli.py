@@ -180,3 +180,65 @@ def test_cli_runs_chains_with_debug_check(ragged, tmp_path):
     cli_trace = (tmp_path / "cli.log").read_text()
     assert len(cli_trace.splitlines()) == 5
     assert cli_trace == (tmp_path / "one.log").read_text()
+
+
+def test_cli_runs_an_admixed_control_file(ragged, tmp_path, capsys):
+    """`python -m gphocs_tpu_torch admix.ctl --device cpu --debug-check`
+    exits 0 and writes the A... trace columns and admixture-trace.out
+    (the iteration, then per admixed leaf and locus its share of the
+    sampling iterations in its second population); the trace equals that
+    of Sampler.run in this process.  With --buckets 2 the command line
+    refuses admixture (a usage error), as gphocs_tpu's does."""
+    from gphocs_tpu_torch.config.samples import ADMIX_CTL
+
+    ctl = tmp_path / "admix.ctl"
+    ctl.write_text(_ctl(ADMIX_CTL, ragged, tmp_path / "cli.log", 4, 2))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--device",
+         "cpu", "--debug-check"],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "AdmxCoefs" in out.stderr
+    head = (tmp_path / "cli.log").read_text().splitlines()[0].split("\t")
+    assert "A0[B]" in head and "A1[B]" in head
+    vals = (tmp_path / "admixture-trace.out").read_text().split()
+    assert int(vals[0]) == 3 and len(vals) == 1 + 2 * 10
+    assert all(0.0 <= float(v) <= 1.0 for v in vals[1:])
+    s = Sampler(parse_control_text(ctl.read_text()), device="cpu")
+    (tmp_path / "here").mkdir()
+    s.run(trace_path=str(tmp_path / "here" / "t.log"))
+    assert (tmp_path / "cli.log").read_text() == (
+        tmp_path / "here" / "t.log").read_text()
+    assert (tmp_path / "admixture-trace.out").read_text() == (
+        tmp_path / "here" / "admixture-trace.out").read_text()
+    with pytest.raises(SystemExit):
+        cli.main([str(ctl), "--device", "cpu", "--buckets", "2"])
+    assert "admixture requires one pattern bucket" in capsys.readouterr().err
+
+
+def test_admixed_resume_equals_uninterrupted_run(ragged, tmp_path):
+    """An admixed run resumed from its checkpoint at iteration 2 gives the
+    uninterrupted run's rows (the A... columns included) and final
+    checkpoint (params_admix_coeff included), bit for bit."""
+    from gphocs_tpu_torch.config.samples import ADMIX_CTL
+
+    def run(name, iterations, resume=False, ck=None):
+        text = _ctl(ADMIX_CTL, ragged, tmp_path / f"{name}.log", iterations,
+                    2)
+        s = Sampler(parse_control_text(text), device="cpu")
+        s.run(trace_path=str(tmp_path / f"{name}.log"),
+              checkpoint_path=str(tmp_path / (ck or f"{name}.npz")),
+              checkpoint_every=2, resume=resume)
+        return (tmp_path / f"{name}.log").read_text().splitlines()
+
+    whole = run("whole", 4)
+    run("first", 2)
+    resumed = run("second", 4, resume=True, ck="first.npz")
+    assert resumed == [whole[0]] + whole[3:]
+    a = np.load(tmp_path / "whole.npz")
+    b = np.load(tmp_path / "first.npz")
+    assert a["params_admix_coeff"].shape == (2,)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -21,14 +21,16 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import (F64_TOL, Compare, kernel_checks, sample_age_bounds,
-                        sample_age_checks, tau_bounds, warm_state)
+from chip_smoke import (F64_TOL, Compare, admix_checks, kernel_checks,
+                        sample_age_bounds, sample_age_checks, tau_bounds,
+                        warm_state)
 from gphocs_tpu_torch.kernels.common import band_windows, pop_end
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
 from gphocs_tpu_torch.config import parse_control_text
-from gphocs_tpu_torch.config.samples import S32_CTL, SAMPLE_AGE_CTL, WIDE_CTL
+from gphocs_tpu_torch.config.samples import (ADMIX_AGE_CTL, S32_CTL,
+                                             SAMPLE_AGE_CTL, WIDE_CTL)
 from gphocs_tpu_torch.io.simulate import simulate_seq_file
 from gphocs_tpu_torch.kernels.common import gen_log_prior
 from gphocs_tpu_torch.model import build_poptree
@@ -706,3 +708,45 @@ def test_two_chains_match_plain_and_each_chain_alone(block, warm_chains,
                 assert torch.equal(x[c], y)
             else:
                 raise AssertionError(f"output of shape {tuple(x.shape)}")
+
+
+@pytest.fixture(scope="module")
+def warm_admix(tmp_path_factory):
+    """A warmed 24-locus f64 state of ADMIX_AGE_CTL (two admixed leaves,
+    an estimated sample age on D, a hot band), plain versions only."""
+    path = str(tmp_path_factory.mktemp("csrc_admix") / "seqs.txt")
+    return warm_state(torch.device("cpu"), torch.float64, path, num_loci=24,
+                      ctl=ADMIX_AGE_CTL)
+
+
+@pytest.fixture(scope="module")
+def warm_admix_chains(tmp_path_factory):
+    """Two chains of 11 loci of ADMIX_AGE_CTL side by side, their
+    coefficients apart."""
+    path = str(tmp_path_factory.mktemp("csrc_admix_c") / "seqs.txt")
+    s = warm_state(torch.device("cpu"), torch.float64, path, num_loci=11,
+                   ctl=ADMIX_AGE_CTL, chains=2)
+    s.params = s.params._replace(admix_coeff=torch.tensor(
+        [[0.3, 0.6], [0.8, 0.1]], dtype=torch.float64))
+    s.lnp = gen_log_prior(s.gen, s.params, s.ctx)
+    return s
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+def test_admixed_kernels_match_plain(chains, warm_admix, warm_admix_chains,
+                                     host_libs, monkeypatch):
+    """SPR's admixed mode against update_spr(sync_group=1), some leaf
+    moved to its other population and some not, and the rubber band's
+    lnp_prop with the admixture terms in both modes against the plain
+    version (chip_smoke's admix_checks at F64_TOL), for one chain and for
+    two at once; the reversed-lane build gives the same bits."""
+    s = warm_admix if chains == 1 else warm_admix_chains
+    _route(monkeypatch, host_libs["forward"], block=5)
+    fwd = admix_checks(s, Compare(), F64_TOL, need_moves=chains == 1)
+    assert sweeps.LAUNCHES["spr"] == 2
+    assert sweeps.LAUNCHES["rubber_band_sample_age"] == len(SAMPLE_AGE_STEPS)
+    _route(monkeypatch, host_libs["reverse"], block=8)
+    rev = admix_checks(s, Compare(), F64_TOL, need_moves=chains == 1)
+    assert len(fwd) == len(rev)
+    for x, y in zip(fwd, rev):
+        assert torch.equal(x, y)

@@ -118,14 +118,16 @@ def test_cuda_sampler_needs_a_card():
     # chains are ported; with pattern buckets they are refused (a
     # ValueError), as in gphocs_tpu
     (dict(chains=2, buckets=2), "one chain"),
-    (dict(admixed=[("five", 3, 1, "d")]), "item 10b"),
+    # admixture is ported; with pattern buckets it is refused (a
+    # ValueError), as in gphocs_tpu
+    (dict(admixed=[("five", 3, 1, "d")], buckets=2), "one pattern bucket"),
     (dict(mesh=object()), "item 15"),
 ])
 def test_unported_options_raise(kwargs, item):
     cfg = parse_control_text(SAMPLE_CTL)
     kwargs = dict(kwargs)
     cfg.admixed = kwargs.pop("admixed", [])
-    err = ValueError if "chains" in kwargs else NotImplementedError
+    err = ValueError if "buckets" in kwargs else NotImplementedError
     with pytest.raises(err, match=item):
         Sampler(cfg, num_loci=4, device="cpu", **kwargs)
 

@@ -31,7 +31,10 @@ torch.set_num_threads(1)
 F64 = torch.float64
 
 
-def warm_jax_sampler(tmp_dir, num_loci=24, seq_len=300, ctl=SAMPLE_CTL):
+def warm_jax_sampler(tmp_dir, num_loci=24, seq_len=300, ctl=SAMPLE_CTL,
+                     chunk=5):
+    """The warmed sampler; `chunk`: the iterations of each jitted warm-up
+    chunk (a later chunk of that length reuses its compilation)."""
     from gphocs_tpu.io.simulate import simulate_seq_file
     from gphocs_tpu.model import build_poptree
 
@@ -50,7 +53,7 @@ def warm_jax_sampler(tmp_dir, num_loci=24, seq_len=300, ctl=SAMPLE_CTL):
         mig_rate=jnp.full_like(s.params.mig_rate, 2e5))
     s.lnp = gen_log_prior(s.gen, s.params, s.ctx)
     for _ in range(8):
-        s.step_chunk(5, do_migrate=True)
+        s.step_chunk(chunk, do_migrate=True)
         if int(jnp.sum(s.gen.mig_branch >= 0)) > 0:
             break
     assert int(jnp.sum(s.gen.mig_branch >= 0)) > 0
@@ -72,8 +75,7 @@ def carry(s) -> dict:
             C, *[1] * (x.dim() - 1)) for x in seq))
     return dict(
         gen=TS.from_numpy(s.gen, TS.GenState, **per),
-        params=TS.from_numpy(s.params._replace(admix_coeff=None), TS.Params,
-                             **conv),
+        params=TS.from_numpy(s.params, TS.Params, **conv),
         seq=seq,
         lrng=TS.from_numpy(s.lrng, FastRngState, **per),
         grng=TS.from_numpy(s.grng, FastRngState, **per),
