@@ -111,9 +111,28 @@ script then exits non-zero without the final line):
      gphocs_tpu_torch` on the card with an admixed control file: a
      checkpoint at 10 resumed to 20 (rows and checkpoint bitwise equal to
      the uninterrupted run's), and --chains 2;
-  9. one JSON line per path with its it/s (the ragged ones with both
+  9. the loci mesh (parallel/mesh.py) on the standard workload: (9a) a
+     world of one over NCCL in this process, MESH_F32_ITERS iterations at
+     f32 bitwise equal to the same chunk without a mesh from the same
+     state (stats, trace, gathered state, counters) with the same launch
+     counts; (9b) two ranks sharing the card over gloo, started as
+     `chip_smoke.py --mesh-rank`: at f64 MESH_F64_ITERS iterations of 1000
+     loci (500 per rank) and of MESH_PAD_LOCI loci (one padding locus, kept
+     inert) against the one-process run (padded alike) with equal accept
+     counts, counters and integer arrays and reals within 1e-9 relative,
+     each rank launching the schedule's kernels; at f32 MESH_F32_ITERS
+     timed iterations with finite rows and the carried lnld within
+     F32_TOL of a rebuild; (9c) `python -m gphocs_tpu_torch --distributed
+     127.0.0.1:PORT:2:r --x64`, two processes sharing the card, whose
+     rank 0 trace must equal the one-process command's within 1e-9
+     relative per column while rank 1 writes no file.  It prints the it/s
+     of the one-process and the 2-rank run at f32, and the all-reduces
+     per iteration with the host's time in them (none of them a claim:
+     gloo waits for the device at every collective);
+ 10. one JSON line per path with its it/s (the ragged ones with both
      readings and their pattern cells, the chains with their chain-it/s
-     and device operations per iteration), the card's line, one JSON line
+     and device operations per iteration, the mesh with phase 9's
+     readings), the card's line, one JSON line
      with the kernels (launches on the paths, error against the plain
      version, time, the time on the 4 chains' state, the plain version's
      time, and the least time the card could take: `bound_ms`), then the
@@ -144,7 +163,8 @@ setting), and phase 6c runs S32_CTL with D's sample age estimated, so that
 one state serves both rubber-band modes.
 
 It needs one CUDA card; without one it exits with status 1 and prints no
-result.
+result.  `chip_smoke.py --mesh-rank SPEC RANK` is phase 9b's rank, started
+by the phase itself.
 """
 
 import json
@@ -1465,6 +1485,320 @@ def admix_phase(tmp, data, card, cmp, times, bounds):
     return its, launches, ops
 
 
+# -- phase 9: the loci mesh ------------------------------------------------
+
+MESH_F64_ITERS = 5
+MESH_F32_ITERS = 20
+MESH_PAD_LOCI = 999     # 9b: odd, so that 2 ranks pad one locus
+MESH_CLI_ITERS = 10
+MESH_TIMEOUT_S = 120    # of every process group and rank process
+
+
+def mesh_sampler(data, dtype, mesh=None, num_loci=-1, loci_multiple=1):
+    """The standard workload's sampler (seed 111) on the card, initialized
+    with the band hot (2e5) so that migrations appear within a chunk."""
+    import torch
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.kernels.common import gen_log_prior
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 111
+    cfg.mcmc.start_mig = 0
+    cfg.mcmc.num_loci = num_loci
+    s = Sampler(cfg, seq_path=data, dtype=dtype, device="cuda", mesh=mesh,
+                loci_multiple=loci_multiple)
+    s.initialize()
+    s._sample_mig_rates_device()
+    s.params = s.params._replace(
+        mig_rate=torch.full_like(s.params.mig_rate, 2e5))
+    s.lnps = tuple(gen_log_prior(g, s.params, s.ctx) for g in s.gens)
+    return s
+
+
+def mesh_state(s):
+    """The sampler's per-locus state, every rank's loci in order (gathered
+    on a mesh), its counters, parameters and general stream, on the CPU."""
+    from gphocs_tpu_torch.parallel.mesh import gather_rows
+
+    def rows(t):
+        return (t if s.mesh is None else gather_rows(s.mesh, t)).cpu()
+
+    g = s.gen
+    return {"gen": {f: rows(getattr(g, f)) for f in g._fields},
+            "lnld": rows(s.lnld), "lnp": rows(s.lnp), "cond": rows(s.cond),
+            "key": rows(s.lrng.key), "ctr": s.lrng.ctr.cpu(),
+            "params": {f: getattr(s.params, f).cpu()
+                       for f in s.params._fields},
+            "grng_ctr": s.grng.ctr.cpu()}
+
+
+def mesh_chunk(s, iters):
+    """One step_chunk(iters) with the launch and all-reduce counts set to
+    0 just before and read just after: (stats, trace, state, launches,
+    all-reduces, seconds)."""
+    import torch
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    torch.cuda.synchronize()
+    if s.mesh is not None:
+        s.mesh.barrier()
+    sweeps.reset_launch_counts()
+    M.reset_collective_counts()
+    t0 = time.perf_counter()
+    st, tr = s.step_chunk(iters, do_migrate=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, coll = dict(sweeps.LAUNCHES), dict(M.COLLECTIVES)
+    return {"stats": {f: getattr(st, f).cpu() for f in st._fields},
+            "trace": {f: getattr(tr, f).cpu() for f in tr._fields},
+            "state": mesh_state(s), "launches": launches,
+            "collectives": coll, "seconds": seconds, "iters": iters}
+
+
+def compare_runs(what, ref, got, exact):
+    """Equal accept counts, counters and integer arrays; reals (trace
+    rows, state) equal bitwise where `exact`, else within 1e-9 relative.
+    Returns the largest relative difference of the reals."""
+    import torch
+
+    worst = 0.0
+
+    def one(name, a, b):
+        nonlocal worst
+        check(a.shape == b.shape, f"{what}: {name} shape {tuple(a.shape)} "
+              f"against {tuple(b.shape)}")
+        if exact or not a.is_floating_point():
+            check(bool(torch.equal(a, b)), f"{what}: {name} differs")
+            return
+        d = (a.double() - b.double()).abs()
+        bad = d > 1e-9 * a.double().abs()
+        if a.numel():
+            worst = max(worst, float((d / a.double().abs().clamp(
+                min=1e-300)).max()))
+        check(not bool(bad.any()), f"{what}: {name} beyond 1e-9 relative")
+
+    for part in ("stats", "trace"):
+        for f in ref[part]:
+            one(f"{part}.{f}", ref[part][f], got[part][f])
+    rs, gs = ref["state"], got["state"]
+    for f in rs["gen"]:
+        one(f"gen.{f}", rs["gen"][f], gs["gen"][f])
+    for f in ("lnld", "lnp", "cond", "key", "ctr", "grng_ctr"):
+        one(f, rs[f], gs[f])
+    for f in rs["params"]:
+        one(f"params.{f}", rs["params"][f], gs["params"][f])
+    return worst
+
+
+def mesh_rank(spec_path, rank):
+    """One of phase 9b's two ranks, sharing the card over gloo: the f64
+    chunk of the standard workload, the same at MESH_PAD_LOCI loci, and
+    the timed f32 chunk; rank 0 writes what they gathered."""
+    import torch
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    M.init_distributed(f"127.0.0.1:{spec['port']}", 2, rank, device="cuda",
+                       timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = M.make_mesh()
+        check(mesh.backend == "gloo", f"backend {mesh.backend}")
+        out = {}
+        for label, dtype, loci, iters in (
+                ("f64", torch.float64, -1, MESH_F64_ITERS),
+                ("f64_pad", torch.float64, MESH_PAD_LOCI, MESH_F64_ITERS),
+                ("f32", torch.float32, -1, MESH_F32_ITERS)):
+            s = mesh_sampler(spec["data"], dtype, mesh, loci)
+            if label == "f32":
+                s.step_chunk(WARMUP, do_migrate=True)
+            res = mesh_chunk(s, iters)
+            res["loci"] = [s.gen.num_loci, s.num_loci, s.pad_loci]
+            res["launches_by_rank"] = [
+                dict(zip(res["launches"], v.long().tolist()))
+                for v in M.gather_rows(mesh, torch.tensor(
+                    [list(res["launches"].values())], dtype=torch.float64))]
+            if label == "f32":
+                _, ld = full_rebuild_and_lnld(s.gen, s.seq)
+                err = M.all_reduce(mesh, [(ld - s.lnld).abs().max()],
+                                   "max")[0]
+                res["lnld_rebuild_err"] = float(err)
+            out[label] = res
+        if rank == 0:
+            torch.save(out, spec["out"])
+    finally:
+        M.shutdown()
+    return 0
+
+
+def mesh_phase(tmp, data, card):
+    """Phase 9: the loci mesh.  Returns (launches of 9a's mesh chunk, a
+    record of the phase's readings)."""
+    import numpy as np
+    import torch
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL, with_settings
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    rec = {}
+    log(f" -- 9a: NCCL, a world of one, {WORKLOAD_LOCI} loci at f32: "
+        f"{MESH_F32_ITERS} iterations against the run without a mesh")
+    M.init_distributed(f"127.0.0.1:{M.free_port()}", 1, 0, device="cuda",
+                       timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = M.make_mesh()
+        check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        plain = mesh_sampler(data, torch.float32)
+        meshed = mesh_sampler(data, torch.float32, mesh)
+        for f in ("gens", "lrngs", "lnlds", "lnps", "conds", "params",
+                  "grng"):
+            setattr(meshed, f, getattr(plain, f))
+        a = mesh_chunk(plain, MESH_F32_ITERS)
+        b = mesh_chunk(meshed, MESH_F32_ITERS)
+    finally:
+        M.shutdown()
+    compare_runs("9a", a, b, exact=True)
+    check(a["launches"] == b["launches"], f"9a launches {a['launches']} "
+          f"against {b['launches']}")
+    launches = check_schedule(MESH_F32_ITERS, 1, False)
+    nccl = b["collectives"]
+    rec["nccl1"] = {
+        "it_per_s": MESH_F32_ITERS / b["seconds"],
+        "plain_it_per_s": MESH_F32_ITERS / a["seconds"],
+        "all_reduces_per_iteration": nccl["all_reduce"] / MESH_F32_ITERS,
+        "all_reduce_host_ms_per_iteration":
+            1e3 * nccl["seconds"] / MESH_F32_ITERS}
+    log(f"  bitwise equal to the run without a mesh (stats, trace, state, "
+        f"counters); launches {b['launches']}; {rec['nccl1']}")
+    del plain, meshed, a, b
+
+    log(f" -- 9b: two ranks share the card over gloo: f64 "
+        f"({WORKLOAD_LOCI} and {MESH_PAD_LOCI} loci, {MESH_F64_ITERS} "
+        f"iterations), f32 ({MESH_F32_ITERS} iterations, timed)")
+    spec = {"port": M.free_port(), "data": data,
+            "out": os.path.join(tmp, "mesh_ranks.pt")}
+    spec_path = os.path.join(tmp, "mesh_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    # the one-process references (the padded one as 2 ranks pad), and
+    # the one-process f32 it/s before and after the ranks' run
+    refs = {"f64": mesh_chunk(mesh_sampler(data, torch.float64),
+                              MESH_F64_ITERS),
+            "f64_pad": mesh_chunk(mesh_sampler(
+                data, torch.float64, num_loci=MESH_PAD_LOCI,
+                loci_multiple=2), MESH_F64_ITERS)}
+    one = mesh_sampler(data, torch.float32)
+    one.step_chunk(WARMUP, do_migrate=True)
+    t1 = mesh_chunk(one, MESH_F32_ITERS)["seconds"]
+    outs = [open(os.path.join(tmp, f"mesh_rank{r}.out"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+         spec_path, str(r)], cwd=ROOT, stdout=outs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=MESH_TIMEOUT_S + 180) for p in procs]
+    finally:
+        for p, o in zip(procs, outs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            o.close()
+    for r, rc in enumerate(rcs):
+        text = open(os.path.join(tmp, f"mesh_rank{r}.out")).read()
+        check(rc == 0, f"9b rank {r} failed:\n{text[-3000:]}")
+    t2 = mesh_chunk(one, MESH_F32_ITERS)["seconds"]
+    got = torch.load(spec["out"], weights_only=False)
+    for label in ("f64", "f64_pad"):
+        worst = compare_runs(f"9b {label}", refs[label], got[label],
+                             exact=False)
+        loci, padded, pad = got[label]["loci"]
+        log(f"  {label}: each rank {loci} of {padded} loci ({pad} padding), "
+            f"launches per rank {got[label]['launches_by_rank']}; counts, "
+            f"counters and integers equal, reals within {worst:.2e} "
+            "relative")
+        for by_rank in got[label]["launches_by_rank"]:
+            want = {"node_age": MESH_F64_ITERS, "mig_age": MESH_F64_ITERS,
+                    "spr": MESH_F64_ITERS,
+                    "rubber_band": TAU_PROPOSALS * MESH_F64_ITERS,
+                    "rubber_band_sample_age": 0}
+            check(by_rank == want, f"9b {label}: launches {by_rank}")
+    check(got["f64_pad"]["loci"] == [500, 1000, 1], "9b: no padding locus")
+    check(not bool(got["f64_pad"]["state"]["gen"]["valid"][-1])
+          and float(got["f64_pad"]["state"]["lnld"][-1]) == 0.0,
+          "9b: the padding locus is not inert")
+    f32 = got["f32"]
+    rows_ok = all(bool(torch.isfinite(v).all()) for v in f32["trace"].values())
+    check(rows_ok, "9b f32: trace rows not finite")
+    check(f32["lnld_rebuild_err"] <= F32_TOL["lnld"],
+          f"9b f32: carried lnld {f32['lnld_rebuild_err']} from a rebuild")
+    gl = f32["collectives"]
+    rec["gloo2"] = {
+        "it_per_s": MESH_F32_ITERS / f32["seconds"],
+        "one_process_it_per_s": [MESH_F32_ITERS / t1, MESH_F32_ITERS / t2],
+        "all_reduces_per_iteration": gl["all_reduce"] / MESH_F32_ITERS,
+        "all_reduce_host_ms_per_iteration":
+            1e3 * gl["seconds"] / MESH_F32_ITERS,
+        "lnld_rebuild_err": f32["lnld_rebuild_err"],
+        "launches_by_rank": f32["launches_by_rank"]}
+    log(f"  f32: rows finite, carried lnld within "
+        f"{f32['lnld_rebuild_err']:.2e} of a rebuild; {rec['gloo2']}")
+    del one, refs, got
+
+    log(f" -- 9c: python -m gphocs_tpu_torch --distributed, 2 processes "
+        f"sharing the card, --x64, {MESH_CLI_ITERS} iterations, against the "
+        "one-process command")
+    ctl = os.path.join(tmp, "mesh_cli.ctl")
+    with open(ctl, "w") as f:
+        f.write(with_settings(
+            SAMPLE_CTL, seq_file=data, trace_file="trace.log",
+            mcmc_iterations=MESH_CLI_ITERS, iterations_per_log=5,
+            random_seed=5, burn_in=0, start_mig=0))
+    coord = f"127.0.0.1:{M.free_port()}"
+    runs = {"one": [], "rank0": ["--distributed", f"{coord}:2:0"],
+            "rank1": ["--distributed", f"{coord}:2:1"]}
+    procs = {}
+    for name, flags in runs.items():
+        os.makedirs(os.path.join(tmp, f"cli_{name}"))
+        out = open(os.path.join(tmp, f"cli_{name}.out"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "gphocs_tpu_torch", ctl, "--x64",
+             "--mesh-timeout", str(MESH_TIMEOUT_S), *flags],
+            cwd=os.path.join(tmp, f"cli_{name}"), stdout=out,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=ROOT)), out)
+    try:
+        rcs = {n: p.wait(timeout=MESH_TIMEOUT_S + 180)
+               for n, (p, _) in procs.items()}
+    finally:
+        for p, o in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            o.close()
+    for name, rc in rcs.items():
+        text = open(os.path.join(tmp, f"cli_{name}.out")).read()
+        log(f"  {name}: exit {rc}; " + " | ".join(text.splitlines()[:3]))
+        check(rc == 0, f"9c {name} failed:\n{text[-3000:]}")
+    check(os.listdir(os.path.join(tmp, "cli_rank1")) == [],
+          "9c: rank 1 wrote a file")
+    a, b = (np.loadtxt(os.path.join(tmp, f"cli_{n}", "trace.log"),
+                       skiprows=1) for n in ("one", "rank0"))
+    check(a.shape == b.shape == (MESH_CLI_ITERS, a.shape[1]),
+          f"9c trace shapes {a.shape} {b.shape}")
+    rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-300)
+    check(bool((rel <= 1e-9).all()), f"9c: rank 0's trace differs by "
+          f"{rel.max():.3e} relative")
+    rec["cli_max_rel"] = float(rel.max())
+    log(f"  rank 0's trace within {rel.max():.2e} relative of the "
+        "one-process trace, per column; rank 1 wrote no file")
+    torch.cuda.synchronize()
+    return launches, rec
+
+
 def main():
     import torch
 
@@ -1726,6 +2060,13 @@ def main():
     log(f"  device operations per iteration: admixed {admix_ops}, standard "
         f"{chain_read['ops_per_iteration']['1']} (phase 7)")
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    log(f"== phase 9: the loci mesh ({WORKLOAD_LOCI} loci x {WORKLOAD_BP} bp "
+        "of the standard workload)")
+    t_phase = time.perf_counter()
+    mesh_launches, mesh_rec = mesh_phase(tmp, data, card)
+    paths["mesh"] = mesh_rec["nccl1"]["it_per_s"]
+    all_launches.append(mesh_launches)
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
@@ -1758,7 +2099,7 @@ def main():
             f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)
     for label, its in paths.items():
-        if label in ragged or label == f"chains{CHAINS}":
+        if label in ragged or label in (f"chains{CHAINS}", "mesh"):
             continue
         log(json.dumps({"path": label, "it_per_s": its, "card": card}))
     c4 = chain_read[f"c{CHAINS}"]
@@ -1771,6 +2112,8 @@ def main():
         log(json.dumps({"path": label, "it_per_s": (a + b) / 2,
                         "readings": [a, b], "pattern_cells": cells,
                         "card": card}))
+    log(json.dumps({"path": "mesh", "it_per_s": paths["mesh"],
+                    **mesh_rec, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
@@ -1781,4 +2124,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 9b
+        sys.path.insert(0, ROOT)
+        sys.exit(mesh_rank(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -17,6 +17,11 @@ axis on every per-chain array ([C, L, ...] per locus, [C, P] parameters,
 [C] counters, the general streams' keys [C, 1]).  The admixture
 coefficients are `params_admix_coeff`, [A] ([C, A]), with A = 0 where the
 run has no admixed leaves.
+
+On a loci mesh the file is the one gphocs_tpu writes for the same mesh
+run: the padded loci of every bucket, gathered from the ranks in rank
+order, written by rank 0 (every rank takes part in the gathers).  On
+resume every rank reads the file and keeps its block.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from gphocs_tpu_torch.parallel.mesh import gather_rows
 from gphocs_tpu_torch.rng_fast import FastRngState
 from gphocs_tpu_torch.state import GenState, Params, from_numpy
 
@@ -55,9 +61,13 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
     rename, so a crash never leaves half a checkpoint)."""
     real = np.float32 if sampler.dtype == torch.float32 else np.float64
     C = getattr(sampler, "chains", 1)
+    mesh = getattr(sampler, "mesh", None)
+
+    def rows(t):  # every rank's loci
+        return t if mesh is None else gather_rows(mesh, t)
 
     def per_locus(t):  # C chains' [C * L, ...] as [C, L, ...]
-        a = _np(t, real)
+        a = _np(rows(t), real)
         return a if C == 1 else a.reshape(C, -1, *a.shape[1:])
 
     arrays = {"n_buckets": np.asarray(sampler.buckets)}
@@ -68,8 +78,9 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
     for k, p in enumerate(pre):
         for name, val in sampler.gens[k]._asdict().items():
             arrays[f"{p}gen_{name}"] = per_locus(val)
+        lrng = sampler.lrngs[k]
         arrays[f"{p}lrng_key"], arrays[f"{p}lrng_ctr"] = _rng_np(
-            sampler.lrngs[k], C)
+            lrng._replace(key=rows(lrng.key)), C)
         arrays[f"{p}lnld"] = per_locus(sampler.lnlds[k])
         arrays[f"{p}lnp"] = per_locus(sampler.lnps[k])
         # saved, not rebuilt on load: a rebuild may differ in the last bit
@@ -85,6 +96,8 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
         arrays[f"ft_{k}"] = np.asarray([v.value, v.lo, v.hi])
     arrays["ft_taus"] = np.asarray(
         [[t.value, t.lo, t.hi] for t in sampler.ft_taus])
+    if mesh is not None and mesh.rank != 0:
+        return
     tmp = path + ".tmp.npz"
     with open(tmp, "wb") as f:
         np.savez_compressed(f, **arrays)
@@ -93,7 +106,8 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
 
 def load_checkpoint(sampler, path: str) -> int:
     """Restore the state of an initialized sampler from `path`; returns
-    the iteration to go on from."""
+    the iteration to go on from.  A rank of a loci mesh keeps its block of
+    every bucket's loci."""
     data = np.load(path)
     if int(data["format_version"]) != _FORMAT_VERSION:
         raise ValueError(f"{path}: checkpoint format "
@@ -117,13 +131,15 @@ def load_checkpoint(sampler, path: str) -> int:
         raise ValueError(f"{path}: a checkpoint of {file_chains} chain(s), "
                          f"this sampler runs {C}")
 
-    def per_locus(a):  # [C, L, ...] as the state's [C * L, ...]
-        return from_numpy(a if C == 1 else a.reshape(-1, *a.shape[2:]),
-                          **conv)
+    blocks = getattr(sampler, "blocks", None) or [slice(None)] * n_buckets
 
-    def rng(pre):
+    def per_locus(a, k):  # [C, L, ...] as the state's [C * L, ...]
+        a = a if C == 1 else a.reshape(-1, *a.shape[2:])
+        return from_numpy(a[blocks[k]], **conv)
+
+    def rng(pre, block=slice(None)):
         key = data[f"{pre}_key"]
-        return FastRngState(key=from_numpy(key.reshape(-1), **conv),
+        return FastRngState(key=from_numpy(key.reshape(-1)[block], **conv),
                             ctr=from_numpy(data[f"{pre}_ctr"], **conv))
 
     admix = data["params_admix_coeff"]
@@ -137,24 +153,25 @@ def load_checkpoint(sampler, path: str) -> int:
     sampler.grng = rng("grng")
     pre = ([f"b{k}_" for k in range(n_buckets)] if n_buckets > 1 else [""])
     gens, lrngs, lnlds, lnps, conds = [], [], [], [], []
-    for p, sq in zip(pre, sampler.seqs):
+    rows = getattr(sampler, "global_rows", None)
+    for k, (p, sq) in enumerate(zip(pre, sampler.seqs)):
         gens.append(GenState(**{
-            name: per_locus(data[f"{p}gen_{name}"])
+            name: per_locus(data[f"{p}gen_{name}"], k)
             for name in GenState._fields}))
         cond = data[f"{p}cond"]
         if C > 1:
             cond = cond.reshape(-1, *cond.shape[2:])
-        want = (sq.group_id.shape[0], gens[-1].num_nodes,
-                sq.group_id.shape[1], 4)
+        want = (rows[k] if rows else sq.group_id.shape[0],
+                gens[-1].num_nodes, sq.group_id.shape[1], 4)
         if cond.shape != want:
             raise ValueError(
                 f"{path}: conditionals of shape {cond.shape}, this sampler "
                 f"carries {want} ([L, N, P, 4]); a checkpoint in the Pallas "
                 "kernels' lane layout (written on a TPU) is not supported")
-        lrngs.append(rng(f"{p}lrng"))
-        lnlds.append(per_locus(data[f"{p}lnld"]))
-        lnps.append(per_locus(data[f"{p}lnp"]))
-        conds.append(from_numpy(cond, **conv))
+        lrngs.append(rng(f"{p}lrng", blocks[k]))
+        lnlds.append(per_locus(data[f"{p}lnld"], k))
+        lnps.append(per_locus(data[f"{p}lnp"], k))
+        conds.append(from_numpy(cond[blocks[k]], **conv))
     sampler.gens, sampler.lrngs = tuple(gens), tuple(lrngs)
     sampler.lnlds, sampler.lnps = tuple(lnlds), tuple(lnps)
     sampler.conds = tuple(conds)

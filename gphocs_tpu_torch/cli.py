@@ -3,7 +3,8 @@
 
     python -m gphocs_tpu_torch [-v] [-n threads] <control-file> \
         [secondary-control] [--buckets K | --chains C] [--checkpoint PATH \
-        --checkpoint-every N] [--resume] [--debug-check] [--device cpu]
+        --checkpoint-every N] [--resume] [--debug-check] [--device cpu] \
+        [--mesh | --distributed COORD:NPROC:PID]
 
 (reference src/GPhoCS.c:28-249).  The run goes on the CUDA card unless
 `--device cpu` is given; asking for CUDA without a card raises, nothing
@@ -15,11 +16,22 @@ is read.  `--chains C` runs C independent chains side by side (seeds base +
 file.  A control file with admixed samples runs without `--buckets` (as
 in gphocs_tpu) and writes admixture-trace.out beside the trace.  `-n` is
 accepted for compatibility and ignored.
+
+Loci sharding (parallel/mesh.py): `--distributed COORD:NPROC:PID` runs
+this process as rank PID of NPROC, COORD being rank 0's host:port; every
+rank is started with the same arguments.  `--mesh` starts one rank per
+visible CUDA device itself (this process is rank 0, the others are
+started as `--distributed` processes on 127.0.0.1), or a world of one with
+`--device cpu`.  Rank 0 prints, writes the trace, the checkpoint and the
+other files; a rank that fails fails the run (the process group's
+timeout is --mesh-timeout).  Chains on a mesh are not ported (ROADMAP
+Queue 1 item 15b).
 """
 
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 import time
 
@@ -27,10 +39,23 @@ import time
 _NOT_PORTED = {
     "legacy_rng": ("--legacy-rng (the Wichmann-Hill streams)",
                    "Queue 1 item 17"),
-    "mesh": ("--mesh (loci sharded over several devices)",
-             "Queue 1 item 15"),
-    "distributed": ("--distributed (several hosts)", "Queue 1 item 15"),
 }
+
+
+def _parse_distributed(ap, spec: str):
+    """COORD:NPROC:PID (split as gphocs_tpu does, from the right) ->
+    (coord, nproc, pid); a malformed one is a usage error."""
+    try:
+        coord, nproc, pid = spec.rsplit(":", 2)
+        nproc, pid = int(nproc), int(pid)
+        host, port = coord.rsplit(":", 1)
+        int(port)
+    except ValueError:
+        ap.error(f"--distributed {spec!r}: expected COORD:NPROC:PID with "
+                 "COORD = host:port of rank 0")
+    if not (host and nproc >= 1 and 0 <= pid < nproc):
+        ap.error(f"--distributed {spec!r}: expected 0 <= PID < NPROC")
+    return coord, nproc, pid
 
 
 def main(argv=None):
@@ -75,9 +100,14 @@ def main(argv=None):
                     help="independent chains side by side (R-hat/ESS via "
                          "tools/convergence.py); chain 0 writes the trace")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard loci over all visible devices (not ported)")
+                    help="shard the loci over one rank per visible CUDA "
+                         "device (a world of one with --device cpu)")
     ap.add_argument("--distributed", metavar="COORD:NPROC:PID",
-                    help="multi-host run (not ported)")
+                    help="run as rank PID of NPROC processes sharding the "
+                         "loci; COORD is rank 0's host:port")
+    ap.add_argument("--mesh-timeout", type=float, metavar="S",
+                    help="seconds a rank waits in a collective before the "
+                         "run fails (default 600)")
     args = ap.parse_args(argv)
 
     # refuse what is not ported, or not allowed, before any file is read
@@ -90,18 +120,67 @@ def main(argv=None):
         ap.error("--chains takes one chain or more")
     if args.buckets > 1 and args.chains > 1:
         ap.error("--buckets requires one chain (as in gphocs_tpu)")
+    if args.mesh and args.distributed:
+        ap.error("--mesh or --distributed, not both")
+    rank_of = None
+    if args.distributed:
+        rank_of = _parse_distributed(ap, args.distributed)
+    if (args.mesh or args.distributed) and args.chains > 1:
+        raise NotImplementedError(
+            "--chains on a loci mesh is not ported to gphocs_tpu_torch yet "
+            "(ROADMAP Queue 1 item 15b)")
 
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device (use "
+                           "--device cpu to run on the CPU)")
+    if not (args.mesh or args.distributed):
+        return _run(args, ap, None)
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    ranks = []
+    if args.mesh:
+        world = torch.cuda.device_count() if args.device == "cuda" else 1
+        coord = f"127.0.0.1:{M.free_port()}"
+        rank_of = (coord, world, 0)
+        rest = [a for a in (sys.argv[1:] if argv is None else argv)
+                if a != "--mesh"]
+        ranks = [subprocess.Popen(
+            [sys.executable, "-m", "gphocs_tpu_torch", *rest,
+             "--distributed", f"{coord}:{world}:{r}"])
+            for r in range(1, world)]
+    ok = False
+    try:
+        M.init_distributed(*rank_of, device=args.device,
+                           timeout_s=args.mesh_timeout
+                           or M.DEFAULT_TIMEOUT_S)
+        rc = _run(args, ap, M.make_mesh())
+        ok = True
+    finally:
+        for p in ranks:
+            if not ok:
+                p.kill()
+            p.wait()
+        M.shutdown()
+    failed = [r + 1 for r, p in enumerate(ranks) if p.returncode]
+    if failed:
+        raise RuntimeError(f"loci mesh: rank(s) {failed} failed")
+    return rc
+
+
+def _run(args, ap, mesh):
+    """The run of this process (a rank of `mesh`, where given)."""
     import torch
 
     from gphocs_tpu_torch.config import parse_control_file
     from gphocs_tpu_torch.ops import sweeps
     from gphocs_tpu_torch.sampler.driver import Sampler
 
+    talk = mesh is None or mesh.rank == 0
+    dev = args.device if mesh is None else mesh.device
     if args.device == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda: no CUDA device (use "
-                               "--device cpu to run on the CPU)")
-        where = f"cuda ({torch.cuda.get_device_name(0)})"
+        where = f"{dev} ({torch.cuda.get_device_name(dev)})"
     else:
         where = "cpu"
     use_x64 = args.x64 if args.x64 is not None else args.device == "cpu"
@@ -113,30 +192,35 @@ def main(argv=None):
     if args.chains > 1 and cfg.mcmc.coal_stats_file != "NONE":
         ap.error("--chains: a coal-stats file takes one chain (drop "
                  "coal-stats-file from the control file)")
-    print(f"gphocs_tpu_torch on {where}, "
-          f"{'float64' if use_x64 else 'float32'}, fast RNG")
+    say = print if talk else (lambda *a, **k: None)
+    say(f"gphocs_tpu_torch on {where}, "
+        f"{'float64' if use_x64 else 'float32'}, fast RNG")
     t0 = time.time()
     sampler = Sampler(cfg, dtype=dtype, device=args.device,
                       legacy_rng=not args.production_rng,
-                      buckets=args.buckets, chains=args.chains)
-    print(f"{sampler.num_loci} loci, {cfg.num_samples} samples, "
-          f"{cfg.num_pops} pops, {len(cfg.bands)} migration band(s); "
-          f"{cfg.num_parameters()} parameters")
+                      buckets=args.buckets, chains=args.chains, mesh=mesh)
+    say(f"{sampler.num_loci} loci, {cfg.num_samples} samples, "
+        f"{cfg.num_pops} pops, {len(cfg.bands)} migration band(s); "
+        f"{cfg.num_parameters()} parameters")
+    if mesh is not None:
+        say(f"{mesh.world} rank(s), each holding {sampler.bucket_sizes} of "
+            f"{sampler.global_rows} loci ({sum(sampler.bucket_pads)} "
+            f"padding)")
     if sampler.chains > 1:
-        print(f"{sampler.chains} chains, seeds {sampler.seed} + 7919 c; "
-              "chain 0 writes the trace")
+        say(f"{sampler.chains} chains, seeds {sampler.seed} + 7919 c; "
+            "chain 0 writes the trace")
     if sampler.buckets > 1:
-        print(f"{sampler.buckets} pattern buckets: loci "
-              f"{sampler.bucket_sizes}, pattern capacity "
-              f"{[sq.group_id.shape[1] for sq in sampler.seqs]}")
+        say(f"{sampler.buckets} pattern buckets: loci "
+            f"{sampler.bucket_sizes}, pattern capacity "
+            f"{[sq.group_id.shape[1] for sq in sampler.seqs]}")
     sweeps.reset_launch_counts()
-    sampler.run(trace_path=cfg.mcmc.trace_file, progress=True,
+    sampler.run(trace_path=cfg.mcmc.trace_file, progress=talk,
                 checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every,
                 resume=args.resume, debug_check=args.debug_check)
     if args.verbose:
-        print(f"kernel launches: {dict(sweeps.LAUNCHES)}", file=sys.stderr)
-    print(f"MCMC finished. Time used: {time.time() - t0:.1f}s")
+        say(f"kernel launches: {dict(sweeps.LAUNCHES)}", file=sys.stderr)
+    say(f"MCMC finished. Time used: {time.time() - t0:.1f}s")
     return 0
 
 

@@ -28,7 +28,7 @@ import torch
 
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.kernels.common import (Context, chain_count,
-                                             per_chain, rows)
+                                             maybe_psum, per_chain, rows)
 from gphocs_tpu_torch.state import GenState, Params
 from gphocs_tpu_torch.utils import reflect
 
@@ -41,15 +41,17 @@ def in_second_pop(gen: GenState, ctx: Context) -> torch.Tensor:
 
 
 def update_admix_coeffs(gen: GenState, params: Params, rng, ctx: Context,
-                        finetune, lnp: torch.Tensor):
+                        finetune, lnp: torch.Tensor, loci_axis=None):
     """Returns (params, rng, lnp, accepted_count) ([C] counts for C
-    chains)."""
+    chains).  On a loci mesh (`loci_axis`) the valid loci and the counts
+    in the second population add up over the ranks."""
     dt = lnp.dtype
     L = lnp.shape[0]
     C = chain_count(params)
-    nloci = per_chain(gen.valid.to(dt), C)
     in2 = in_second_pop(gen, ctx)
-    n2 = per_chain(in2.to(dt), C)                             # [(C,) A]
+    nloci, n2 = maybe_psum([per_chain(gen.valid.to(dt), C),
+                            per_chain(in2.to(dt), C)],        # [(C,) A]
+                           loci_axis)
     coeff = params.admix_coeff
     A = ctx.num_admixed
     u, rng = RF.batch_u(rng, 4 * A, dt)                      # [(C,) 4A]

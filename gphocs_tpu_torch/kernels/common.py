@@ -223,13 +223,25 @@ def last_mig_below(gen: GenState, node: torch.Tensor, age: torch.Tensor):
 
 
 def maybe_psum(x, loci_axis=None):
-    """Identity: the port runs on one device (multi-GPU reductions are
-    ROADMAP Queue 1 item 15)."""
-    return x
+    """x summed over the ranks of the loci mesh `loci_axis` (a
+    parallel/mesh.LociMesh); x itself without one.  A sequence of tensors
+    travels in one all-reduce and comes back as a list."""
+    return _reduce(x, loci_axis, "sum")
 
 
 def maybe_pmax(x, loci_axis=None):
-    return x
+    """x's largest value over the ranks of the loci mesh (see maybe_psum)."""
+    return _reduce(x, loci_axis, "max")
+
+
+def _reduce(x, mesh, op):
+    if mesh is None:
+        return x
+    from gphocs_tpu_torch.parallel.mesh import all_reduce
+
+    if isinstance(x, (list, tuple)):
+        return all_reduce(mesh, x, op)
+    return all_reduce(mesh, [x], op)[0]
 
 
 def mh_accept(u: torch.Tensor, lnacc: torch.Tensor, mask: torch.Tensor):

@@ -31,16 +31,21 @@ from __future__ import annotations
 import torch
 
 from gphocs_tpu_torch import rng_fast as RF
-from gphocs_tpu_torch.kernels.common import per_chain
+from gphocs_tpu_torch.kernels.common import maybe_psum, per_chain
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, SeqData
 from gphocs_tpu_torch.utils import reflect
 
 
 def update_locus_rates_paired(gen: GenState, seq: SeqData, rng, finetune,
-                              lnld: torch.Tensor, var_alpha, cond):
+                              lnld: torch.Tensor, var_alpha, cond,
+                              loci_axis=None):
     """Returns (gen, rng, lnld, cond, accepted, rate_var_delta); accepted
-    counts loci (both members of an accepted pair)."""
+    counts loci (both members of an accepted pair).  On a loci mesh
+    (`loci_axis`) the pairs form within each rank's block, as under
+    gphocs_tpu's shard_map (each pair keeps its sum, so the global mean
+    stays 1), and the count and the variance delta add up over the ranks,
+    with the global L in the denominator."""
     C = None if rng.ctr.dim() == 0 else rng.ctr.shape[0]
     L = gen.num_loci // (C or 1)                      # loci of one chain
     dt = lnld.dtype
@@ -93,7 +98,9 @@ def update_locus_rates_paired(gen: GenState, seq: SeqData, rng, finetune,
     gen = gen._replace(mut_rate=torch.where(accept, rnew, gen.mut_rate))
     lnld = torch.where(accept, lnld_prop, lnld)
     cond = torch.where(accept[:, None, None, None], cond_prop, cond)
-    dvar = per_chain(torch.where(accept, rnew ** 2 - r ** 2,
-                                 torch.zeros_like(r)), C) / L
     # (a sum of bools is int64)
-    return gen, rng, lnld, cond, per_chain(accept, C), dvar
+    acc, dvar = maybe_psum([per_chain(accept, C), per_chain(
+        torch.where(accept, rnew ** 2 - r ** 2, torch.zeros_like(r)), C)],
+        loci_axis)
+    L_total = L if loci_axis is None else L * loci_axis.world
+    return gen, rng, lnld, cond, acc, dvar / L_total

@@ -20,7 +20,7 @@ import torch
 
 from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import (Context, chain_count,
-                                             per_chain, rows,
+                                             maybe_psum, per_chain, rows,
                                              scalar_mh_accept)
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import Params
@@ -28,11 +28,13 @@ from gphocs_tpu_torch.state import Params
 
 def update_mixing_buckets(gens, params: Params, seqs, rng, ctx: Context,
                           finetune, lnlds, lnps, conds, stats_list,
-                          num_cur_pops: int):
+                          num_cur_pops: int, loci_axis=None):
     """Mixing over the pattern buckets of a state (sequences with one entry
     per bucket): one factor, each bucket rebuilt, one joint accept
-    (gphocs_tpu/sampler/bucketed.py:_mixing_bucketed).  Returns (gens,
-    params, rng, lnlds, lnps, conds, accepted) with lists."""
+    (gphocs_tpu/sampler/bucketed.py:_mixing_bucketed).  On a loci mesh
+    (`loci_axis`) the event counts and the data delta, added over the
+    buckets, cross the ranks.  Returns (gens, params, rng, lnlds, lnps,
+    conds, accepted) with lists."""
     dt = lnlds[0].dtype
     C = chain_count(params)
     z, rng = R.general_draw_2normal8(rng, dt)
@@ -44,8 +46,9 @@ def update_mixing_buckets(gens, params: Params, seqs, rng, ctx: Context,
     def events(counts):  # a bucket's events: of all loci, or per chain
         return counts.sum() if C is None else per_chain(counts.sum(dim=1), C)
 
-    ncoal_tot = sum(events(s.num_coals) for s in stats_list).to(dt)
-    nmig_tot = sum(events(s.num_migs) for s in stats_list).to(dt)
+    ncoal_tot, nmig_tot = maybe_psum(
+        [sum(events(s.num_coals) for s in stats_list).to(dt),
+         sum(events(s.num_migs) for s in stats_list).to(dt)], loci_axis)
     num_events = ncoal_tot + nmig_tot
     P = ctx.num_pops
     B = ctx.num_bands
@@ -82,7 +85,7 @@ def update_mixing_buckets(gens, params: Params, seqs, rng, ctx: Context,
         cond_prop, lnld_prop = full_rebuild_and_lnld(gen_prop, sq)
         ddata = ddata + per_chain(lnld_prop - ld, C)
         props.append((gen_prop, cond_prop, lnld_prop))
-    lnacc = lnacc + ddata
+    lnacc = lnacc + maybe_psum(ddata, loci_axis)
 
     accept, rng = scalar_mh_accept(rng, lnacc)
 

@@ -23,7 +23,7 @@ import torch
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.constants import MIN_MIG_RATE
 from gphocs_tpu_torch.kernels.common import (Context, chain_count,
-                                             per_chain, rows)
+                                             maybe_psum, per_chain, rows)
 from gphocs_tpu_torch.ops.coalstats import CoalStats
 from gphocs_tpu_torch.state import GenState, Params
 
@@ -33,16 +33,18 @@ def _accept(u, lnacc):
 
 
 def update_thetas(gen: GenState, params: Params, rng, ctx: Context,
-                  finetune, lnp: torch.Tensor, stats: CoalStats):
+                  finetune, lnp: torch.Tensor, stats: CoalStats,
+                  loci_axis=None):
     """Returns (params, rng, lnp, accepted_count) ([C] counts for C
-    chains)."""
+    chains).  loci_axis: the loci mesh, over which the totals add up."""
     dt = lnp.dtype
     P = ctx.num_pops
     L = lnp.shape[0]
     C = chain_count(params)
     ncoal = stats.num_coals.to(dt)
-    ncoal_tot = per_chain(ncoal, C)                             # [(C,) P]
-    coal_tot = per_chain(stats.coal_stats, C)
+    ncoal_tot, coal_tot = maybe_psum(
+        [per_chain(ncoal, C), per_chain(stats.coal_stats, C)],  # [(C,) P]
+        loci_axis)
     z, rng = RF.batch_2normal8(rng, P, dt)
     lnc = finetune * z
     theta_old = params.theta
@@ -61,9 +63,10 @@ def update_thetas(gen: GenState, params: Params, rng, ctx: Context,
 
 
 def update_mig_rates(gen: GenState, params: Params, rng, ctx: Context,
-                     finetune, lnp: torch.Tensor, stats: CoalStats):
+                     finetune, lnp: torch.Tensor, stats: CoalStats,
+                     loci_axis=None):
     """Returns (params, rng, lnp, accepted_count) ([C] counts for C
-    chains)."""
+    chains).  loci_axis: as update_thetas."""
     B = ctx.num_bands
     if B == 0:
         return params, rng, lnp, torch.zeros(
@@ -72,8 +75,9 @@ def update_mig_rates(gen: GenState, params: Params, rng, ctx: Context,
     L = lnp.shape[0]
     C = chain_count(params)
     nmig = stats.num_migs.to(dt)
-    nmig_tot = per_chain(nmig, C)                               # [(C,) B]
-    mig_tot = per_chain(stats.mig_stats, C)
+    nmig_tot, mig_tot = maybe_psum(
+        [per_chain(nmig, C), per_chain(stats.mig_stats, C)],    # [(C,) B]
+        loci_axis)
     z, rng = RF.batch_2normal8(rng, B, dt)
     lnc = finetune * z
     old = params.mig_rate

@@ -47,8 +47,9 @@ import torch
 
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
-                                             chain_count, mh_accept,
-                                             per_chain, rows, take)
+                                             chain_count, maybe_pmax,
+                                             mh_accept, per_chain, rows,
+                                             take)
 from gphocs_tpu_torch.ops.likelihood_cache import refresh_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 
@@ -92,7 +93,8 @@ class SimResult(NamedTuple):
 
 def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
                         node: int, rng: RF.FastRngState, doff: torch.Tensor,
-                        active0: torch.Tensor, sync_group: int) -> SimResult:
+                        active0: torch.Tensor, sync_group: int,
+                        loci_axis=None) -> SimResult:
     """Batched traceLineage(reconnect=1) by cumulative-hazard inversion
     (see gphocs_tpu/kernels/spr._simulate_reconnect).  Draws of lane l sit
     at counter positions rng.ctr + doff[l] + 1, + 2 per trip."""
@@ -208,7 +210,9 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
         alive_all = status == 0
         padded = torch.zeros((Cn, gpc * G), dtype=torch.bool, device=dev)
         padded[:, :Lc] = alive_all.view(Cn, Lc)
-        g_alive = padded.view(ngroups, G).any(dim=1)
+        # a group that spans the ranks of a loci mesh walks while any
+        # rank's part of it walks: every rank takes the same trips
+        g_alive = maybe_pmax(padded.view(ngroups, G).any(dim=1), loci_axis)
         run_g = g_alive & (trips < M + 3)
         if not bool(run_g.any()):
             break
@@ -391,18 +395,24 @@ def _apply_spr(gen: GenState, node: int, accept: torch.Tensor,
 
 def update_spr(gen: GenState, params: Params, seq: SeqData,
                rng: RF.FastRngState, ctx: Context, lnld: torch.Tensor,
-               cond: torch.Tensor, sync_group: int = 0):
+               cond: torch.Tensor, sync_group: int = 0, loci_axis=None):
     """One full SPR sweep over all nodes.  Returns
     (gen, rng, lnld, cond, accepted_count); the genealogy log-prior must
     be recomputed by the caller.  sync_group = 0 means L (global trip
     synchronization; a chain's loci for C chains, whose counts are
-    [C])."""
+    [C]).  loci_axis: the loci mesh of one chain's rank, whose L loci are
+    one trip group spanning all ranks (sync_group L): its liveness and
+    the counter advance are reduced over the ranks, so the sharded sweep
+    equals the unsharded one draw for draw.  The accept count stays the
+    rank's own."""
     L, N = gen.father.shape
     dt = gen.age.dtype
     dev = gen.age.device
     ar = torch.arange(L, device=dev)
     nid = torch.arange(N, device=dev)[None, :]
     G = sync_group or L
+    if loci_axis is not None and (G != L or chain_count(params)):
+        raise ValueError("a loci mesh takes one chain in one trip group")
     doff = torch.zeros((L,), dtype=torch.int64, device=dev)
     C = chain_count(params)
     acc = torch.zeros(params.theta.shape[:-1], dtype=torch.int64,
@@ -427,7 +437,7 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
                                                  old)
                 gen_sim = gen._replace(node_pop=node_pop)
         sim = _simulate_reconnect(gen_sim, params, ctx, inode, rng, doff,
-                                  active0, G)
+                                  active0, G, loci_axis)
         ok = sim.status == 1
         gen_prop = _apply_spr(gen_sim, inode, ok, sim)
         # dirty: f (new age/sons), the old grandfather (lost son f) and the
@@ -449,5 +459,5 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
         cond = torch.where(accept[:, None, None, None], cond_prop, cond)
         lnld = torch.where(accept, lnld_prop, lnld)
         acc = acc + per_chain(accept, C)
-    rng = RF.bump(rng, per_chain(doff, C, "amax"))
+    rng = RF.bump(rng, maybe_pmax(per_chain(doff, C, "amax"), loci_axis))
     return gen, rng, lnld, cond, acc

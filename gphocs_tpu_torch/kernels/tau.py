@@ -46,7 +46,7 @@ import torch
 from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
                                              chain_count, gen_log_prior,
-                                             per_chain, rows,
+                                             maybe_psum, per_chain, rows,
                                              scalar_mh_accept, take)
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
@@ -227,14 +227,16 @@ def rubber_band_eval_plain(gen: GenState, params: Params, seq: SeqData,
 
 def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
                        finetunes_taus, lnlds, lnps, conds, pops,
-                       is_sample_age: bool, evaluate):
+                       is_sample_age: bool, evaluate, loci_axis=None):
     """One rubber-band proposal per population of `pops`, in order, with one
     joint accept over the buckets of the state (sequences `gens`, `seqs`,
     `lnlds`, `lnps`, `conds`: one entry per pattern bucket, one entry for an
     unbucketed state).  `evaluate` (rubber_band_eval's signature) gives each
     bucket's proposal; the likelihood and prior deltas, the Jacobian counts
     and the conflict flags add up over the buckets before the one decision
-    (the reference's single global accept over all loci).  Returns (gens,
+    (the reference's single global accept over all loci); on a loci mesh
+    (`loci_axis`) these bucket totals then cross the ranks in one
+    all-reduce per proposal, before the decision.  Returns (gens,
     params, rng, lnlds, lnps, conds, accepted[P], conflicts) with lists
     ([C, P] and [C] for C chains, each chain proposing and deciding on
     its own)."""
@@ -271,6 +273,9 @@ def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
         conflict = props[0][7]
         for p in props[1:]:
             conflict = conflict | p[7]
+        # the conflict flag travels as a sum of 0/1 flags
+        dsum, ntj0, ntj1, conflict = maybe_psum([dsum, ntj0, ntj1, conflict],
+                                                loci_axis)
         lnacc = (torch.log(taunew / tauold) * (ctx.tau_alpha[pop] - 1.0)
                  - (taunew - tauold) * ctx.tau_beta[pop]
                  + dsum + ntj0 * lnf0 + ntj1 * lnf1)
@@ -355,7 +360,7 @@ def update_taus_fused(gen: GenState, params: Params, seq: SeqData, rng,
 
 def update_taus_buckets(gens, params: Params, seqs, rng, ctx: Context,
                         finetunes_taus, lnlds, lnps, conds, num_pops: int,
-                        num_cur_pops: int):
+                        num_cur_pops: int, loci_axis=None):
     """UpdateTau over the pattern buckets of a state (sequences of one entry
     per bucket), one joint accept per population, each bucket's proposal
     through ops/sweeps.rubber_band_eval.  Returns lists, as
@@ -365,7 +370,7 @@ def update_taus_buckets(gens, params: Params, seqs, rng, ctx: Context,
     return _rubber_band_sweep(gens, params, seqs, rng, ctx, finetunes_taus,
                               lnlds, lnps, conds,
                               range(num_cur_pops, num_pops), False,
-                              rubber_band_eval)
+                              rubber_band_eval, loci_axis)
 
 
 def update_sample_ages_fused(gen: GenState, params: Params, seq: SeqData,
@@ -385,7 +390,8 @@ def update_sample_ages_fused(gen: GenState, params: Params, seq: SeqData,
 
 def update_sample_ages_buckets(gens, params: Params, seqs, rng,
                                ctx: Context, finetunes_taus, lnlds, lnps,
-                               conds, num_cur_pops: int, update_mask):
+                               conds, num_cur_pops: int, update_mask,
+                               loci_axis=None):
     """UpdateSampleAge over the pattern buckets of a state; see
     update_taus_buckets."""
     from gphocs_tpu_torch.ops.sweeps import rubber_band_eval
@@ -393,4 +399,4 @@ def update_sample_ages_buckets(gens, params: Params, seqs, rng,
     pops = [p for p in range(num_cur_pops) if update_mask[p]]
     return _rubber_band_sweep(gens, params, seqs, rng, ctx, finetunes_taus,
                               lnlds, lnps, conds, pops, True,
-                              rubber_band_eval)
+                              rubber_band_eval, loci_axis)

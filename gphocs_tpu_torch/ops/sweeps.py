@@ -50,7 +50,8 @@ from typing import NamedTuple
 
 import torch
 
-from gphocs_tpu_torch.kernels.common import Context, chain_count, per_chain
+from gphocs_tpu_torch.kernels.common import (Context, chain_count,
+                                             maybe_pmax, per_chain)
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
@@ -444,18 +445,21 @@ def prepare_spr(gen: GenState, params: Params, seq: SeqData,
 
 
 def spr_sweep(gen: GenState, params: Params, seq: SeqData,
-              rng: FastRngState, ctx: Context, lnld, cond):
+              rng: FastRngState, ctx: Context, lnld, cond, loci_axis=None):
     """Fused SPR sweep (gphocs_tpu's spr_sweep_pallas; with admixed
     leaves, the semantics of its XLA update_spr, which the Pallas kernel
-    leaves out).  Returns (gen, rng, lnld, cond, acc)."""
+    leaves out).  Returns (gen, rng, lnld, cond, acc), acc the rank's own
+    on a loci mesh (`loci_axis`), where the counter advances by the
+    largest draw offset over all ranks (sweeps_pallas.py:2011-2014)."""
     if not _on_cuda(gen.age, cond, lnld, rng.key):
         return update_spr(gen, params, seq, rng, ctx, lnld, cond,
-                          sync_group=gen.num_loci)
+                          sync_group=gen.num_loci, loci_axis=loci_axis)
     p = prepare_spr(gen, params, seq, rng, ctx, lnld, cond)
     p.launch(cond.device)
     LAUNCHES["spr"] += 1
     o = p.out
     stat = o["stat"].to(torch.int64)
     moved = {f: o[f] for f in o if f not in ("cond", "lnld", "stat")}
-    return (gen._replace(**moved), _advance(rng, stat[..., 1]), o["lnld"],
+    return (gen._replace(**moved),
+            _advance(rng, maybe_pmax(stat[..., 1], loci_axis)), o["lnld"],
             o["cond"], stat[..., 0])

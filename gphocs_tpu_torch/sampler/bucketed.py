@@ -36,6 +36,16 @@ chains: every move is drawn, decided and counted per chain, the totals and
 trace entries get a chain axis ([C], [C, P]), and each sweep kernel is
 launched once for all chains.
 
+On a loci mesh (`loci_axis`, a parallel/mesh.LociMesh) every bucket holds
+this rank's block of its loci and the sweeps run on it; the reductions
+across loci are all-reduces at the places of gphocs_tpu's maybe_psum /
+maybe_pmax: theta's and the migration rates' totals, one per rubber-band
+proposal, the admixture counts, mixing's event counts and data delta,
+the paired rate update's count and variance, SPR's counter advance, and
+at the end of the iteration one for its statistics (accepts of the
+sweeps, migrations, lnld and lnp sums).  Every rank makes them all, in
+the same order.
+
 Admixed leaves (one bucket, as in gphocs_tpu, which refuses them with
 buckets): SPR resamples their populations, the prior carries their terms,
 and the coefficients move after the sample ages.  A chunk also adds up,
@@ -53,7 +63,8 @@ from gphocs_tpu_torch.kernels.admix import (in_second_pop,
                                             update_admix_coeffs)
 from gphocs_tpu_torch.kernels.common import (chain_count, full_stats,
                                              gen_log_prior,
-                                             gen_log_prior_from_stats)
+                                             gen_log_prior_from_stats,
+                                             maybe_psum)
 from gphocs_tpu_torch.kernels.locus_rate import update_locus_rates_paired
 from gphocs_tpu_torch.kernels.mixing import update_mixing_buckets
 from gphocs_tpu_torch.kernels.scalar_params import (update_mig_rates,
@@ -82,7 +93,7 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                            theta_on: bool = True, mig_rate_on: bool = True,
                            mixing_on: bool = True, var_rates: bool = False,
                            locus_rate_on: bool = True,
-                           var_alpha: float = 1.0):
+                           var_alpha: float = 1.0, loci_axis=None):
     """One iteration over the buckets.  `gens`, `seqs`, `lrngs`, `lnlds`,
     `lnps`, `conds` hold one entry per bucket.  Returns (gens, params,
     lrngs, grng, lnlds, lnps, conds, StepStats) with lists.
@@ -118,8 +129,8 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                 g, r, lnps[k], a = mig_age_sweep(g, params, r, ctx,
                                                  ft.mig_time, lnps[k])
                 acc_mt = acc_mt + a
-            g, r, lnlds[k], conds[k], a = spr_sweep(g, params, sq, r, ctx,
-                                                    lnlds[k], conds[k])
+            g, r, lnlds[k], conds[k], a = spr_sweep(
+                g, params, sq, r, ctx, lnlds[k], conds[k], loci_axis)
             acc_spr = acc_spr + a
             # SPR tracks only the data likelihood; the prior refresh of the
             # last genetree sample is merged into the full_stats pass below
@@ -127,7 +138,8 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                 lnps[k] = gen_log_prior(g, params, ctx)
             if var_rates and locus_rate_on:
                 g, r, lnlds[k], conds[k], a, dv = update_locus_rates_paired(
-                    g, sq, r, ft.locus_rate, lnlds[k], var_alpha, conds[k])
+                    g, sq, r, ft.locus_rate, lnlds[k], var_alpha, conds[k],
+                    loci_axis)
                 acc_lr = acc_lr + a
                 dvar = dvar + dv
             gens[k], lrngs[k] = g, r
@@ -141,25 +153,26 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
     acc_th = acc_mr = zero
     if theta_on:
         params, grng, lnp, acc_th = update_thetas(
-            gens[0], params, grng, ctx, ft.theta, lnp, stats)
+            gens[0], params, grng, ctx, ft.theta, lnp, stats, loci_axis)
     if do_migrate and mig_rate_on and ctx.num_bands > 0:
         params, grng, lnp, acc_mr = update_mig_rates(
-            gens[0], params, grng, ctx, ft.mig_rate, lnp, stats)
+            gens[0], params, grng, ctx, ft.mig_rate, lnp, stats, loci_axis)
     lnps = _split(lnp, [g.num_loci for g in gens])
     gens, params, grng, lnlds, lnps, conds, acc_taus, conflicts = \
         update_taus_buckets(gens, params, seqs, grng, ctx, ft.taus, lnlds,
-                            lnps, conds, num_pops, num_cur_pops)
+                            lnps, conds, num_pops, num_cur_pops, loci_axis)
     if any(sample_age_mask):
         gens, params, grng, lnlds, lnps, conds, acc_sa, conf_sa = \
             update_sample_ages_buckets(gens, params, seqs, grng, ctx,
                                        ft.taus, lnlds, lnps, conds,
-                                       num_cur_pops, sample_age_mask)
+                                       num_cur_pops, sample_age_mask,
+                                       loci_axis)
         acc_taus = acc_taus + acc_sa
         conflicts = conflicts + conf_sa
     acc_adm = zero
     if ctx.num_admixed > 0:
         params, grng, lnp0, acc_adm = update_admix_coeffs(
-            gens[0], params, grng, ctx, ft.admix, lnps[0])
+            gens[0], params, grng, ctx, ft.admix, lnps[0], loci_axis)
         lnps = [lnp0]
     acc_mix = zero
     if do_mixing and mixing_on:
@@ -168,19 +181,25 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
         gens, params, grng, lnlds, lnps, conds, acc_mix = \
             update_mixing_buckets(gens, params, seqs, grng, ctx, ft.mixing,
                                   lnlds, lnps, conds, stats_list,
-                                  num_cur_pops)
+                                  num_cur_pops, loci_axis)
 
     def total(x):  # over a bucket's loci (and slots), or per chain
         return x.sum() if C is None else x.reshape(C, -1).sum(dim=1)
 
+    # the sweeps' accepts and the sums over loci are the rank's own on a
+    # loci mesh; the counts of the global moves (and the paired rate
+    # update's, reduced where it ran) are every rank's already
+    acc_ct, acc_mt, acc_spr, num_migs, lnld_sum, lnp_sum = maybe_psum(
+        [acc_ct, acc_mt, acc_spr,
+         sum(total(g.mig_branch >= 0) for g in gens),
+         sum(total(x) for x in lnlds), sum(total(x) for x in lnps)],
+        loci_axis)
     out = StepStats(
         acc_coal_time=acc_ct, acc_mig_time=acc_mt, acc_spr=acc_spr,
         acc_theta=acc_th, acc_mig_rate=acc_mr, acc_taus=acc_taus,
         acc_mixing=acc_mix, acc_locus_rate=acc_lr, rate_var_delta=dvar,
-        tau_conflicts=conflicts,
-        num_migs_total=sum(total(g.mig_branch >= 0) for g in gens),
-        lnld_sum=sum(total(x) for x in lnlds),
-        lnp_sum=sum(total(x) for x in lnps), acc_admix=acc_adm)
+        tau_conflicts=conflicts, num_migs_total=num_migs,
+        lnld_sum=lnld_sum, lnp_sum=lnp_sum, acc_admix=acc_adm)
     return gens, params, lrngs, grng, lnlds, lnps, conds, out
 
 

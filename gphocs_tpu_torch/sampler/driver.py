@@ -35,8 +35,23 @@ point: the iteration, then each admixed leaf's share of the sampling
 iterations in its second population, per locus (reference
 src/GPhoCS.c:1781-1805).  Refused with pattern buckets, as in gphocs_tpu.
 
-Not ported yet; asking for them raises NotImplementedError naming the
-ROADMAP item: the legacy Wichmann-Hill RNG and meshes.
+A loci mesh (`mesh`, a parallel/mesh.LociMesh: one process per rank)
+shards the loci as gphocs_tpu's shard_map path does.  The loci are padded
+to a multiple of the world size with inert loci (parallel/mesh.py's rule:
+an unbucketed state pads its loci before the initialization, which then
+covers them, as gphocs_tpu pads `num_loci`; a bucketed one pads each
+bucket with copies of its first locus).  Every rank builds the global
+initial state from the host stream and keeps its block of every bucket,
+so rank r's state is rows [r Ls, (r + 1) Ls) of the padded unsharded
+state (`loci_multiple` pads one process's state the same way).  The
+parameters and the general stream are replicated; the all-reduces are
+sampler/bucketed.py's.  Rank 0 alone writes the trace, the log, the
+coal-stats file, admixture-trace.out and the checkpoint (gathered from
+every rank); every rank makes every collective, those of the log points
+included.  Chains on a mesh are refused (ROADMAP Queue 1 item 15b).
+
+Not ported yet; asking for it raises NotImplementedError naming the
+ROADMAP item: the legacy Wichmann-Hill RNG.
 """
 
 from __future__ import annotations
@@ -59,9 +74,11 @@ from gphocs_tpu_torch.io import trace as trace_io
 from gphocs_tpu_torch.io.sequences import (build_seq_data,
                                            build_seq_data_buckets,
                                            group_members, read_seq_file)
-from gphocs_tpu_torch.kernels.common import gen_log_prior, make_context
+from gphocs_tpu_torch.kernels.common import (gen_log_prior, make_context,
+                                             maybe_psum)
 from gphocs_tpu_torch.model.poptree import PopTree, build_poptree
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+from gphocs_tpu_torch.parallel.mesh import gather_rows, pad_bucket, pad_seq
 from gphocs_tpu_torch.rng_fast import FastRngState, init_fast
 from gphocs_tpu_torch.rng_host import HostRng
 from gphocs_tpu_torch.sampler.bucketed import mcmc_chunk_buckets
@@ -196,9 +213,15 @@ class Sampler:
                  num_loci: Optional[int] = None, dtype=torch.float64,
                  device="cuda", rng_mode: str = "fast",
                  legacy_rng: bool = True, mesh=None, chains: int = 1,
-                 buckets: int = 1):
+                 buckets: int = 1, loci_multiple: int = 1):
         """device: where the state lives and the iteration runs ("cuda"
-        by default; asking for CUDA without a CUDA device raises).
+        by default; asking for CUDA without a CUDA device raises).  With
+        a mesh, the rank's device (mesh.device), of the same type.
+
+        mesh: the loci mesh of this process (the module's docstring);
+        its loci pad to a multiple of the world size.  loci_multiple pads
+        a state without a mesh the same way, so that one process runs the
+        padded state that a mesh of that many ranks shards.
 
         legacy_rng: seed the host initialization stream (prior draws of
         the starting parameters and rates) as the reference does, the same
@@ -215,8 +238,16 @@ class Sampler:
         if rng_mode != "fast":
             raise _todo("rng_mode='legacy' (Wichmann-Hill streams)",
                         "Queue 1 item 17")
+        if mesh is not None and chains > 1:
+            raise _todo("chains on a loci mesh (the chain-major layout "
+                        "needs a sharding of its own)", "Queue 1 item 15b")
         if mesh is not None:
-            raise _todo("multi-device loci sharding", "Queue 1 item 15")
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r}: the mesh's rank runs "
+                                 f"on {mesh.device}")
+            device = mesh.device
+            loci_multiple = mesh.world
+        self.mesh = mesh
         if chains < 1:
             raise ValueError(f"chains={chains}: at least one chain")
         if chains > 1 and buckets > 1:
@@ -235,6 +266,13 @@ class Sampler:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Sampler(device='cuda'): no CUDA device")
+        if mesh is not None and self.device.type == "cuda":
+            # rank 0 builds the kernels; the others load them after it
+            from gphocs_tpu_torch.ops import cuda_lib
+
+            if mesh.rank == 0:
+                cuda_lib.build()
+            mesh.barrier()
         self.cfg = cfg
         self.tree: PopTree = build_poptree(cfg)
         self.ctx = make_context(self.tree, dtype, self.device)
@@ -279,8 +317,24 @@ class Sampler:
             seqs = [SeqData(*(None if x is None
                               else np.concatenate([x] * chains)
                               for x in seqs[0]))]
-        self.seqs = tuple(from_numpy(sq, device=self.device, dtype=dtype)
-                          for sq in seqs)
+        # inert padding loci: an unbucketed state pads num_loci, and the
+        # initialization covers them; a bucketed one pads every bucket
+        # with copies of its first locus (initialize)
+        self.bucket_pads = [(-sq.group_id.shape[0]) % loci_multiple
+                            for sq in seqs]
+        self.pad_loci = 0
+        if self.bucket_perm is None:
+            self.pad_loci = self.bucket_pads[0]
+            self.num_loci += self.pad_loci
+        seqs = [pad_seq(sq, pad) for sq, pad in zip(seqs, self.bucket_pads)]
+        # every bucket's loci, padded, and those that this process holds
+        self.global_rows = [sq.group_id.shape[0] for sq in seqs]
+        self.blocks = [slice(0, n) if mesh is None else mesh.block(n)
+                       for n in self.global_rows]
+        self.seqs = tuple(
+            from_numpy(SeqData(*(None if x is None else x[b] for x in sq)),
+                       device=self.device, dtype=dtype)
+            for sq, b in zip(seqs, self.blocks))
         # the cost-minimizing partition may use fewer buckets than asked
         self.buckets = len(self.seqs)
         self.host_rng = HostRng(self.num_loci + 1, seed, legacy=legacy_rng)
@@ -334,6 +388,10 @@ class Sampler:
                 key=torch.cat([r.key for r in rs]),
                 ctr=torch.stack([r.ctr for r in rs])) for rs in (lrngs, grngs))
             self.rate_var = rvars[-1]
+        if self.pad_loci:
+            valid = gen.valid.clone()
+            valid[self.num_loci - self.pad_loci:] = False
+            gen = gen._replace(valid=valid)
         if self.bucket_perm is not None:
             # loci in bucket order; every locus keeps its own key, every
             # bucket's counter starts at 0
@@ -342,11 +400,17 @@ class Sampler:
             lrng = lrng._replace(key=lrng.key[perm])
         gens, lrngs, conds, lnlds, lnps = [], [], [], [], []
         off = 0
-        for sq, n in zip(self.seqs, self.bucket_sizes):
-            g = GenState(*(x[off:off + n] for x in gen))
+        for sq, rows, pad, b in zip(self.seqs, self.global_rows,
+                                    self.bucket_pads, self.blocks):
+            if self.bucket_perm is None:  # initialized with num_loci
+                pad = 0
+            n = rows - pad
+            g, key = pad_bucket(GenState(*(x[off:off + n] for x in gen)),
+                                lrng.key[off:off + n], pad)
+            g = GenState(*(x[b] for x in g))
             cond, lnld = full_rebuild_and_lnld(g, sq)
             gens.append(g)
-            lrngs.append(lrng._replace(key=lrng.key[off:off + n]))
+            lrngs.append(lrng._replace(key=key[b]))
             conds.append(cond)
             lnlds.append(lnld)
             lnps.append(gen_log_prior(g, self.params, self.ctx))
@@ -429,7 +493,7 @@ class Sampler:
             mixing_on=self.ft_search["mixing"].value > 0,
             var_rates=cfg.mcmc.mut_rate_mode == 1,
             locus_rate_on=self.ft_search["locus_rate"].value > 0,
-            var_alpha=cfg.mcmc.var_rates_alpha)
+            var_alpha=cfg.mcmc.var_rates_alpha, loci_axis=self.mesh)
         self.gens, self.lrngs = tuple(gens), tuple(lrngs)
         self.lnlds, self.lnps, self.conds = (tuple(lnlds), tuple(lnps),
                                              tuple(conds))
@@ -492,7 +556,8 @@ class Sampler:
         With admixed leaves and one chain, admixture-trace.out goes beside
         the trace file (the module's docstring).
         With chains, the trace is chain 0's, and `chain_rows` gets every
-        chain's rows."""
+        chain's rows.  On a loci mesh every rank calls run() with the same
+        arguments; rank 0 writes the files and the log."""
         from gphocs_tpu_torch import checkpoint as ckpt
 
         cfg = self.cfg
@@ -521,18 +586,22 @@ class Sampler:
         spl = (cfg.mcmc.find_finetunes_samples_per_step if finding
                else cfg.mcmc.iterations_per_log)
         t0 = time.time()
+        writer = self.mesh is None or self.mesh.rank == 0
+        progress = progress and writer
         if progress:
             print(self._log_header(), file=sys.stderr)
 
-        tf = open(trace_path, "w") if trace_path else None
+        tf = open(trace_path, "w") if trace_path and writer else None
+        coal_stats = cfg.mcmc.coal_stats_file != "NONE"
         cs_file = None
-        if cfg.mcmc.coal_stats_file != "NONE":
+        if coal_stats:
             from gphocs_tpu_torch.tools.coalstats_out import (
                 coal_stats_header, write_coal_stats_row)
 
             nparts = max(cfg.mcmc.num_pop_partitions, 1)
-            cs_file = open(cfg.mcmc.coal_stats_file, "w")
-            cs_file.write(coal_stats_header(tree, nparts) + "\n")
+            if writer:
+                cs_file = open(cfg.mcmc.coal_stats_file, "w")
+                cs_file.write(coal_stats_header(tree, nparts) + "\n")
         try:
             if tf:
                 tf.write(header + "\n")
@@ -550,7 +619,7 @@ class Sampler:
                 if checkpoint_path and checkpoint_every > 0:
                     boundaries.append((iteration // checkpoint_every + 1)
                                       * checkpoint_every)
-                if cs_file is not None:
+                if coal_stats:
                     boundaries.append(iteration + 1)
                 end = max(min(boundaries), iteration + 1)
                 n_iters = end - iteration
@@ -600,9 +669,12 @@ class Sampler:
                 if iteration == cfg.mcmc.start_mig + 1:
                     self._sample_mig_rates_device()
                 if iteration % spl == 0:
-                    if admix_count and trace_path and C == 1:
-                        _write_admix_trace(trace_path, iteration - 1,
-                                           admix_in2, admix_count)
+                    if admix_count and C == 1:
+                        in2 = (admix_in2 if self.mesh is None
+                               else gather_rows(self.mesh, admix_in2))
+                        if trace_path and writer:
+                            _write_admix_trace(trace_path, iteration - 1,
+                                               in2, admix_count)
                     pct = self._percents(counts, log_count, total_coals,
                                          mig_nodes_accum)
                     if progress:  # chain 0's
@@ -626,9 +698,10 @@ class Sampler:
                     counts.reset(P)
                     log_count = 0
                     mig_nodes_accum = 0
-                if cs_file is not None:
+                if coal_stats:
                     write_coal_stats_row(cs_file, iteration - 1, self.gens,
-                                         self.params, self.ctx, tree, nparts)
+                                         self.params, self.ctx, tree, nparts,
+                                         self.mesh)
                 if (checkpoint_path and checkpoint_every > 0
                         and iteration % checkpoint_every == 0):
                     ckpt.save_checkpoint(self, checkpoint_path, iteration)
@@ -645,8 +718,12 @@ class Sampler:
         """The state check of --debug-check (debugcheck.py): structural
         invariants of every bucket's genealogies and the carried lnld/lnp
         against a recomputation.  Returns the violations, each naming its
-        bucket or its chain where there are several."""
+        bucket or its chain where there are several.  On a loci mesh each
+        rank checks its own loci (the messages name the rank), the global
+        carried sums are checked after their all-reduce, and the count of
+        violations is all-reduced, so that every rank fails together."""
         from gphocs_tpu_torch.debugcheck import (check_gen_state,
+                                                 check_global_sums,
                                                  check_likelihoods)
 
         errs = []
@@ -659,7 +736,14 @@ class Sampler:
             pre = f"bucket {k}: " if self.buckets > 1 else ""
             errs += [pre + e for e in check_gen_state(g, self.params,
                                                       self.tree)]
-        return errs + check_likelihoods(self)
+        errs += check_likelihoods(self)
+        if self.mesh is None:
+            return errs
+        rank = self.mesh.rank
+        errs = [f"rank {rank}: " + e for e in errs] + check_global_sums(self)
+        n = int(maybe_psum(torch.tensor(len(errs)), self.mesh))
+        return errs or ([f"rank {rank}: {n} violation(s) on other ranks"]
+                        if n else [])
 
     def chain_state(self, c: int):
         """Chain c's genealogies and parameters, as one chain's (views)."""
@@ -672,7 +756,7 @@ class Sampler:
         gts = max(self.cfg.mcmc.genetree_samples, 1)
         P = self.tree.num_pops
         B = self.tree.num_bands
-        L = max(self.num_loci, 2)
+        L = max(self.num_loci - self.pad_loci, 2)
         lc = max(log_count, 1)
         n_anc = max(self.tree.num_pops - self.tree.num_cur_pops, 1)
         A = self.ctx.num_admixed

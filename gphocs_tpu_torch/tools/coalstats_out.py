@@ -95,10 +95,13 @@ def partitioned_stats(gen: GenState, params: Params, ctx,
 
 
 def write_coal_stats_row(f, iteration, gens, params: Params, ctx, tree,
-                         num_partitions: int = 1):
+                         num_partitions: int = 1, mesh=None):
     """One diagnostics row: flat totals + per-pop partitioned totals +
     mean pairwise LCA ages over loci.  `gens`: the state's GenState, or a
-    sequence of them (the pattern buckets), taken together."""
+    sequence of them (the pattern buckets), taken together.  On a loci
+    mesh (a parallel/mesh.LociMesh) the sums cover every rank's loci (one
+    all-reduce, which every rank makes), and f is rank 0's file (None on
+    the others, which write nothing)."""
     if isinstance(gens, GenState):
         gens = [gens]
 
@@ -107,12 +110,27 @@ def write_coal_stats_row(f, iteration, gens, params: Params, ctx, tree,
 
     fl = loci(lambda g: flat_stats(g, ctx.band_source, ctx.oldage))
     part = loci(lambda g: partitioned_stats(g, params, ctx, num_partitions))
-    lca = loci(pairwise_lca_ages).mean(axis=0)
+    lca = loci(pairwise_lca_ages)
+    if mesh is None:
+        fl, lca = fl.sum(), lca.mean(axis=0)
+        part = np.array([[part[:, p, k].sum() for k in range(part.shape[2])]
+                         for p in range(part.shape[1])])
+    else:
+        from gphocs_tpu_torch.kernels.common import maybe_psum
+
+        n = lca.shape[0]
+        fl, part, lca, n = (x.cpu().numpy() for x in maybe_psum(
+            [torch.as_tensor(x, dtype=torch.float64) for x in (
+                fl.sum(dtype=np.float64), part.sum(axis=0, dtype=np.float64),
+                lca.sum(axis=0, dtype=np.float64), n)], mesh))
+        lca = lca / n
+    if f is None:
+        return
     S = lca.shape[0]
-    cols = [str(iteration), f"{fl.sum():.8g}"]
-    for p in range(part.shape[1]):
+    cols = [str(iteration), f"{fl:.8g}"]
+    for p in range(part.shape[0]):
         for k in range(num_partitions):
-            cols.append(f"{part[:, p, k].sum():.8g}")
+            cols.append(f"{part[p, k]:.8g}")
     for i in range(S):
         for j in range(i + 1, S):
             cols.append(f"{lca[i, j]:.8g}")

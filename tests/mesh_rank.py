@@ -1,0 +1,175 @@
+"""Ranks of a loci mesh on the CPU for the tests (no JAX).
+
+    python -m tests.mesh_rank SPEC.json RANK
+
+runs rank RANK of SPEC["world"] gloo ranks (rank 0 at 127.0.0.1:
+SPEC["port"]) on one case of SPEC, and rank 0 writes the result, gathered
+from every rank, to SPEC["out"] with torch.save.  `run_ranks` starts all
+ranks of a SPEC and waits for them.  The same functions give the unsharded
+reference in the test's own process, with the loci padded as the mesh
+pads them (Sampler(loci_multiple=world)).
+
+Cases (SPEC["case"]):
+  node_age  one node-age sweep of the warmed state;
+  check     the state check of --debug-check on the warmed state, then
+            again after rank 1 moved two carried lnld of its block apart;
+  chunk     `iters` iterations (step_chunk) of the warmed state;
+  carried   the same from a state saved with torch.save (SPEC["state"]:
+            the unsharded per-locus tensors, of which each rank takes its
+            block, and the replicated ones);
+  run       Sampler.run on the control text SPEC["ctl_text"] with a
+            trace and a checkpoint (SPEC["run"]: run()'s arguments), each
+            rank writing nothing but what rank 0 writes.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+from gphocs_tpu_torch.config import parse_control_text
+from gphocs_tpu_torch.config import samples
+from gphocs_tpu_torch.kernels.common import gen_log_prior
+from gphocs_tpu_torch.parallel import mesh as M
+from gphocs_tpu_torch.parallel.mesh import gather_rows
+from gphocs_tpu_torch.sampler.driver import Sampler
+from gphocs_tpu_torch.state import GenState
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 60  # of the process group and of every rank's process
+
+torch.set_num_threads(1)
+
+
+def warm_sampler(spec, mesh=None, loci_multiple=1) -> Sampler:
+    """SPEC's control file (a name in config/samples.py) on SPEC["seqs"],
+    initialized at f64 with start-mig passed and the band hot (2e5), so
+    that migrations appear and every move accepts."""
+    cfg = parse_control_text(getattr(samples, spec["ctl"]))
+    cfg.mcmc.random_seed = spec["seed"]
+    cfg.mcmc.start_mig = 0
+    cfg.mcmc.num_loci = spec.get("num_loci", cfg.mcmc.num_loci)
+    s = Sampler(cfg, seq_path=spec["seqs"], dtype=torch.float64,
+                device="cpu", buckets=spec.get("buckets", 1), mesh=mesh,
+                loci_multiple=loci_multiple)
+    s.initialize()
+    s._sample_mig_rates_device()
+    s.params = s.params._replace(
+        mig_rate=torch.full_like(s.params.mig_rate, 2e5))
+    s.lnps = tuple(gen_log_prior(g, s.params, s.ctx) for g in s.gens)
+    return s
+
+
+def state_of(s: Sampler) -> dict:
+    """The per-locus state of every bucket (all ranks' loci, in order),
+    the per-locus counters, the parameters and the general stream."""
+    def rows(t):
+        return t if s.mesh is None else gather_rows(s.mesh, t)
+
+    return {"gens": [GenState(*(rows(x) for x in g)) for g in s.gens],
+            "lnlds": [rows(x) for x in s.lnlds],
+            "lnps": [rows(x) for x in s.lnps],
+            "conds": [rows(x) for x in s.conds],
+            "keys": [rows(r.key) for r in s.lrngs],
+            "ctrs": [r.ctr for r in s.lrngs],
+            "params": s.params, "grng": s.grng}
+
+
+def node_age_case(s: Sampler) -> dict:
+    from gphocs_tpu_torch.ops.sweeps import node_age_sweep
+
+    g, r, lnld, lnp, cond, acc = node_age_sweep(
+        s.gen, s.params, s.seq, s.lrng, s.ctx, s.ft.coal_time, s.lnld, s.lnp,
+        s.cond)
+    s.gens, s.lrngs, s.lnlds, s.lnps, s.conds = (g,), (r,), (lnld,), \
+        (lnp,), (cond,)
+    if s.mesh is not None:
+        acc = M.all_reduce(s.mesh, [acc])[0]
+    return {"acc": acc, "state": state_of(s)}
+
+
+def chunk_case(s: Sampler, iters: int) -> dict:
+    st, tr = s.step_chunk(iters, do_migrate=True)
+    return {"stats": st, "trace": tr, "state": state_of(s)}
+
+
+def load_carried(s: Sampler, state: dict) -> None:
+    """Put a saved unsharded one-bucket state into s, each rank keeping
+    its block of the per-locus tensors."""
+    b = s.blocks[0]
+    s.gen = GenState(*(x[b] for x in state["gen"]))
+    s.seq = type(state["seq"])(*(None if x is None else x[b]
+                                 for x in state["seq"]))
+    s.lrng = state["lrng"]._replace(key=state["lrng"].key[b])
+    s.lnld, s.lnp, s.cond = (state[k][b] for k in ("lnld", "lnp", "cond"))
+    s.params, s.grng, s.ft = state["params"], state["grng"], state["ft"]
+
+
+def main(spec_path: str, rank: int) -> int:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    M.init_distributed(f"127.0.0.1:{spec['port']}", spec["world"], rank,
+                       device="cpu", timeout_s=TIMEOUT_S)
+    try:
+        mesh = M.make_mesh()
+        case = spec["case"]
+        if case == "run":
+            cfg = parse_control_text(spec["ctl_text"])
+            s = Sampler(cfg, device="cpu", mesh=mesh,
+                        buckets=spec.get("buckets", 1))
+            s.run(**spec["run"])
+            out = None
+        elif case == "carried":
+            cfg = parse_control_text(getattr(samples, spec["ctl"]))
+            s = Sampler(cfg, seq_path=spec["seqs"], device="cpu", mesh=mesh)
+            s.initialize()
+            load_carried(s, torch.load(spec["state"], weights_only=False))
+            out = chunk_case(s, spec["iters"])
+        elif case == "check":
+            s = warm_sampler(spec, mesh)
+            out = {"clean": s.check_state()}
+            if rank == 1:  # two loci moved apart: their sum stays
+                d = torch.zeros_like(s.lnld)
+                d[:2] = torch.tensor([1e-3, -1e-3])
+                s.lnld = s.lnld + d
+            out["moved"] = s.check_state()
+        else:
+            s = warm_sampler(spec, mesh)
+            out = (node_age_case(s) if case == "node_age"
+                   else chunk_case(s, spec["iters"]))
+        if out is not None and rank == 0:
+            torch.save(out, spec["out"])
+    finally:
+        M.shutdown()
+    return 0
+
+
+def run_ranks(spec: dict, tmp_path) -> None:
+    """Start SPEC's ranks side by side and wait for them; every one must
+    exit 0 within TIMEOUT_S plus its start-up."""
+    spec = dict(spec, port=M.free_port())
+    path = os.path.join(str(tmp_path), f"spec_{spec['port']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tests.mesh_rank", path, str(r)], cwd=REPO,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(spec["world"])]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TIMEOUT_S + 60)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{text[-3000:]}"
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], int(sys.argv[2])))

@@ -70,12 +70,14 @@ def test_cli_run_equals_sampler_run(ragged, tmp_path):
     # chains are ported; with pattern buckets the command line refuses
     # them (a usage error, as gphocs_tpu's)
     (["--chains", "2", "--buckets", "2"], "requires one chain"),
-    (["--mesh"], "item 15"),
-    (["--distributed", "host:2:0"], "item 15"),
+    # loci sharding is ported: chains on a mesh are not, and a malformed
+    # --distributed is a usage error
+    (["--distributed", "host:1234:2:0", "--chains", "2"], "item 15b"),
+    (["--distributed", "host:2:0"], "COORD = host:port"),
 ])
 def test_unported_flags_raise_before_reading_files(flags, item, tmp_path,
                                                    capsys):
-    if "--chains" in flags:
+    if "--buckets" in flags or item.startswith("COORD"):
         with pytest.raises(SystemExit):
             cli.main([str(tmp_path / "no-such-file.ctl"), *flags])
         assert item in capsys.readouterr().err
@@ -242,3 +244,50 @@ def test_admixed_resume_equals_uninterrupted_run(ragged, tmp_path):
     assert sorted(a.files) == sorted(b.files)
     for k in a.files:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.timeout(200)
+def test_cli_on_a_loci_mesh(ragged, tmp_path):
+    """`--mesh --device cpu` (a world of one) writes the one-process
+    command's trace byte for byte; `--distributed 127.0.0.1:PORT:2:r`, two
+    processes, gives rank 0's trace within 1e-9 relative per column of
+    the one-process one (10 loci in 2 buckets, of 4 and 6 loci),
+    and rank 1, run from a directory of its own, prints no log and writes
+    no file."""
+    from gphocs_tpu_torch.parallel.mesh import free_port
+
+    ctl = tmp_path / "run.ctl"
+    ctl.write_text(_ctl(SAMPLE_CTL, ragged, "t.log", 4, 2))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+
+    def start(where, *flags):
+        where.mkdir()
+        return subprocess.Popen(
+            [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--device",
+             "cpu", "--buckets", "2", "--mesh-timeout", "60", *flags],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=where)
+
+    coord = f"127.0.0.1:{free_port()}"
+    procs = [start(tmp_path / "one"), start(tmp_path / "mesh1", "--mesh"),
+             *(start(tmp_path / f"rank{r}", "--distributed",
+                     f"{coord}:2:{r}") for r in range(2))]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    assert "loci mesh: 1 rank(s), backend gloo" in outs[1]
+    assert "loci mesh: 2 rank(s), backend gloo (ranks on the CPU)" in outs[2]
+    assert "gphocs_tpu_torch on" not in outs[3]
+    assert os.listdir(tmp_path / "rank1") == []
+    one = (tmp_path / "one" / "t.log").read_text()
+    assert (tmp_path / "mesh1" / "t.log").read_text() == one
+    rows = [np.loadtxt(tmp_path / d / "t.log", skiprows=1)
+            for d in ("one", "rank0")]
+    assert rows[0].shape == (4, 14)
+    np.testing.assert_allclose(rows[1], rows[0], rtol=1e-9, atol=0)

@@ -1,5 +1,6 @@
 """The whole slice: gphocs_tpu_torch's Sampler against gphocs_tpu's
-Sampler (f64, fast RNG) from the same carried state; plus the package's
+Sampler (f64, fast RNG) from the same carried state, in one process and
+sharded over two gloo ranks (tests/mesh_rank.py); plus the package's
 import boundary and the driver's refusals."""
 
 import os
@@ -14,8 +15,10 @@ import torch
 from gphocs_tpu_torch.config import parse_control_text
 from gphocs_tpu_torch.config.samples import SAMPLE_CTL
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+from gphocs_tpu_torch.parallel.mesh import LociMesh
 from gphocs_tpu_torch.sampler.driver import Sampler
 
+from tests.mesh_rank import run_ranks
 from tests.torch_twins import carry, warm_jax_sampler
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,35 +30,70 @@ def twins(tmp_path_factory):
     return s, carry(s)
 
 
-def test_five_iterations_match_jax(twins):
-    """Five fused iterations of both samplers from one carried state: equal
-    accept counts and RNG counters, trace rows (theta, tau, m, lnld, lnp)
-    within 1e-9 relative.  The JAX chunk runs with jit disabled, so both
-    sides evaluate the same IEEE-754 operations (see test_torch_sweeps)."""
+@pytest.fixture(scope="module")
+def jax_chunk(twins):
+    """Five fused iterations of the JAX sampler, once for the module, from
+    the carried state, which is taken before them.  The chunk runs with jit
+    disabled, so that JAX and the port evaluate the same IEEE-754
+    operations (see test_torch_sweeps).  Returns (carried state, stats,
+    trace, per-locus counter, general counter)."""
     s, t = twins
+    with jax.disable_jit():
+        st_j, tr_j = s.step_chunk(5, do_migrate=True)
+    return t, st_j, tr_j, int(s.lrng.ctr), int(s.grng.ctr)
+
+
+def _match_jax(jax_chunk, st_t, tr_t, lctr, gctr):
+    """Equal accept counts and RNG counters, trace rows (theta, tau, m,
+    lnld, lnp) within 1e-9 relative."""
+    _, st_j, tr_j, lctr_j, gctr_j = jax_chunk
+    for f in ("acc_coal_time", "acc_mig_time", "acc_spr", "acc_theta",
+              "acc_mig_rate", "acc_taus", "acc_mixing", "tau_conflicts",
+              "num_migs_total"):
+        np.testing.assert_array_equal(np.asarray(getattr(st_j, f)),
+                                      getattr(st_t, f).numpy(), err_msg=f)
+    assert (lctr, gctr) == (lctr_j, gctr_j)
+    for f in ("theta", "tau", "mig_rate", "lnld_sum", "lnp_sum"):
+        np.testing.assert_allclose(getattr(tr_t, f).numpy(),
+                                   np.asarray(getattr(tr_j, f)), rtol=1e-9,
+                                   atol=0, err_msg=f)
+
+
+def test_five_iterations_match_jax(twins, jax_chunk):
+    """Five fused iterations of both samplers from one carried state
+    (_match_jax's criteria)."""
+    s, _ = twins
+    t = jax_chunk[0]
     port = Sampler(s.cfg, seq_path=s.seq_path, dtype=torch.float64,
                    device="cpu")
     port.initialize()
     for k in ("gen", "params", "seq", "lrng", "grng", "lnld", "lnp", "cond",
               "ft"):
         setattr(port, k, t[k])
-    with jax.disable_jit():
-        st_j, tr_j = s.step_chunk(5, do_migrate=True)
     st_t, tr_t = port.step_chunk(5, do_migrate=True)
-    for f in ("acc_coal_time", "acc_mig_time", "acc_spr", "acc_theta",
-              "acc_mig_rate", "acc_taus", "acc_mixing", "tau_conflicts",
-              "num_migs_total"):
-        np.testing.assert_array_equal(np.asarray(getattr(st_j, f)),
-                                      getattr(st_t, f).numpy(), err_msg=f)
-    assert int(s.lrng.ctr) == int(port.lrng.ctr)
-    assert int(s.grng.ctr) == int(port.grng.ctr)
-    for f in ("theta", "tau", "mig_rate", "lnld_sum", "lnp_sum"):
-        np.testing.assert_allclose(getattr(tr_t, f).numpy(),
-                                   np.asarray(getattr(tr_j, f)), rtol=1e-9,
-                                   atol=0, err_msg=f)
+    _match_jax(jax_chunk, st_t, tr_t, int(port.lrng.ctr),
+               int(port.grng.ctr))
     # the carried conditionals stay consistent with the genealogies
     c, ld = full_rebuild_and_lnld(port.gen, port.seq)
     torch.testing.assert_close(ld, port.lnld, rtol=0, atol=1e-9)
+
+
+@pytest.mark.timeout(120)
+def test_five_iterations_on_two_ranks_match_jax(twins, jax_chunk, tmp_path):
+    """The port sharded over two gloo ranks (12 loci each) from the same
+    carried state, saved with torch.save and each rank keeping its block,
+    against JAX's unsharded chunk (_match_jax's criteria): SPR's trip
+    groups span the ranks and the sums cross them in all-reduces, so the
+    sharded run draws and decides as the unsharded one."""
+    s, _ = twins
+    torch.save(jax_chunk[0], tmp_path / "state.pt")
+    spec = dict(case="carried", ctl="SAMPLE_CTL", seqs=s.seq_path, iters=5,
+                world=2, state=str(tmp_path / "state.pt"),
+                out=str(tmp_path / "out.pt"))
+    run_ranks(spec, tmp_path)
+    got = torch.load(spec["out"], weights_only=False)
+    _match_jax(jax_chunk, got["stats"], got["trace"],
+               int(got["state"]["ctrs"][0]), int(got["state"]["grng"].ctr))
 
 
 def test_run_writes_trace(tmp_path, twins):
@@ -121,7 +159,9 @@ def test_cuda_sampler_needs_a_card():
     # admixture is ported; with pattern buckets it is refused (a
     # ValueError), as in gphocs_tpu
     (dict(admixed=[("five", 3, 1, "d")], buckets=2), "one pattern bucket"),
-    (dict(mesh=object()), "item 15"),
+    # loci sharding is ported; chains on a mesh are not
+    (dict(mesh=LociMesh(rank=0, world=2, backend="gloo",
+                        device=torch.device("cpu")), chains=2), "item 15b"),
 ])
 def test_unported_options_raise(kwargs, item):
     cfg = parse_control_text(SAMPLE_CTL)
