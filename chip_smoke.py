@@ -129,10 +129,32 @@ script then exits non-zero without the final line):
      of the one-process and the 2-rank run at f32, and the all-reduces
      per iteration with the host's time in them (none of them a claim:
      gloo waits for the device at every collective);
- 10. one JSON line per path with its it/s (the ragged ones with both
+ 10. the conformance mode (`rng_mode="legacy"`: the Wichmann-Hill
+     streams; the node-age, migration-age and SPR sweeps as tensor code,
+     the rubber band's kernel): (10a) the streams on the card, rndu bitwise
+     equal to the reference C implementation's values, the normals within
+     5e-15, masked lanes unmoved, 4,096 lanes (one wrapping) bitwise equal
+     to the CPU's; (10b) LEGACY_LOCI loci of the standard workload's file
+     at f64, plain, with D's sample age, with that and VAR rates, and
+     admixed: LEGACY_ITERS iterations on the card, each held against one
+     iteration of the CPU's sampler from the same state (equal accept
+     counts, streams and integer arrays, reals within 1e-9 relative; a
+     free-running pair drifts apart, since an ulp of the card's log or exp
+     grows through the SPR walks), with the launch schedule (no node-age,
+     migration-age or SPR kernel, the rubber band 3 times an iteration
+     and once more for the sample age); (10c) a checkpoint at iteration
+     LEGACY_CKPT resumed on the card, rows and final checkpoint bitwise
+     equal to the uninterrupted run's; (10d) `python -m gphocs_tpu_torch
+     --legacy-rng` on the card, in a process that runs beside 10a-10c;
+     (10e) the standard workload at f32 and
+     f64: it/s (median of 3 chunks), and per iteration the device
+     operations, the device's busy time and idle share (torch.profiler),
+     the rubber band's launches and the other kernels' (0);
+ 11. one JSON line per path with its it/s (the ragged ones with both
      readings and their pattern cells, the chains with their chain-it/s
      and device operations per iteration, the mesh with phase 9's
-     readings), the card's line, one JSON line
+     readings, the legacy path with phase 10e's), the card's line, one
+     JSON line
      with the kernels (launches on the paths, error against the plain
      version, time, the time on the 4 chains' state, the plain version's
      time, and the least time the card could take: `bound_ms`), then the
@@ -159,8 +181,10 @@ one of these sweeps, so `library_ms` is null for every kernel.
 What was cut to keep the run short: the three paths of phases 4-5b read
 one simulated sequence file, phase 5b drives its path but does not repeat
 the kernel comparisons of phase 5 (the kernels do not read the VAR
-setting), and phase 6c runs S32_CTL with D's sample age estimated, so that
-one state serves both rubber-band modes.
+setting), phase 6c runs S32_CTL with D's sample age estimated, so that
+one state serves both rubber-band modes, and phase 10 holds the card
+against the CPU at 64 loci: the serial rate update takes a host
+synchronization per locus.
 
 It needs one CUDA card; without one it exits with status 1 and prints no
 result.  `chip_smoke.py --mesh-rank SPEC RANK` is phase 9b's rank, started
@@ -811,7 +835,8 @@ def check_schedule(iters, buckets, sample_age):
     n = iters * buckets
     want = {"node_age": n, "mig_age": n, "spr": n,
             "rubber_band": TAU_PROPOSALS * n,
-            "rubber_band_sample_age": n if sample_age else 0}
+            "rubber_band_sample_age": n if sample_age else 0,
+            **dict.fromkeys(PLAIN_SWEEPS, 0)}
     log(f"launches {launches} (expected {want})")
     check(launches == want, "launch counts do not match the schedule")
     return launches
@@ -1724,7 +1749,8 @@ def mesh_phase(tmp, data, card):
             want = {"node_age": MESH_F64_ITERS, "mig_age": MESH_F64_ITERS,
                     "spr": MESH_F64_ITERS,
                     "rubber_band": TAU_PROPOSALS * MESH_F64_ITERS,
-                    "rubber_band_sample_age": 0}
+                    "rubber_band_sample_age": 0,
+                    **dict.fromkeys(PLAIN_SWEEPS, 0)}
             check(by_rank == want, f"9b {label}: launches {by_rank}")
     check(got["f64_pad"]["loci"] == [500, 1000, 1], "9b: no padding locus")
     check(not bool(got["f64_pad"]["state"]["gen"]["valid"][-1])
@@ -1797,6 +1823,360 @@ def mesh_phase(tmp, data, card):
         "one-process trace, per column; rank 1 wrote no file")
     torch.cuda.synchronize()
     return launches, rec
+
+
+LEGACY_LOCI = 64     # (b)-(d) of phase 10
+LEGACY_ITERS = 5     # (b): iterations held against the CPU, per workload
+LEGACY_CKPT = 2      # (c): checkpoint at 2, resumed to 4
+LEGACY_CHUNK = 2     # (e): iterations per timed chunk, 3 chunks per dtype
+# the reference C implementation's Wichmann-Hill values (src/utils.c, gcc
+# -O2, seed 12345, 3 loci + 1 general slot), as tests/test_rng.py has them
+GOLD_RNDU_SLOT0 = [
+    0.0042688455914678958, 0.62853436425211839, 0.95951417036121711,
+    0.066568566791829653, 0.33884242226486094, 0.25929171797179151,
+    0.30696066853124648, 0.27638592311996035, 0.27231839174055494,
+    0.92301977935130708]
+GOLD_RND2NORMAL8_SLOT1 = [
+    0.66878961090114375, -0.62978615503667335, -0.98304464283311499,
+    -0.96972107693339271, 0.557807077441971, -1.0561921282874003,
+    -0.95513209233305907, 0.50244312769355037]
+GOLD_RNDNORMAL_SLOT2 = [
+    -0.82205829204275882, -0.94807421769542499, -0.18954793512492538,
+    0.12070680375315508, 1.8794910910790084]
+# the conformance mode's sweeps: tensor code, no kernel
+PLAIN_SWEEPS = ("node_age_plain", "mig_age_plain", "spr_plain")
+
+
+def legacy_streams():
+    """Phase 10a: the Wichmann-Hill streams on the card: rndu bitwise equal
+    to C's values, the normals within 5e-15, masked lanes unmoved, and
+    4,096 lanes (one seeded at x = 177, which wraps) bitwise equal to the
+    CPU's stream for 20 draws."""
+    import torch
+    from gphocs_tpu_torch import rng as R
+
+    dev = torch.device("cuda")
+
+    def lane(i):
+        m = torch.zeros(4, dtype=torch.bool, device=dev)
+        m[i] = True
+        return m
+
+    st = R.init_legacy(4, 12345, dev)
+    got = []
+    for _ in GOLD_RNDU_SLOT0:
+        u, st = R.rndu(st, lane(0))
+        got.append(float(u[0]))
+    check(got == GOLD_RNDU_SLOT0, f"rndu on the card differs from C: {got}")
+    worst = 0.0
+    for draw, i, gold in (("rnd2normal8", 1, GOLD_RND2NORMAL8_SLOT1),
+                          ("rndnormal", 2, GOLD_RNDNORMAL_SLOT2)):
+        st = R.init_legacy(4, 12345, dev)
+        got = []
+        for _ in gold:
+            z, st = getattr(R, draw)(st, lane(i))
+            got.append(float(z[i]))
+        d = max(abs(a - b) for a, b in zip(got, gold))
+        worst = max(worst, d)
+        check(d <= 5e-15, f"{draw} on the card: {d:.2e} from C's values")
+    st = R.init_legacy(4, 12345, dev)
+    for _ in range(3):
+        _, st = R.rndu(st, lane(1))
+        _, st = R.rnd2normal8(st, lane(2))
+    u, st = R.rndu(st, lane(0))
+    check(float(u[0]) == GOLD_RNDU_SLOT0[0]
+          and (int(st.x[3]), int(st.y[3])) == (11, 23),
+          "a lane outside the mask advanced")
+    gen = torch.Generator().manual_seed(5)
+    xyz = torch.randint(1, 30000, (3, 4096), generator=gen)
+    xyz[0, 0] = 177
+    cpu, card = R.from_arrays(*xyz), R.from_arrays(*xyz, device=dev)
+    mask = torch.rand(4096, generator=gen) < 0.8
+    for _ in range(20):
+        uc, cpu = R.rndu(cpu, mask)
+        ug, card = R.rndu(card, mask.to(dev))
+        check(torch.equal(uc, ug.cpu()), "the card's uniforms differ from "
+              "the CPU's")
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card)),
+          "the card's stream states differ from the CPU's")
+    log(f"  rndu bitwise equal to C's values; normals within {worst:.1e}; "
+        "masked lanes unmoved; 4,096 lanes x 20 draws equal to the CPU's "
+        "bitwise (lane 0 wrapped)")
+
+
+def legacy_sampler(ctl, data, device, dtype, loci=LEGACY_LOCI, **settings):
+    """The conformance mode's sampler of a workload (seed 111, start-mig
+    0), initialized and with its migration rates drawn."""
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import with_settings
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    cfg = parse_control_text(with_settings(
+        ctl, random_seed=111, start_mig=0, num_loci=loci, **settings))
+    s = Sampler(cfg, seq_path=data, dtype=dtype, device=device,
+                rng_mode="legacy")
+    s.initialize()
+    s._sample_mig_rates_device()
+    return s
+
+
+LEGACY_STATE = ("gens", "params", "lrngs", "grng", "lnlds", "lnps", "conds")
+
+
+def legacy_copy(src, dst):
+    """dst takes src's state, on dst's device."""
+    import torch
+
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dst.device)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(to(v) for v in x))
+        if isinstance(x, tuple):
+            return tuple(to(v) for v in x)
+        return x
+
+    for k in LEGACY_STATE:
+        setattr(dst, k, to(getattr(src, k)))
+    dst.rate_var = src.rate_var
+
+
+def legacy_vs_cpu(label, ctl, data, sample_age):
+    """Phase 10b, one workload: LEGACY_ITERS iterations of the card's
+    sampler at f64, each held against one iteration of the CPU's sampler
+    from the same state: equal accept counts and streams, equal integer
+    arrays of the genealogies, reals within 1e-9 relative, and the
+    schedule of launches (the sweeps as tensor code, the rubber band's
+    kernel).  Returns the largest relative difference."""
+    import torch
+    from gphocs_tpu_torch.ops import sweeps
+
+    f64 = torch.float64
+    card = legacy_sampler(ctl, data, "cuda", f64)
+    cpu = legacy_sampler(ctl, data, "cpu", f64)
+    worst = 0.0
+
+    def rel(name, a, b):
+        nonlocal worst
+        a, b = a.double().cpu(), b.double().cpu()
+        d = (a - b).abs()
+        if a.numel():
+            worst = max(worst, float((d / a.abs().clamp(min=1e-300)).max()))
+        check(not bool((d > 1e-9 * a.abs()).any()),
+              f"10b {label}: {name} beyond 1e-9 relative")
+
+    for it in range(LEGACY_ITERS):
+        legacy_copy(card, cpu)
+        sweeps.reset_launch_counts()
+        st_g, tr_g = card.step_chunk(1, do_migrate=True)
+        torch.cuda.synchronize()
+        launches = dict(sweeps.LAUNCHES)
+        want = dict.fromkeys(sweeps.LAUNCHES, 0)
+        want.update(dict.fromkeys(PLAIN_SWEEPS, 1),
+                    rubber_band=TAU_PROPOSALS,
+                    rubber_band_sample_age=int(sample_age))
+        check(launches == want, f"10b {label}: launches {launches}")
+        st_c, tr_c = cpu.step_chunk(1, do_migrate=True)
+        for f in st_g._fields:
+            a, b = getattr(st_c, f), getattr(st_g, f)
+            if a.is_floating_point():
+                rel(f, a, b)
+            else:
+                check(torch.equal(a, b.cpu()), f"10b {label}: {f} "
+                      f"{a.tolist()} on the CPU, {b.tolist()} on the card")
+        for f in tr_g._fields:
+            rel(f"trace {f}", getattr(tr_c, f), getattr(tr_g, f))
+        for f in card.gen._fields:
+            a, b = getattr(cpu.gen, f), getattr(card.gen, f)
+            if a.is_floating_point():
+                rel(f, a, b)
+            else:
+                check(torch.equal(a, b.cpu()), f"10b {label}: {f} differs")
+        for name, a, b in (("lnld", cpu.lnld, card.lnld),
+                           ("lnp", cpu.lnp, card.lnp)):
+            rel(name, a, b)
+        for r_c, r_g in ((cpu.lrng, card.lrng), (cpu.grng, card.grng)):
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(r_c, r_g)),
+                  f"10b {label}: the streams differ")
+    log(f"  {label}: {LEGACY_ITERS} iterations, each equal to the CPU's "
+        f"(accepts, streams, integers), reals within {worst:.2e} relative; "
+        f"accepts of the last: coal {int(st_g.acc_coal_time)} spr "
+        f"{int(st_g.acc_spr)} taus {st_g.acc_taus.tolist()} rates "
+        f"{int(st_g.acc_locus_rate)} admix {int(st_g.acc_admix)}")
+    return worst
+
+
+def legacy_profile(s, iters):
+    """Device operations, device busy ms and wall ms per iteration of
+    sampler s, and the idle share, from torch.profiler over `iters`
+    iterations (None where the profiler sees no device operation).  It
+    traces the device's activity alone: the host's ~40,000 operations an
+    iteration would cost seconds of the profiler's own processing; where
+    that gives no device event, it traces both."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gphocs_tpu_torch.tools.profile_main import _busy_ms
+
+    for acts in ([ProfilerActivity.CUDA],
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                s.step_chunk(iters, do_migrate=True)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        except (AssertionError, RuntimeError) as e:
+            log(f"  torch.profiler with {[a.name for a in acts]}: {e}")
+            continue
+        events = prof.events()
+        n = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+        if n:
+            break
+    else:
+        log("  torch.profiler saw no device operation: not measured")
+        return None
+    log(f"  profiled with {[a.name for a in acts]}")
+    busy = _busy_ms(events)
+    return {"ops_per_iteration": n / iters,
+            "device_ms_per_iteration": busy / iters,
+            "wall_ms_per_iteration": wall / iters,
+            "idle_share": 1.0 - busy / wall}
+
+
+def legacy_phase(tmp, data, card):
+    """Phase 10: the conformance mode (the legacy RNG) on the card.
+    Returns (its launches on the standard workload, its record)."""
+    import numpy as np
+    import torch
+    from gphocs_tpu_torch.config.samples import (ADMIX_CTL, SAMPLE_AGE_CTL,
+                                                 SAMPLE_AGE_VAR_CTL,
+                                                 SAMPLE_CTL, with_settings)
+    from gphocs_tpu_torch.ops import sweeps
+
+    # 10d's command runs beside 10a-10c: the path is host-bound and
+    # leaves the card mostly idle
+    ctl_path = os.path.join(tmp, "legacy.ctl")
+    trace = os.path.join(tmp, "legacy_cli.log")
+    with open(ctl_path, "w") as f:
+        f.write(with_settings(SAMPLE_CTL, seq_file=data, trace_file=trace,
+                              num_loci=LEGACY_LOCI, mcmc_iterations=4,
+                              iterations_per_log=2, burn_in=0, start_mig=0,
+                              random_seed=5))
+    cli_out = open(os.path.join(tmp, "legacy_cli.out"), "w")
+    cli = subprocess.Popen([sys.executable, "-m", "gphocs_tpu_torch",
+                            ctl_path, "--legacy-rng", "-v"], cwd=ROOT,
+                           stdout=cli_out, stderr=subprocess.STDOUT,
+                           text=True)
+    try:
+        t0 = time.perf_counter()
+        log(" -- 10a: the Wichmann-Hill streams on the card")
+        legacy_streams()
+
+        log(f" -- 10b: {LEGACY_LOCI} loci at f64 on the card against the "
+            f"CPU, {LEGACY_ITERS} iterations each "
+            f"({time.perf_counter() - t0:.1f} s)")
+        worst = max(legacy_vs_cpu(label, ctl, data, sa)
+                    for label, ctl, sa in (
+                        ("plain", SAMPLE_CTL, False),
+                        ("sample_age", SAMPLE_AGE_CTL, True),
+                        ("sample_age_var", SAMPLE_AGE_VAR_CTL, True),
+                        ("admixed", ADMIX_CTL, False)))
+
+        log(f" -- 10c: a checkpoint at iteration {LEGACY_CKPT} resumed on "
+            f"the card (SAMPLE_AGE_VAR_CTL, {LEGACY_LOCI} loci, f64; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        f64 = torch.float64
+
+        def leg(name, iters, resume=False, ck=None):
+            s = legacy_sampler(SAMPLE_AGE_VAR_CTL, data, "cuda", f64,
+                               mcmc_iterations=iters, burn_in=0,
+                               iterations_per_log=LEGACY_CKPT)
+            _, rows = s.run(
+                trace_path=os.path.join(tmp, f"leg_{name}.log"),
+                checkpoint_path=os.path.join(tmp, f"leg_{ck or name}.npz"),
+                checkpoint_every=LEGACY_CKPT, resume=resume)
+            return rows
+
+        whole = leg("whole", 2 * LEGACY_CKPT)
+        leg("first", LEGACY_CKPT)
+        resumed = leg("resumed", 2 * LEGACY_CKPT, resume=True, ck="first")
+        check(np.array_equal(whole[LEGACY_CKPT:], resumed),
+              "10c: the resumed rows differ from the uninterrupted run's")
+        za = np.load(os.path.join(tmp, "leg_whole.npz"))
+        zb = np.load(os.path.join(tmp, "leg_first.npz"))
+        check(sorted(za.files) == sorted(zb.files) and "lrng_x" in za.files,
+              "10c: checkpoint keys")
+        for k in za.files:
+            check(np.array_equal(za[k], zb[k]), f"10c: checkpoint array {k}")
+        log(f"  rows {LEGACY_CKPT + 1}-{2 * LEGACY_CKPT} and the "
+            f"{len(za.files)} arrays of the final checkpoint bitwise equal")
+
+        log(" -- 10d: python -m gphocs_tpu_torch --legacy-rng on the card "
+            f"(started with 10a; {time.perf_counter() - t0:.1f} s)")
+        rc = cli.wait(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+        cli_out.close()
+    text = open(cli_out.name).read()
+    check(rc == 0, f"10d failed:\n{text[-3000:]}")
+    head = text.splitlines()[0]
+    check("legacy RNG: node-age/migration-age/SPR sweeps as tensor code"
+          in head, f"10d: start line {head!r}")
+    rows = open(trace).read().splitlines()
+    check(len(rows) == 5, f"10d: {len(rows)} trace lines")
+    log(f"  exit 0; {head}; {len(rows) - 1} trace rows")
+
+    log(f" -- 10e: the standard workload ({WORKLOAD_LOCI} loci) at f32 and "
+        f"f64, {LEGACY_CHUNK} iterations per chunk "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec = {}
+    total = dict.fromkeys(sweeps.LAUNCHES, 0)
+    for dt, name in ((torch.float32, "f32"), (f64, "f64")):
+        s = legacy_sampler(SAMPLE_CTL, data, "cuda", dt, loci=-1)
+        s.step_chunk(1, do_migrate=True)
+        sweeps.reset_launch_counts()
+        its = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t_chunk = time.perf_counter()
+            s.step_chunk(LEGACY_CHUNK, do_migrate=True)
+            torch.cuda.synchronize()
+            its.append(LEGACY_CHUNK / (time.perf_counter() - t_chunk))
+        n = 3 * LEGACY_CHUNK
+        launches = dict(sweeps.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        want = dict.fromkeys(sweeps.LAUNCHES, 0)
+        want.update(dict.fromkeys(PLAIN_SWEEPS, n),
+                    rubber_band=TAU_PROPOSALS * n)
+        check(launches == want, f"10e {name}: launches {launches}")
+        prof = legacy_profile(s, 1)
+        check(bool(torch.isfinite(s.lnld).all()), f"10e {name}: lnld")
+        check_carried_lnld(s)
+        rec[name] = {"it_per_s": sorted(its)[1], "readings": its,
+                     "rubber_band_per_iteration":
+                         launches["rubber_band"] / n,
+                     "kernel_launches_node_age_mig_age_spr":
+                         launches["node_age"] + launches["mig_age"]
+                         + launches["spr"], **(prof or {})}
+        log(f"  {name}: {sorted(its)[1]:.3f} it/s (median of "
+            f"{[round(x, 3) for x in its]}); device operations per "
+            f"iteration {prof and prof['ops_per_iteration']}; device busy "
+            f"{prof and prof['device_ms_per_iteration']} ms of "
+            f"{prof and prof['wall_ms_per_iteration']} ms per iteration "
+            f"(idle share {prof and prof['idle_share']}); rubber-band "
+            f"launches per iteration {launches['rubber_band'] / n:g}; "
+            f"node-age, migration-age and SPR kernel launches "
+            f"{launches['node_age']}, {launches['mig_age']}, "
+            f"{launches['spr']}; on {card}")
+        del s
+    rec["worst_rel_vs_cpu"] = worst
+    log(f"  10e done at {time.perf_counter() - t0:.1f} s")
+    return total, rec
 
 
 def main():
@@ -2067,6 +2447,12 @@ def main():
     paths["mesh"] = mesh_rec["nccl1"]["it_per_s"]
     all_launches.append(mesh_launches)
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    log("== phase 10: the conformance mode (legacy RNG) on the card")
+    t_phase = time.perf_counter()
+    legacy_launches, legacy_rec = legacy_phase(tmp, data, card)
+    paths["legacy"] = legacy_rec["f32"]["it_per_s"]
+    all_launches.append(legacy_launches)
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
@@ -2099,7 +2485,8 @@ def main():
             f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)
     for label, its in paths.items():
-        if label in ragged or label in (f"chains{CHAINS}", "mesh"):
+        if label in ragged or label in (f"chains{CHAINS}", "mesh",
+                                        "legacy"):
             continue
         log(json.dumps({"path": label, "it_per_s": its, "card": card}))
     c4 = chain_read[f"c{CHAINS}"]
@@ -2114,6 +2501,8 @@ def main():
                         "card": card}))
     log(json.dumps({"path": "mesh", "it_per_s": paths["mesh"],
                     **mesh_rec, "card": card}))
+    log(json.dumps({"path": "legacy", "it_per_s": paths["legacy"],
+                    **legacy_rec, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -8,7 +8,11 @@ run resumes bit for bit as the uninterrupted run would go on.
 
 The file is gphocs_tpu's: the same keys, dtypes (int32 indices, uint32
 RNG keys and counters, the sampler's float dtype) and format version, so a
-checkpoint written by either package resumes in the other.  An unbucketed
+checkpoint written by either package resumes in the other.  The streams
+are `lrng_key`/`lrng_ctr` and `grng_key`/`grng_ctr` for the fast RNG, and
+the Wichmann-Hill states `lrng_x`, `lrng_y`, `lrng_z` ([L]) and `grng_x`,
+`grng_y`, `grng_z` ([1]), uint32, for the legacy RNG (one chain, one
+bucket).  An unbucketed
 sampler writes `gen_*`, `lrng_*`, `lnld`, `lnp`, `cond`; a bucketed one
 `b<k>_*` per bucket.  The conditionals are [L, N, P, 4] in both packages;
 a file written on a TPU with the Pallas kernels' lane layout is not.  A
@@ -31,6 +35,7 @@ import os
 import numpy as np
 import torch
 
+from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.parallel.mesh import gather_rows
 from gphocs_tpu_torch.rng_fast import FastRngState
 from gphocs_tpu_torch.state import GenState, Params, from_numpy
@@ -49,11 +54,17 @@ def _np(t: torch.Tensor, real) -> np.ndarray:
     return a.astype(np.int32)
 
 
-def _rng_np(st: FastRngState, C: int):
-    """A stream as gphocs_tpu stores it; C chains' keys [C, K]."""
-    key = st.key.cpu().numpy().astype(np.uint32)
-    return (key if C == 1 else key.reshape(C, -1),
-            st.ctr.cpu().numpy().astype(np.uint32))
+def _rng_np(pfx: str, st, C: int) -> dict:
+    """A stream's arrays as gphocs_tpu stores them, uint32: a fast one's
+    key (C chains' [C, K]) and counter, a Wichmann-Hill one's x, y, z."""
+    def u32(t):
+        return t.cpu().numpy().astype(np.uint32)
+
+    if isinstance(st, R.WhRngState):
+        return {f"{pfx}_{f}": u32(getattr(st, f)) for f in st._fields}
+    key = u32(st.key)
+    return {f"{pfx}_key": key if C == 1 else key.reshape(C, -1),
+            f"{pfx}_ctr": u32(st.ctr)}
 
 
 def save_checkpoint(sampler, path: str, iteration: int) -> None:
@@ -79,8 +90,9 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
         for name, val in sampler.gens[k]._asdict().items():
             arrays[f"{p}gen_{name}"] = per_locus(val)
         lrng = sampler.lrngs[k]
-        arrays[f"{p}lrng_key"], arrays[f"{p}lrng_ctr"] = _rng_np(
-            lrng._replace(key=rows(lrng.key)), C)
+        if isinstance(lrng, FastRngState):
+            lrng = lrng._replace(key=rows(lrng.key))
+        arrays.update(_rng_np(f"{p}lrng", lrng, C))
         arrays[f"{p}lnld"] = per_locus(sampler.lnlds[k])
         arrays[f"{p}lnp"] = per_locus(sampler.lnps[k])
         # saved, not rebuilt on load: a rebuild may differ in the last bit
@@ -88,7 +100,7 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
         arrays[f"{p}cond"] = per_locus(sampler.conds[k])
     for name in Params._fields:
         arrays[f"params_{name}"] = _np(getattr(sampler.params, name), real)
-    arrays["grng_key"], arrays["grng_ctr"] = _rng_np(sampler.grng, C)
+    arrays.update(_rng_np("grng", sampler.grng, C))
     arrays["iteration"] = np.asarray(iteration)
     arrays["rate_var"] = np.asarray(sampler.rate_var)
     arrays["format_version"] = np.asarray(_FORMAT_VERSION)
@@ -113,10 +125,11 @@ def load_checkpoint(sampler, path: str) -> int:
         raise ValueError(f"{path}: checkpoint format "
                          f"{int(data['format_version'])}, this package reads "
                          f"{_FORMAT_VERSION}")
-    if "grng_key" not in data:
-        raise NotImplementedError(
-            f"{path}: a checkpoint of the legacy Wichmann-Hill RNG "
-            "(ROADMAP Queue 1 item 17)")
+    legacy = "grng_x" in data
+    if legacy != (getattr(sampler, "rng_mode", "fast") == "legacy"):
+        raise ValueError(f"{path}: a checkpoint of the "
+                         f"{'legacy' if legacy else 'fast'} RNG, this "
+                         f"sampler runs the {sampler.rng_mode} RNG")
     n_buckets = int(data["n_buckets"]) if "n_buckets" in data else 1
     if n_buckets != sampler.buckets:
         raise ValueError(
@@ -138,6 +151,9 @@ def load_checkpoint(sampler, path: str) -> int:
         return from_numpy(a[blocks[k]], **conv)
 
     def rng(pre, block=slice(None)):
+        if legacy:  # one chain, one bucket, no mesh
+            return R.from_arrays(*(data[f"{pre}_{f}"] for f in "xyz"),
+                                 device=sampler.device)
         key = data[f"{pre}_key"]
         return FastRngState(key=from_numpy(key.reshape(-1)[block], **conv),
                             ctr=from_numpy(data[f"{pre}_ctr"], **conv))

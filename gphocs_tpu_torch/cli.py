@@ -4,18 +4,24 @@
     python -m gphocs_tpu_torch [-v] [-n threads] <control-file> \
         [secondary-control] [--buckets K | --chains C] [--checkpoint PATH \
         --checkpoint-every N] [--resume] [--debug-check] [--device cpu] \
-        [--mesh | --distributed COORD:NPROC:PID]
+        [--fast-rng | --legacy-rng] [--mesh | --distributed COORD:NPROC:PID]
 
 (reference src/GPhoCS.c:28-249).  The run goes on the CUDA card unless
 `--device cpu` is given; asking for CUDA without a card raises, nothing
 falls back to the CPU.  float32 on the card and float64 on the CPU unless
-`--x64`.  The device streams are the counter-based fast RNG (the only
-mode ported); the options of modes not ported yet raise before any file
-is read.  `--chains C` runs C independent chains side by side (seeds base +
-7919 c; chain 0 writes the trace), not with `--buckets` or a coal-stats
-file.  A control file with admixed samples runs without `--buckets` (as
-in gphocs_tpu) and writes admixture-trace.out beside the trace.  `-n` is
-accepted for compatibility and ignored.
+`--x64`.  The RNG mode is resolved as gphocs_tpu resolves it: the fast,
+counter-based streams on the card and the reference-conformance mode
+(`--legacy-rng`: the Wichmann-Hill streams, the node-age, migration-age
+and SPR sweeps as tensor code, gphocs_tpu's legacy run draw for draw) on
+the CPU, unless `--fast-rng` or `--legacy-rng` says otherwise; both
+together are a usage error, and so are pattern buckets with the legacy
+RNG.  The start line names the mode.  The legacy RNG with chains or on a
+mesh is not ported (ROADMAP Queue 1 items 17b, 17c) and raises before any
+file is read.  `--chains C` runs C independent chains side by side (seeds
+base + 7919 c; chain 0 writes the trace), not with `--buckets` or a
+coal-stats file.  A control file with admixed samples runs without
+`--buckets` (as in gphocs_tpu) and writes admixture-trace.out beside the
+trace.  `-n` is accepted for compatibility and ignored.
 
 Loci sharding (parallel/mesh.py): `--distributed COORD:NPROC:PID` runs
 this process as rank PID of NPROC, COORD being rank 0's host:port; every
@@ -34,13 +40,6 @@ import argparse
 import subprocess
 import sys
 import time
-
-# flags of what is not ported yet, and the ROADMAP item of each
-_NOT_PORTED = {
-    "legacy_rng": ("--legacy-rng (the Wichmann-Hill streams)",
-                   "Queue 1 item 17"),
-}
-
 
 def _parse_distributed(ap, spec: str):
     """COORD:NPROC:PID (split as gphocs_tpu does, from the right) ->
@@ -79,10 +78,12 @@ def main(argv=None):
                          "stream on its own instead of the reference's "
                          "identical seeding")
     ap.add_argument("--fast-rng", action="store_true", default=None,
-                    help="counter-based RNG streams (the only mode of this "
-                         "package; accepted for compatibility)")
+                    help="counter-based RNG streams and the sweep kernels "
+                         "(the default on the card)")
     ap.add_argument("--legacy-rng", action="store_true",
-                    help="reference-conformance mode (not ported)")
+                    help="reference-conformance mode: the Wichmann-Hill "
+                         "streams, consumed as the reference does (the "
+                         "default on the CPU)")
     ap.add_argument("--buckets", type=int, default=1, metavar="K",
                     help="pattern-axis bucketing for ragged loci: sort "
                          "loci by pattern count into K buckets, each "
@@ -110,12 +111,25 @@ def main(argv=None):
                          "run fails (default 600)")
     args = ap.parse_args(argv)
 
-    # refuse what is not ported, or not allowed, before any file is read
-    for flag, (what, item) in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"{what} is not ported to gphocs_tpu_torch yet "
-                f"(ROADMAP {item})")
+    # refuse what is not ported, or not allowed, before any file is read;
+    # the RNG mode as gphocs_tpu resolves it (fast on the accelerator,
+    # legacy elsewhere, unless a flag says otherwise)
+    if args.legacy_rng and args.fast_rng:
+        ap.error("--legacy-rng and --fast-rng are mutually exclusive")
+    if args.fast_rng is None and not args.legacy_rng:
+        args.fast_rng = args.device == "cuda"
+    legacy = not args.fast_rng
+    if args.buckets > 1 and legacy:
+        ap.error("--buckets requires the fast RNG (as in gphocs_tpu): "
+                 "drop --buckets or give --fast-rng")
+    if legacy and args.chains > 1:
+        raise NotImplementedError(
+            "--chains with the legacy RNG is not ported to gphocs_tpu_torch "
+            "yet (ROADMAP Queue 1 item 17b)")
+    if legacy and (args.mesh or args.distributed):
+        raise NotImplementedError(
+            "a loci mesh with the legacy RNG is not ported to "
+            "gphocs_tpu_torch yet (ROADMAP Queue 1 item 17c)")
     if args.chains < 1:
         ap.error("--chains takes one chain or more")
     if args.buckets > 1 and args.chains > 1:
@@ -175,7 +189,7 @@ def _run(args, ap, mesh):
 
     from gphocs_tpu_torch.config import parse_control_file
     from gphocs_tpu_torch.ops import sweeps
-    from gphocs_tpu_torch.sampler.driver import Sampler
+    from gphocs_tpu_torch.sampler.driver import Sampler, route
 
     talk = mesh is None or mesh.rank == 0
     dev = args.device if mesh is None else mesh.device
@@ -193,11 +207,12 @@ def _run(args, ap, mesh):
         ap.error("--chains: a coal-stats file takes one chain (drop "
                  "coal-stats-file from the control file)")
     say = print if talk else (lambda *a, **k: None)
+    rng_mode = "fast" if args.fast_rng else "legacy"
     say(f"gphocs_tpu_torch on {where}, "
-        f"{'float64' if use_x64 else 'float32'}, fast RNG")
+        f"{'float64' if use_x64 else 'float32'}, {route(rng_mode)}")
     t0 = time.time()
     sampler = Sampler(cfg, dtype=dtype, device=args.device,
-                      legacy_rng=not args.production_rng,
+                      rng_mode=rng_mode, legacy_rng=not args.production_rng,
                       buckets=args.buckets, chains=args.chains, mesh=mesh)
     say(f"{sampler.num_loci} loci, {cfg.num_samples} samples, "
         f"{cfg.num_pops} pops, {len(cfg.bands)} migration band(s); "

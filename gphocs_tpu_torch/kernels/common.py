@@ -245,21 +245,35 @@ def _reduce(x, mesh, op):
 
 
 def mh_accept(u: torch.Tensor, lnacc: torch.Tensor, mask: torch.Tensor):
-    """Vectorized MH decision; `u` is the lane's uniform (fast-RNG mode
-    always draws it, so the caller has already advanced the stream)."""
+    """Vectorized MH decision on the lane's uniform `u` (drawn by the
+    caller: see draw_accept)."""
     return mask & ((lnacc >= 0.0) | (u < torch.exp(torch.clamp(lnacc,
                                                                max=0.0))))
 
 
-def scalar_mh_accept(rng_state, lnacc, conflict=False):
-    """MH decision on the (size-1) general stream (scalar lnacc; [C] on
-    the general streams of C chains).  The uniform is drawn
-    unconditionally, as in the JAX fast-RNG mode (the counter advances by
-    one whether or not the draw is used)."""
+def draw_accept(rng, lnacc: torch.Tensor, mask: torch.Tensor):
+    """MH decision on the per-locus streams `rng`: the fast streams draw
+    the uniform on every lane; the Wichmann-Hill streams only where
+    mask & (lnacc < 0), the reference's short-circuit (e.g.
+    src/GPhoCS.c:2383; gphocs_tpu/kernels/common.mh_accept).  Returns
+    (accept, u, rng)."""
     from gphocs_tpu_torch import rng as R
 
-    u, rng_state = R.general_draw_u(rng_state, lnacc.dtype)
+    u, rng = R.rndu(rng, mask & (lnacc < 0.0), lnacc.dtype)
+    return mh_accept(u, lnacc, mask), u, rng
+
+
+def scalar_mh_accept(rng_state, lnacc, conflict=False):
+    """MH decision on the (size-1) general stream (scalar lnacc; [C] on
+    the general streams of C chains).  The fast streams draw the uniform
+    unconditionally, as in the JAX fast-RNG mode (the counter advances by
+    one whether or not the draw is used); a Wichmann-Hill stream only
+    where there is no conflict and lnacc < 0, as the reference does."""
+    from gphocs_tpu_torch import rng as R
+
     conflict = torch.as_tensor(conflict, device=lnacc.device)
+    u, rng_state = R.general_draw_u(rng_state, lnacc.dtype,
+                                    ~conflict & (lnacc < 0.0))
     accept = ~conflict & ((lnacc >= 0.0)
                           | (u < torch.exp(torch.clamp(lnacc, max=0.0))))
     return accept, rng_state

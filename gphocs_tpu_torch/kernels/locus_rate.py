@@ -1,7 +1,8 @@
 """UpdateLocusRate for `locus-mut-rate VAR`: per-locus relative mutation
-rates, updated in random disjoint pairs (twin of
-gphocs_tpu/kernels/locus_rate.update_locus_rates_paired, the fast-RNG
-iteration's rate update).
+rates (twin of gphocs_tpu/kernels/locus_rate.py): the fast-RNG
+iteration's update in random disjoint pairs (update_locus_rates_paired),
+and the conformance mode's serial, reference-coupled sweep
+(update_locus_rates).
 
 The rates live on the simplex sum r = L.  Each call draws a random perfect
 matching of the loci; every pair proposes one transfer of rate mass between
@@ -14,8 +15,7 @@ because no locus is in two pairs:
             + dlnld(lo) + dlnld(hi)
 
 One full rebuild of the conditionals evaluates all proposed likelihoods.
-Plain tensor code, as it is XLA code in the JAX package.  The serial,
-reference-coupled sweep of the legacy RNG is not ported.
+Plain tensor code, as it is XLA code in the JAX package.
 
 Three draws come from the per-locus streams, in this order and for every
 lane whatever the masks: rndu (the matching), rnd2normal8 (the proposal),
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.kernels.common import maybe_psum, per_chain
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
@@ -104,3 +105,68 @@ def update_locus_rates_paired(gen: GenState, seq: SeqData, rng, finetune,
         loci_axis)
     L_total = L if loci_axis is None else L * loci_axis.world
     return gen, rng, lnld, cond, acc, dvar / L_total
+
+
+def _pair_lnld(gen: GenState, seq: SeqData, idx: torch.Tensor,
+               rates: torch.Tensor) -> torch.Tensor:
+    """Data log-likelihood of the loci `idx` with their rates replaced by
+    `rates` (gphocs_tpu's _pair_lnld): a full rebuild of those loci."""
+    sub = GenState(*(x[idx] for x in gen))._replace(mut_rate=rates)
+    sq = SeqData(*(None if x is None else x[idx] for x in seq))
+    return full_rebuild_and_lnld(sub, sq)[1]
+
+
+def update_locus_rates(gen: GenState, seq: SeqData, rng, finetune,
+                       lnld: torch.Tensor, var_alpha, ref_locus: int = 0):
+    """The serial sweep of the conformance mode (reference
+    src/GPhoCS.c:4598-4674; gphocs_tpu's update_locus_rates) on the
+    Wichmann-Hill streams: every locus g but the reference locus, in
+    order, moves its rate against the reference locus's, preserving the
+    mean,
+
+        rnew    = reflect(rold + finetune * rnd2normal8(g), 0, rold + rref)
+        rrefnew = rref + rold - rnew
+        lnacc   = (alpha - 1) * log((rnew * rrefnew) / (rold * rref))
+                + dlnld(g) + dlnld(ref)
+
+    with the draws on locus g's own stream (the uniform only where lnacc
+    < 0) and the two loci's likelihoods rebuilt.  The carried
+    conditionals are left to the caller, which rebuilds them all after
+    the sweep.  Returns (gen, rng, lnld, accepted, rate_var_delta)."""
+    L = gen.num_loci
+    dt = lnld.dtype
+    dev = lnld.device
+    ar = torch.arange(L, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    dvar = torch.zeros((), dtype=dt, device=dev)
+    rate = gen.mut_rate
+    pairs = torch.stack([ar, torch.full_like(ar, ref_locus)], dim=1)
+    for g in range(L):
+        if g == ref_locus:  # it draws nothing and never moves
+            continue
+        active = gen.valid[g]
+        rold, rref = rate[g], rate[ref_locus]
+        onehot = ar == g
+        z, rng = R.rnd2normal8(rng, onehot & active, dt)
+        rnew = reflect(rold + finetune * z[g], zero, rold + rref)
+        rrefnew = rref + rold - rnew
+        new_pair = _pair_lnld(gen, seq, pairs[g],
+                              torch.stack([rnew, rrefnew]))
+        dlnld = (new_pair[0] - lnld[g]) + (new_pair[1] - lnld[ref_locus])
+        lnacc = ((var_alpha - 1.0)
+                 * torch.log((rnew * rrefnew) / (rold * rref)) + dlnld)
+        u, rng = R.rndu(rng, onehot & active & (lnacc < 0.0), dt)
+        accept = active & ((lnacc >= 0.0)
+                           | (u[g] < torch.exp(torch.clamp(lnacc, max=0.0))))
+        moved = rate.clone()
+        moved[g], moved[ref_locus] = rnew, rrefnew
+        rate = torch.where(accept, moved, rate)
+        moved = lnld.clone()
+        moved[g], moved[ref_locus] = new_pair[0], new_pair[1]
+        lnld = torch.where(accept, moved, lnld)
+        acc = acc + accept.to(torch.int64)
+        dvar = dvar + torch.where(
+            accept, (rnew ** 2 + rrefnew ** 2 - rold ** 2 - rref ** 2) / L,
+            zero)
+    return gen._replace(mut_rate=rate), rng, lnld, acc, dvar

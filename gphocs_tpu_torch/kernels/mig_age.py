@@ -1,27 +1,30 @@
 """UpdateGB_MigrationNode: random-walk updates of migration-event ages
-(twin of gphocs_tpu/kernels/mig_age.py, fast-RNG mode).
+(twin of gphocs_tpu/kernels/mig_age.py).
 
 This is the plain PyTorch version of the migration-age kernel
-(csrc/mig_age.cu).  Sequential sweep over migration slots, loci in
-parallel; the acceptance ratio is the closed-form genealogy-prior delta
+(csrc/mig_age.cu), and the sweep itself with the Wichmann-Hill streams
+(ops/sweeps.mig_age_sweep_plain).  Sequential sweep over migration slots,
+loci in parallel; the acceptance ratio is the closed-form genealogy-prior delta
 (ops/coalstats.mig_age_move_delta) — the data likelihood does not change.
-4 draws per slot: 3 for the proposal, 1 for the MH uniform.
+Fast streams: 4 draws per slot, 3 for the proposal and 1 for the MH
+uniform.  Wichmann-Hill streams: the proposal on the loci whose slot holds
+an event, the uniform where that move is not tiny and lnacc < 0.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gphocs_tpu_torch import rng_fast as RF
+from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
-                                             chain_count, mh_accept,
+                                             chain_count, draw_accept,
                                              per_chain, take)
 from gphocs_tpu_torch.ops.coalstats import mig_age_move_delta
 from gphocs_tpu_torch.state import GenState, Params
 from gphocs_tpu_torch.utils import reflect
 
 
-def update_mig_ages(gen: GenState, params: Params, rng: RF.FastRngState,
+def update_mig_ages(gen: GenState, params: Params, rng,
                     ctx: Context, finetune, lnp: torch.Tensor):
     """Returns (gen, rng, lnp, accepted_count); for C chains (chain-major
     loci, [C, P] parameters, a counter per chain) the count is [C]."""
@@ -63,13 +66,12 @@ def update_mig_ages(gen: GenState, params: Params, rng: RF.FastRngState,
                                              child_age))
         tb1 = torch.minimum(tb1, torch.where(torch.isfinite(fm), fm, fa_age))
 
-        z, rng = RF.rnd2normal8(rng, dt)
+        z, rng = R.rnd2normal8(rng, active, dt)
         tnew = reflect(t + finetune * z, tb0, tb1)
         tiny = torch.abs(tnew - t) < 1e-15
 
         dlnp = mig_age_move_delta(gen, params, ctx, m, tnew, bs, be)
-        u, rng = RF.rndu(rng, dt)
-        accept = mh_accept(u, dlnp, active & ~tiny)
+        accept, _, rng = draw_accept(rng, dlnp, active & ~tiny)
         mig_age = gen.mig_age.clone()
         mig_age[:, m] = torch.where(accept, tnew, t)
         gen = gen._replace(mig_age=mig_age)

@@ -1,9 +1,12 @@
 """UpdateGB_InternalNode: random-walk updates of coalescent-node ages
-(twin of the fast-RNG branch of gphocs_tpu/kernels/node_age.py).
+(twin of gphocs_tpu/kernels/node_age.py).
 
 This is the plain PyTorch version of the node-age kernel
 (csrc/node_age.cu): ops/sweeps.node_age_sweep calls it for CPU tensors,
-and the tests hold the kernel against it.
+and the tests hold the kernel against it.  With the Wichmann-Hill streams
+of the conformance mode it is the sweep itself, on any device
+(ops/sweeps.node_age_sweep_plain): the kernel implements the counter
+streams only.
 
 Per node per locus (reference src/GPhoCS.c:2287-2428):
   bounds  tb0 = max(pop age, per-son last-mig-age-or-son-age)
@@ -12,17 +15,20 @@ Per node per locus (reference src/GPhoCS.c:2287-2428):
   tnew    = reflect(t + finetune * rnd2normal8, tb0, tb1)
   lnacc   = [lnP(G') - lnP(G)] + [lnld'(X) - lnld(X)]
   a |tnew - t| < 1e-15 proposal is counted accepted without moving.
-4 draws per node step: 3 for the proposal, 1 for the MH uniform.
+Fast streams: 4 draws per node step, 3 for the proposal and 1 for the MH
+uniform.  Wichmann-Hill streams, as gphocs_tpu draws them: the proposal on
+the valid loci, the uniform on the valid loci whose move is not tiny and
+whose lnacc < 0.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gphocs_tpu_torch import rng_fast as RF
+from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
-                                             chain_count, first_mig_above,
-                                             last_mig_below, mh_accept,
+                                             chain_count, draw_accept,
+                                             first_mig_above, last_mig_below,
                                              per_chain, take)
 from gphocs_tpu_torch.ops.coalstats import node_age_move_delta
 from gphocs_tpu_torch.ops.likelihood_cache import refresh_and_lnld
@@ -31,7 +37,7 @@ from gphocs_tpu_torch.utils import reflect
 
 
 def update_internal_node_ages(gen: GenState, params: Params, seq: SeqData,
-                              rng: RF.FastRngState, ctx: Context, finetune,
+                              rng, ctx: Context, finetune,
                               lnld: torch.Tensor, lnp: torch.Tensor,
                               cond: torch.Tensor, record=None):
     """One full sweep over all internal nodes.  Returns
@@ -72,7 +78,7 @@ def update_internal_node_ages(gen: GenState, params: Params, seq: SeqData,
             tb0 = torch.maximum(tb0, torch.where(torch.isfinite(lm), lm,
                                                  gen.age[ar, son]))
 
-        z, rng = RF.rnd2normal8(rng, dt)
+        z, rng = R.rnd2normal8(rng, loci_mask, dt)
         tnew = reflect(t + finetune * z, tb0, tb1)
         tiny = torch.abs(tnew - t) < 1e-15
 
@@ -87,8 +93,7 @@ def update_internal_node_ages(gen: GenState, params: Params, seq: SeqData,
         lnp_prop = lnp + dlnp
         lnacc = dlnp + (lnld_prop - lnld)
 
-        u, rng = RF.rndu(rng, dt)
-        accept = mh_accept(u, lnacc, loci_mask & ~tiny)
+        accept, u, rng = draw_accept(rng, lnacc, loci_mask & ~tiny)
         if record is not None:
             record.append(dict(gen=gen, node=inode, tnew=tnew, dlnp=dlnp,
                                lnld=lnld, lnld_prop=lnld_prop,

@@ -1,5 +1,5 @@
 """UpdateTheta and UpdateMigRates: closed-form stats-only parameter updates
-(twin of the fast-RNG branches of gphocs_tpu/kernels/scalar_params.py).
+(twin of gphocs_tpu/kernels/scalar_params.py).
 
 Both use multiplicative proposals x' = x * exp(finetune * rnd2normal8)
 from the general stream with Gamma priors; the genealogy-likelihood delta
@@ -9,21 +9,28 @@ comes in closed form from the total sufficient statistics:
   migrate: delta = +(lnc * nmigs_tot  - (x' - x)   * migstats_tot)
            proposals below 1e-5 are skipped outright (reference :3159)
 
-All P (or B) proposals are evaluated in one vector step; the statistics
-do not change under these moves, so the sweep is exactly parallel.  For C
-chains ([C, P] parameters, [C] general streams) the totals are each
-chain's and every chain draws, decides and counts on its own: the [C, P]
-(or [C, B]) proposals are one vector step too.
+Fast streams: all P (or B) proposals are evaluated in one vector step; the
+statistics do not change under these moves, so the sweep is exactly
+parallel.  For C chains ([C, P] parameters, [C] general streams) the
+totals are each chain's and every chain draws, decides and counts on its
+own: the [C, P] (or [C, B]) proposals are one vector step too.
+
+A Wichmann-Hill general stream (the conformance mode, one chain) keeps the
+reference's sequential scan (src/GPhoCS.c:3037-3212): per population (or
+band), in order, one rnd2normal8 and one MH decision (the uniform only
+where lnacc < 0; a migration-rate proposal below the floor takes none).
 """
 
 from __future__ import annotations
 
 import torch
 
+from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.constants import MIN_MIG_RATE
 from gphocs_tpu_torch.kernels.common import (Context, chain_count,
-                                             maybe_psum, per_chain, rows)
+                                             maybe_psum, per_chain, rows,
+                                             scalar_mh_accept)
 from gphocs_tpu_torch.ops.coalstats import CoalStats
 from gphocs_tpu_torch.state import GenState, Params
 
@@ -45,6 +52,9 @@ def update_thetas(gen: GenState, params: Params, rng, ctx: Context,
     ncoal_tot, coal_tot = maybe_psum(
         [per_chain(ncoal, C), per_chain(stats.coal_stats, C)],  # [(C,) P]
         loci_axis)
+    if not isinstance(rng, RF.FastRngState):
+        return _thetas_serial(params, rng, ctx, finetune, lnp, stats,
+                              ncoal_tot, coal_tot)
     z, rng = RF.batch_2normal8(rng, P, dt)
     lnc = finetune * z
     theta_old = params.theta
@@ -78,6 +88,9 @@ def update_mig_rates(gen: GenState, params: Params, rng, ctx: Context,
     nmig_tot, mig_tot = maybe_psum(
         [per_chain(nmig, C), per_chain(stats.mig_stats, C)],    # [(C,) B]
         loci_axis)
+    if not isinstance(rng, RF.FastRngState):
+        return _mig_rates_serial(params, rng, ctx, finetune, lnp, stats,
+                                 nmig_tot, mig_tot)
     z, rng = RF.batch_2normal8(rng, B, dt)
     lnc = finetune * z
     old = params.mig_rate
@@ -93,3 +106,55 @@ def update_mig_rates(gen: GenState, params: Params, rng, ctx: Context,
     lnp = lnp + torch.where(rows(accept, L), dlnp,
                             torch.zeros_like(dlnp)).sum(dim=1)
     return params, rng, lnp, accept.sum(dim=-1)
+
+
+def _thetas_serial(params: Params, rng, ctx: Context, finetune, lnp,
+                   stats: CoalStats, ncoal_tot, coal_tot):
+    """update_thetas on a Wichmann-Hill general stream: one population
+    after another (gphocs_tpu's scan, scalar_params.py:66-94)."""
+    dt = lnp.dtype
+    ncoal = stats.num_coals.to(dt)
+    theta = params.theta
+    acc = torch.zeros((), dtype=torch.int64, device=lnp.device)
+    for pop in range(ctx.num_pops):
+        theta_old = theta[pop]
+        z, rng = R.general_draw_2normal8(rng, dt)
+        lnc = finetune * z
+        theta_new = theta_old * torch.exp(lnc)
+        lnacc = (lnc + lnc * (ctx.theta_alpha[pop] - 1.0)
+                 - (theta_new - theta_old) * ctx.theta_beta[pop])
+        dinv = 1.0 / theta_new - 1.0 / theta_old
+        lnacc = lnacc + -(lnc * ncoal_tot[pop] + dinv * coal_tot[pop])
+        accept, rng = scalar_mh_accept(rng, lnacc)
+        theta = theta.clone()
+        theta[pop] = torch.where(accept, theta_new, theta_old)
+        dlnp = -(lnc * ncoal[:, pop] + dinv * stats.coal_stats[:, pop])
+        lnp = torch.where(accept, lnp + dlnp, lnp)
+        acc = acc + accept.to(torch.int64)
+    return params._replace(theta=theta), rng, lnp, acc
+
+
+def _mig_rates_serial(params: Params, rng, ctx: Context, finetune, lnp,
+                      stats: CoalStats, nmig_tot, mig_tot):
+    """update_mig_rates on a Wichmann-Hill general stream: one band after
+    another (gphocs_tpu's scan, scalar_params.py:128-160)."""
+    dt = lnp.dtype
+    nmig = stats.num_migs.to(dt)
+    rate = params.mig_rate
+    acc = torch.zeros((), dtype=torch.int64, device=lnp.device)
+    for band in range(ctx.num_bands):
+        old = rate[band]
+        z, rng = R.general_draw_2normal8(rng, dt)
+        lnc = finetune * z
+        new = old * torch.exp(lnc)
+        skip = new < MIN_MIG_RATE  # skipped before the prior (:3159)
+        lnacc = (lnc + lnc * (ctx.mig_alpha[band] - 1.0)
+                 - (new - old) * ctx.mig_beta[band])
+        lnacc = lnacc + (lnc * nmig_tot[band] - (new - old) * mig_tot[band])
+        accept, rng = scalar_mh_accept(rng, lnacc, conflict=skip)
+        rate = rate.clone()
+        rate[band] = torch.where(accept, new, old)
+        dlnp = lnc * nmig[:, band] - (new - old) * stats.mig_stats[:, band]
+        lnp = torch.where(accept, lnp + dlnp, lnp)
+        acc = acc + accept.to(torch.int64)
+    return params._replace(mig_rate=rate), rng, lnp, acc

@@ -1,7 +1,9 @@
 """UpdateGB_MigSPR: subtree-prune-regraft with migration, all loci batched
-(twin of gphocs_tpu/kernels/spr.py, fast-RNG mode).
+(twin of gphocs_tpu/kernels/spr.py).
 
-This is the plain PyTorch version of the SPR kernel (csrc/spr.cu).
+This is the plain PyTorch version of the SPR kernel (csrc/spr.cu), and
+the sweep itself with the Wichmann-Hill streams of the conformance mode
+(ops/sweeps.spr_sweep_plain).
 
 For each node (sequential sweep, loci parallel):
   1. Detach the edge above `node`; the pruned branch is excluded from
@@ -18,7 +20,9 @@ For each node (sequential sweep, loci parallel):
 
 Admixture (reference src/GPhoCS.c:2670-2696): where the run has admixed
 leaves, every node step first takes one uniform u per locus, whatever the
-node (gphocs_tpu's fast rndu consumes it unmasked).  On an admixed leaf
+node (gphocs_tpu's fast rndu consumes it unmasked; a Wichmann-Hill stream
+draws it only on an admixed leaf's step, where the leaf is not the
+root).  On an admixed leaf
 that is not the root, the leaf's population becomes its second one where
 u < c (its chain's coefficient), else its first; the walk starts from
 that population, an accepted move keeps it, and a rejected one restores
@@ -37,6 +41,12 @@ update_spr draw for draw; sync_group = g is spr_sweep_pallas(tile=g);
 sync_group = 1, every locus walking on its own, is the CUDA kernel
 (csrc/spr.cu, a warp per locus).  Padding loci (gen.valid False) do not
 walk, as in the Pallas kernel.
+
+Wichmann-Hill streams (the conformance mode, gphocs_tpu's XLA update_spr
+draw for draw): no offsets; each trip draws u on the loci still walking
+and the second uniform on those with an event, the MH uniform where the
+walk coalesced and lnacc < 0.  A locus consumes only its own stream, so
+the trip groups do not change the draws.
 """
 
 from __future__ import annotations
@@ -45,11 +55,12 @@ from typing import NamedTuple
 
 import torch
 
+from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
-                                             chain_count, maybe_pmax,
-                                             mh_accept, per_chain, rows,
-                                             take)
+                                             chain_count, draw_accept,
+                                             maybe_pmax, mh_accept,
+                                             per_chain, rows, take)
 from gphocs_tpu_torch.ops.likelihood_cache import refresh_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 
@@ -89,15 +100,19 @@ class SimResult(NamedTuple):
     target: torch.Tensor     # [L] coalescence target branch
     coal_age: torch.Tensor   # [L]
     doff: torch.Tensor       # [L] draw offset after the walk
+    rng: object              # the streams after the walk (fast: as given)
 
 
 def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
-                        node: int, rng: RF.FastRngState, doff: torch.Tensor,
+                        node: int, rng, doff: torch.Tensor,
                         active0: torch.Tensor, sync_group: int,
                         loci_axis=None) -> SimResult:
     """Batched traceLineage(reconnect=1) by cumulative-hazard inversion
-    (see gphocs_tpu/kernels/spr._simulate_reconnect).  Draws of lane l sit
-    at counter positions rng.ctr + doff[l] + 1, + 2 per trip."""
+    (see gphocs_tpu/kernels/spr._simulate_reconnect).  Fast streams: the
+    draws of lane l sit at counter positions rng.ctr + doff[l] + 1, + 2
+    per trip.  Wichmann-Hill streams: drawn in sequence, on the lanes
+    still walking and on those with an event."""
+    fast = isinstance(rng, RF.FastRngState)
     L, N = gen.father.shape
     M = gen.max_migs
     Bn = ctx.num_bands
@@ -244,7 +259,10 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
                  ecum[:, :-s_]], dim=1)
             s_ *= 2
         cum = ecum + hz
-        u1 = RF.raw_u(rng, doff + 1, dt)
+        if fast:
+            u1 = RF.raw_u(rng, doff + 1, dt)
+        else:
+            u1, rng = R.rndu(rng, alive, dt)
         E = -torch.log(torch.clamp(u1, min=1e-300))
         reached = cum >= E[:, None]
         k = torch.argmax(reached.to(torch.int8), dim=1)
@@ -264,7 +282,10 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
         n_k = torch.gather(n, 1, kk)[:, 0]
 
         ev_mask = alive & ~exits
-        u2 = RF.raw_u(rng, doff + 2, dt)
+        if fast:
+            u2 = RF.raw_u(rng, doff + 2, dt)
+        else:
+            u2, rng = R.rndu(rng, ev_mask, dt)
         esample = u2 * rate_k
         is_mig = ev_mask & (esample < migr_k) & (Bn > 0)
         over_cap = is_mig & (base_migs + n_new + 1 > M)
@@ -316,7 +337,7 @@ def _simulate_reconnect(gen: GenState, params: Params, ctx: Context,
     status = torch.where(status == 0, -1, status)
     return SimResult(pop=pop_c, status=status, n_new=n_new,
                      new_band=new_band, new_age=new_age, target=target,
-                     coal_age=coal_age, doff=doff)
+                     coal_age=coal_age, doff=doff, rng=rng)
 
 
 def _apply_spr(gen: GenState, node: int, accept: torch.Tensor,
@@ -394,7 +415,7 @@ def _apply_spr(gen: GenState, node: int, accept: torch.Tensor,
 
 
 def update_spr(gen: GenState, params: Params, seq: SeqData,
-               rng: RF.FastRngState, ctx: Context, lnld: torch.Tensor,
+               rng, ctx: Context, lnld: torch.Tensor,
                cond: torch.Tensor, sync_group: int = 0, loci_axis=None):
     """One full SPR sweep over all nodes.  Returns
     (gen, rng, lnld, cond, accepted_count); the genealogy log-prior must
@@ -417,28 +438,31 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
     C = chain_count(params)
     acc = torch.zeros(params.theta.shape[:-1], dtype=torch.int64,
                       device=dev)
+    fast = isinstance(rng, RF.FastRngState)
 
     leaves = ctx.admix_slot.tolist()
     pairs = ctx.admix_pops.tolist()
     for inode in range(N):
         active0 = (gen.root != inode) & gen.valid
         gen_sim = gen
-        if leaves:
+        if leaves and fast:
             u_adm = RF.raw_u(rng, doff + 1, dt)
             doff = doff + 1
-            if inode in leaves:
-                a = leaves.index(inode)
-                first, second = pairs[a]
-                coeff = rows(params.admix_coeff, L)[:, a]
-                old = gen.node_pop[:, inode]
-                new_pop = torch.where(u_adm < coeff, second, first)
-                node_pop = gen.node_pop.clone()
-                node_pop[:, inode] = torch.where(gen.root != inode, new_pop,
-                                                 old)
-                gen_sim = gen._replace(node_pop=node_pop)
+        elif inode in leaves:
+            u_adm, rng = R.rndu(rng, gen.root != inode, dt)
+        if inode in leaves:
+            a = leaves.index(inode)
+            first, second = pairs[a]
+            coeff = rows(params.admix_coeff, L)[:, a]
+            old = gen.node_pop[:, inode]
+            new_pop = torch.where(u_adm < coeff, second, first)
+            node_pop = gen.node_pop.clone()
+            node_pop[:, inode] = torch.where(gen.root != inode, new_pop, old)
+            gen_sim = gen._replace(node_pop=node_pop)
         sim = _simulate_reconnect(gen_sim, params, ctx, inode, rng, doff,
                                   active0, G, loci_axis)
         ok = sim.status == 1
+        rng = sim.rng
         gen_prop = _apply_spr(gen_sim, inode, ok, sim)
         # dirty: f (new age/sons), the old grandfather (lost son f) and the
         # target's old father (gained son f), plus their ancestors
@@ -450,14 +474,20 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
                   | ((nid == tgt_fa[:, None]) & (tgt_fa >= 0)[:, None]
                      & ok[:, None]))
         cond_prop, lnld_prop = refresh_and_lnld(cond, gen_prop, seq, dirty0)
-        u = RF.raw_u(rng, sim.doff + 1, dt)
-        doff = sim.doff + 1
-        accept = mh_accept(u, lnld_prop - lnld, ok & gen.valid)
+        if fast:
+            u = RF.raw_u(rng, sim.doff + 1, dt)
+            doff = sim.doff + 1
+            accept = mh_accept(u, lnld_prop - lnld, ok & gen.valid)
+        else:
+            accept, _, rng = draw_accept(rng, lnld_prop - lnld,
+                                         ok & gen.valid)
         a2 = accept[:, None]
         gen = GenState(*(torch.where(a2 if o.dim() == 2 else accept, n_, o)
                          for n_, o in zip(gen_prop, gen)))
         cond = torch.where(accept[:, None, None, None], cond_prop, cond)
         lnld = torch.where(accept, lnld_prop, lnld)
         acc = acc + per_chain(accept, C)
-    rng = RF.bump(rng, maybe_pmax(per_chain(doff, C, "amax"), loci_axis))
+    if fast:
+        rng = RF.bump(rng, maybe_pmax(per_chain(doff, C, "amax"),
+                                      loci_axis))
     return gen, rng, lnld, cond, acc

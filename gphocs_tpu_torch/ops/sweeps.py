@@ -15,6 +15,14 @@ in the [L, ...] layout of the state (no lanes-last transposes):
 A failed build or launch raises; nothing falls back from the kernel to
 the plain version or from CUDA to the CPU.
 
+The node-age, migration-age and SPR kernels draw from the counter-based
+streams (rng_fast.py) only.  Their wrappers raise TypeError when handed
+the Wichmann-Hill streams of the conformance mode (rng.WhRngState), on
+any device: that mode runs the plain versions as its sweeps, on the
+state's own device, through node_age_sweep_plain, mig_age_sweep_plain and
+spr_sweep_plain, which count their calls in LAUNCHES under their own
+names.  The rubber band draws nothing and serves both modes.
+
 The kernels read theta, tau and the migration rates from the state's own
 tensors and make pop_end and the band windows themselves; the integer
 tables are built once per Context (`Context.popi`, the admixed leaves
@@ -57,6 +65,7 @@ from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
 from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
 from gphocs_tpu_torch.ops import cuda_lib
+from gphocs_tpu_torch.rng import WhRngState
 from gphocs_tpu_torch.rng_fast import MASK32, FastRngState
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 
@@ -71,9 +80,11 @@ FORCE_COND_IN_DEVICE_MEMORY = False
 STATIC_SMEM = 1024
 
 # kernel launches per wrapper since the last reset_launch_counts(); the
-# rubber-band kernel's two modes (tau, sample age) are counted apart
+# rubber-band kernel's two modes (tau, sample age) are counted apart, and
+# so are the conformance mode's plain sweeps (*_plain: calls, no kernel)
 LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0,
-            "rubber_band_sample_age": 0, "spr": 0}
+            "rubber_band_sample_age": 0, "spr": 0, "node_age_plain": 0,
+            "mig_age_plain": 0, "spr_plain": 0}
 
 
 def reset_launch_counts() -> None:
@@ -142,6 +153,15 @@ def _on_cuda(*tensors) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sweep kernels run on CUDA or CPU, not {dev}")
     return dev.type == "cuda"
+
+
+def _counter_streams(rng, kernel: str) -> None:
+    """Refuse the Wichmann-Hill streams: the kernel implements the
+    counter-based ones only."""
+    if isinstance(rng, WhRngState):
+        raise TypeError(f"the {kernel} kernel draws from the counter-based "
+                        f"streams; the Wichmann-Hill streams run "
+                        f"{kernel}_sweep_plain")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> int:
@@ -304,6 +324,7 @@ def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
                    cond):
     """Fused node-age sweep (gphocs_tpu's node_age_sweep_pallas).
     Returns (gen, rng, lnld, lnp, cond, acc)."""
+    _counter_streams(rng, "node_age")
     if not _on_cuda(gen.age, cond, lnld, lnp, rng.key):
         return update_internal_node_ages(gen, params, seq, rng, ctx,
                                          finetune, lnld, lnp, cond)
@@ -342,6 +363,7 @@ def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
                   ctx: Context, finetune, lnp):
     """Fused migration-age sweep (gphocs_tpu's mig_age_sweep_pallas).
     Returns (gen, rng, lnp, acc)."""
+    _counter_streams(rng, "mig_age")
     if not _on_cuda(gen.age, lnp, rng.key):
         return update_mig_ages(gen, params, rng, ctx, finetune, lnp)
     if ctx.num_bands == 0:
@@ -451,6 +473,7 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     leaves out).  Returns (gen, rng, lnld, cond, acc), acc the rank's own
     on a loci mesh (`loci_axis`), where the counter advances by the
     largest draw offset over all ranks (sweeps_pallas.py:2011-2014)."""
+    _counter_streams(rng, "spr")
     if not _on_cuda(gen.age, cond, lnld, rng.key):
         return update_spr(gen, params, seq, rng, ctx, lnld, cond,
                           sync_group=gen.num_loci, loci_axis=loci_axis)
@@ -463,3 +486,30 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     return (gen._replace(**moved),
             _advance(rng, maybe_pmax(stat[..., 1], loci_axis)), o["lnld"],
             o["cond"], stat[..., 0])
+
+
+def node_age_sweep_plain(gen: GenState, params: Params, seq: SeqData, rng,
+                         ctx: Context, finetune, lnld, lnp, cond):
+    """The conformance mode's node-age sweep: the plain version on the
+    state's device, with gphocs_tpu's masked Wichmann-Hill draws
+    (kernels/node_age.py).  Returns node_age_sweep's outputs."""
+    LAUNCHES["node_age_plain"] += 1
+    return update_internal_node_ages(gen, params, seq, rng, ctx, finetune,
+                                     lnld, lnp, cond)
+
+
+def mig_age_sweep_plain(gen: GenState, params: Params, rng, ctx: Context,
+                        finetune, lnp):
+    """The conformance mode's migration-age sweep (kernels/mig_age.py on
+    the state's device)."""
+    LAUNCHES["mig_age_plain"] += 1
+    return update_mig_ages(gen, params, rng, ctx, finetune, lnp)
+
+
+def spr_sweep_plain(gen: GenState, params: Params, seq: SeqData, rng,
+                    ctx: Context, lnld, cond):
+    """The conformance mode's SPR sweep (kernels/spr.py on the state's
+    device: gphocs_tpu's XLA update_spr draw for draw)."""
+    LAUNCHES["spr_plain"] += 1
+    return update_spr(gen, params, seq, rng, ctx, lnld, cond,
+                      sync_group=gen.num_loci)

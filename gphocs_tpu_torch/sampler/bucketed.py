@@ -1,5 +1,6 @@
 """The MCMC iteration over pattern buckets (twin of
-gphocs_tpu/sampler/bucketed.py, fast RNG, no jit and no scan).
+gphocs_tpu/sampler/bucketed.py and, for one bucket, of
+gphocs_tpu/sampler/step.py's mcmc_iteration; no jit and no scan).
 
 Ragged loci padded to the largest pattern count cost memory and sweep work
 in proportion to L * P_max.  Sorted by phased-pattern count and split into
@@ -46,6 +47,15 @@ at the end of the iteration one for its statistics (accepts of the
 sweeps, migrations, lnld and lnp sums).  Every rank makes them all, in
 the same order.
 
+The conformance mode (`legacy`: the Wichmann-Hill streams, one bucket, one
+chain, no mesh) runs gphocs_tpu's mcmc_iteration with use_fused=False:
+the node-age, migration-age and SPR sweeps are their plain versions on
+the state's device (ops/sweeps.*_plain; the kernels implement the counter
+streams only), the rate update is the serial, reference-coupled sweep,
+followed by a full rebuild of the conditionals, and the rubber band keeps
+launching its kernel (it draws nothing).  Every other move is the same
+code, drawing from the general stream in sequence.
+
 Admixed leaves (one bucket, as in gphocs_tpu, which refuses them with
 buckets): SPR resamples their populations, the prior carries their terms,
 and the coefficients move after the sample ages.  A chunk also adds up,
@@ -55,6 +65,7 @@ second population (for admixture-trace.out).
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -65,15 +76,16 @@ from gphocs_tpu_torch.kernels.common import (chain_count, full_stats,
                                              gen_log_prior,
                                              gen_log_prior_from_stats,
                                              maybe_psum)
-from gphocs_tpu_torch.kernels.locus_rate import update_locus_rates_paired
+from gphocs_tpu_torch.kernels.locus_rate import (update_locus_rates,
+                                                 update_locus_rates_paired)
 from gphocs_tpu_torch.kernels.mixing import update_mixing_buckets
 from gphocs_tpu_torch.kernels.scalar_params import (update_mig_rates,
                                                     update_thetas)
 from gphocs_tpu_torch.kernels.tau import (update_sample_ages_buckets,
                                           update_taus_buckets)
+from gphocs_tpu_torch.ops import sweeps
 from gphocs_tpu_torch.ops.coalstats import CoalStats
-from gphocs_tpu_torch.ops.sweeps import (mig_age_sweep, node_age_sweep,
-                                         spr_sweep)
+from gphocs_tpu_torch.ops.likelihood_cache import full_build
 from gphocs_tpu_torch.sampler.step import ChunkTrace, Finetunes, StepStats
 
 
@@ -93,7 +105,8 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                            theta_on: bool = True, mig_rate_on: bool = True,
                            mixing_on: bool = True, var_rates: bool = False,
                            locus_rate_on: bool = True,
-                           var_alpha: float = 1.0, loci_axis=None):
+                           var_alpha: float = 1.0, loci_axis=None,
+                           legacy: bool = False):
     """One iteration over the buckets.  `gens`, `seqs`, `lrngs`, `lnlds`,
     `lnps`, `conds` hold one entry per bucket.  Returns (gens, params,
     lrngs, grng, lnlds, lnps, conds, StepStats) with lists.
@@ -101,11 +114,22 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
     sample_age_mask: per current pop, whether its sample age is estimated.
     var_rates: `locus-mut-rate VAR` (var_alpha is its Dirichlet alpha); the
     paired rate update runs within each bucket.  The *_on flags skip an
-    update whose finetune is 0.
+    update whose finetune is 0.  legacy: the conformance mode's
+    schedule (the module's docstring) for Wichmann-Hill streams.
 
     conds: carried pruning conditionals, consistent with (gens, seqs) on
     entry and on return."""
     K = len(gens)
+    if legacy and (K > 1 or loci_axis is not None):
+        raise ValueError("the conformance mode runs one bucket, no mesh")
+    if legacy:
+        node_age, mig_age, spr = (sweeps.node_age_sweep_plain,
+                                  sweeps.mig_age_sweep_plain,
+                                  sweeps.spr_sweep_plain)
+    else:
+        node_age, mig_age, spr = (
+            sweeps.node_age_sweep, sweeps.mig_age_sweep,
+            functools.partial(sweeps.spr_sweep, loci_axis=loci_axis))
     if K > 1 and ctx.num_admixed > 0:
         raise ValueError("admixture requires one pattern bucket (as in "
                          "gphocs_tpu)")
@@ -121,25 +145,32 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
         for k in range(K):
             g, sq, r = gens[k], seqs[k], lrngs[k]
             if coal_time_on:
-                g, r, lnlds[k], lnps[k], conds[k], a = node_age_sweep(
+                g, r, lnlds[k], lnps[k], conds[k], a = node_age(
                     g, params, sq, r, ctx, ft.coal_time, lnlds[k], lnps[k],
                     conds[k])
                 acc_ct = acc_ct + a
             if mig_time_on and ctx.num_bands > 0:
-                g, r, lnps[k], a = mig_age_sweep(g, params, r, ctx,
-                                                 ft.mig_time, lnps[k])
+                g, r, lnps[k], a = mig_age(g, params, r, ctx, ft.mig_time,
+                                           lnps[k])
                 acc_mt = acc_mt + a
-            g, r, lnlds[k], conds[k], a = spr_sweep(
-                g, params, sq, r, ctx, lnlds[k], conds[k], loci_axis)
+            g, r, lnlds[k], conds[k], a = spr(g, params, sq, r, ctx,
+                                              lnlds[k], conds[k])
             acc_spr = acc_spr + a
             # SPR tracks only the data likelihood; the prior refresh of the
             # last genetree sample is merged into the full_stats pass below
             if gs < genetree_samples - 1:
                 lnps[k] = gen_log_prior(g, params, ctx)
             if var_rates and locus_rate_on:
-                g, r, lnlds[k], conds[k], a, dv = update_locus_rates_paired(
-                    g, sq, r, ft.locus_rate, lnlds[k], var_alpha, conds[k],
-                    loci_axis)
+                if legacy:
+                    g, r, lnlds[k], a, dv = update_locus_rates(
+                        g, sq, r, ft.locus_rate, lnlds[k], var_alpha)
+                    # rate moves change edge lengths everywhere: rebuild
+                    conds[k] = full_build(g, sq)
+                else:
+                    g, r, lnlds[k], conds[k], a, dv = \
+                        update_locus_rates_paired(
+                            g, sq, r, ft.locus_rate, lnlds[k], var_alpha,
+                            conds[k], loci_axis)
                 acc_lr = acc_lr + a
                 dvar = dvar + dv
             gens[k], lrngs[k] = g, r

@@ -1,6 +1,6 @@
 """Sampler driver: the performMCMC orchestration loop (twin of the
-fast-RNG, single-device part of gphocs_tpu/sampler/driver.py, pattern
-buckets and chains included).
+single-device part of gphocs_tpu/sampler/driver.py, pattern buckets,
+chains and the loci mesh included).
 
 Initialization, burn-in + sampling loop with the per-iteration schedule
 (sampler/bucketed.py), start-mig gating, trace emission, acceptance-rate
@@ -50,8 +50,19 @@ coal-stats file, admixture-trace.out and the checkpoint (gathered from
 every rank); every rank makes every collective, those of the log points
 included.  Chains on a mesh are refused (ROADMAP Queue 1 item 15b).
 
-Not ported yet; asking for it raises NotImplementedError naming the
-ROADMAP item: the legacy Wichmann-Hill RNG.
+`rng_mode="legacy"` is the conformance mode: the reference's
+Wichmann-Hill streams (rng.py), initialized as gphocs_tpu's legacy mode
+does (the genealogies simulated from the host stream, init_gen_state; the
+device streams the host stream's state afterwards, the first L slots per
+locus and the last the general stream), and consumed lane by lane as
+gphocs_tpu's XLA path consumes them, so that a run equals
+gphocs_tpu.Sampler(rng_mode="legacy") draw for draw.  The mode is fixed at
+construction and picks the sweeps: the node-age, migration-age and SPR
+kernels implement the counter streams, so this mode runs their plain
+versions, on the state's device, while the rubber band keeps its kernel
+(sampler/bucketed.py).  It takes one chain, one bucket and no mesh:
+pattern buckets are refused as in gphocs_tpu, chains and a mesh raise
+NotImplementedError naming ROADMAP Queue 1 items 17b and 17c.
 """
 
 from __future__ import annotations
@@ -82,7 +93,8 @@ from gphocs_tpu_torch.parallel.mesh import gather_rows, pad_bucket, pad_seq
 from gphocs_tpu_torch.rng_fast import FastRngState, init_fast
 from gphocs_tpu_torch.rng_host import HostRng
 from gphocs_tpu_torch.sampler.bucketed import mcmc_chunk_buckets
-from gphocs_tpu_torch.sampler.init import (init_gen_state_fast,
+from gphocs_tpu_torch.sampler.init import (init_gen_state,
+                                           init_gen_state_fast,
                                            sample_locus_rates,
                                            sample_pop_parameters)
 from gphocs_tpu_torch.sampler.step import Finetunes
@@ -98,6 +110,15 @@ def _running(total: float, deltas) -> list:
         total += d
         out.append(total)
     return out
+
+
+def route(rng_mode: str) -> str:
+    """How a sampler of `rng_mode` runs its sweeps (the command line's
+    start line)."""
+    if rng_mode == "legacy":
+        return ("legacy RNG: node-age/migration-age/SPR sweeps as tensor "
+                "code")
+    return "fast RNG"
 
 
 def _todo(what: str, item: str):
@@ -223,11 +244,15 @@ class Sampler:
         a state without a mesh the same way, so that one process runs the
         padded state that a mesh of that many ranks shards.
 
+        rng_mode: "fast", the counter-based streams of the kernels, or
+        "legacy", the conformance mode's Wichmann-Hill streams (the
+        module's docstring).
+
         legacy_rng: seed the host initialization stream (prior draws of
-        the starting parameters and rates) as the reference does, the same
-        seed in every slot; False gives every slot its own seed
-        (--production-rng).  The device streams are the counter-based fast
-        RNG either way.
+        the starting parameters and rates, and in the legacy mode the
+        genealogies and the device streams) as the reference does, the
+        same seed in every slot; False gives every slot its own seed
+        (--production-rng).
 
         buckets: sort the loci by phased-pattern count into at most this
         many buckets, each padded only to its own largest count
@@ -235,9 +260,19 @@ class Sampler:
 
         chains: independent chains run side by side (the module's
         docstring); not with buckets or a coal-stats file."""
-        if rng_mode != "fast":
-            raise _todo("rng_mode='legacy' (Wichmann-Hill streams)",
-                        "Queue 1 item 17")
+        if rng_mode not in ("fast", "legacy"):
+            raise ValueError(f"rng_mode={rng_mode!r}: 'fast' or 'legacy'")
+        self.rng_mode = rng_mode
+        if rng_mode == "legacy":
+            if chains > 1:
+                raise _todo("chains with the legacy RNG", "Queue 1 item 17b")
+            if mesh is not None:
+                raise _todo("a loci mesh with the legacy RNG (its serial "
+                            "rate update crosses the ranks)",
+                            "Queue 1 item 17c")
+            if buckets > 1:
+                raise ValueError("pattern buckets require the fast RNG (as "
+                                 "in gphocs_tpu): drop buckets")
         if mesh is not None and chains > 1:
             raise _todo("chains on a loci mesh (the chain-major layout "
                         "needs a sharding of its own)", "Queue 1 item 15b")
@@ -357,14 +392,25 @@ class Sampler:
                                  f"need {self.num_loci}")
         rates, rate_var = sample_locus_rates(
             self.num_loci, cfg.mcmc.mut_rate_mode, host_rng, fixed)
-        gen_np = init_gen_state_fast(self.tree, params, seed ^ 0x243F6A88,
-                                     self.num_loci, rates)
         conv = dict(device=self.device, dtype=self.dtype)
-        # per-locus streams [L] and the general stream [1]
+        if self.rng_mode == "legacy":
+            gen_np = init_gen_state(self.tree, params, host_rng,
+                                    self.num_loci, rates)
+            # the host stream goes on on the device: the first L slots
+            # per locus, the last the general stream
+            x, y, z = host_rng.state_arrays()
+            L = self.num_loci
+            lrng = R.from_arrays(x[:L], y[:L], z[:L], self.device)
+            grng = R.from_arrays(x[L:], y[L:], z[L:], self.device)
+        else:
+            gen_np = init_gen_state_fast(self.tree, params,
+                                         seed ^ 0x243F6A88, self.num_loci,
+                                         rates)
+            # per-locus streams [L] and the general stream [1]
+            lrng = init_fast(self.num_loci, seed, self.device)
+            grng = init_fast(1, seed + 0x5F3759DF, self.device)
         return (from_numpy(gen_np, GenState, **conv),
-                from_numpy(params, Params, **conv),
-                init_fast(self.num_loci, seed, self.device),
-                init_fast(1, seed + 0x5F3759DF, self.device), rate_var)
+                from_numpy(params, Params, **conv), lrng, grng, rate_var)
 
     # -- initialization (reference initializeMCMC, src/GPhoCS.c:1122) --
     def initialize(self):
@@ -405,12 +451,16 @@ class Sampler:
             if self.bucket_perm is None:  # initialized with num_loci
                 pad = 0
             n = rows - pad
-            g, key = pad_bucket(GenState(*(x[off:off + n] for x in gen)),
-                                lrng.key[off:off + n], pad)
+            g = GenState(*(x[off:off + n] for x in gen))
+            if self.rng_mode == "legacy":  # one bucket, no mesh
+                r = lrng
+            else:
+                g, key = pad_bucket(g, lrng.key[off:off + n], pad)
+                r = lrng._replace(key=key[b])
             g = GenState(*(x[b] for x in g))
             cond, lnld = full_rebuild_and_lnld(g, sq)
             gens.append(g)
-            lrngs.append(lrng._replace(key=key[b]))
+            lrngs.append(r)
             conds.append(cond)
             lnlds.append(lnld)
             lnps.append(gen_log_prior(g, self.params, self.ctx))
@@ -493,7 +543,8 @@ class Sampler:
             mixing_on=self.ft_search["mixing"].value > 0,
             var_rates=cfg.mcmc.mut_rate_mode == 1,
             locus_rate_on=self.ft_search["locus_rate"].value > 0,
-            var_alpha=cfg.mcmc.var_rates_alpha, loci_axis=self.mesh)
+            var_alpha=cfg.mcmc.var_rates_alpha, loci_axis=self.mesh,
+            legacy=self.rng_mode == "legacy")
         self.gens, self.lrngs = tuple(gens), tuple(lrngs)
         self.lnlds, self.lnps, self.conds = (tuple(lnlds), tuple(lnps),
                                              tuple(conds))

@@ -173,7 +173,8 @@ def test_chains_refused_with_buckets_and_coal_stats(seqs, tmp_path,
     ctl = tmp_path / "run.ctl"
     ctl.write_text(text)
     with pytest.raises(SystemExit):
-        cli.main([str(ctl), "--chains", "2", "--device", "cpu"])
+        cli.main([str(ctl), "--chains", "2", "--device", "cpu",
+                  "--fast-rng"])
     assert "coal-stats file takes one chain" in capsys.readouterr().err
     assert not (tmp_path / "coal.txt").exists()
 

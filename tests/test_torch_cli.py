@@ -44,15 +44,15 @@ def _ctl(text, seq, trace, iterations, per_log, **extra):
 
 
 def test_cli_run_equals_sampler_run(ragged, tmp_path):
-    """`python -m gphocs_tpu_torch ctl --device cpu --buckets 2` exits 0,
-    and its trace file equals, byte for byte, that of Sampler.run in this
-    process on the same control file."""
+    """`python -m gphocs_tpu_torch ctl --device cpu --fast-rng --buckets 2`
+    exits 0, and its trace file equals, byte for byte, that of Sampler.run
+    in this process on the same control file."""
     ctl = tmp_path / "run.ctl"
     ctl.write_text(_ctl(SAMPLE_CTL, ragged, tmp_path / "cli.log", 4, 2))
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--device",
-         "cpu", "--buckets", "2", "-n", "4"],
+         "cpu", "--fast-rng", "--buckets", "2", "-n", "4"],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "gphocs_tpu_torch on cpu, float64, fast RNG" in out.stdout
@@ -65,8 +65,74 @@ def test_cli_run_equals_sampler_run(ragged, tmp_path):
     assert cli_trace == (tmp_path / "here.log").read_text()
 
 
+@pytest.mark.parametrize("flags", [["--legacy-rng"], []])
+def test_cli_legacy_run_equals_sampler_run(flags, ragged, tmp_path):
+    """`python -m gphocs_tpu_torch ctl --device cpu` runs the conformance
+    mode, with or without --legacy-rng (the CPU's default, as in
+    gphocs_tpu), names it in its start line, and writes the trace of
+    Sampler(rng_mode="legacy").run in this process, byte for byte."""
+    ctl = tmp_path / "run.ctl"
+    ctl.write_text(_ctl(SAMPLE_AGE_VAR_CTL, ragged, tmp_path / "cli.log", 4,
+                        2))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--device",
+         "cpu", "-v", *flags],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert ("gphocs_tpu_torch on cpu, float64, legacy RNG: node-age/"
+            "migration-age/SPR sweeps as tensor code") in out.stdout
+    assert "'spr': 0" in out.stderr and "'spr_plain': 5" in out.stderr
+    s = Sampler(parse_control_text(ctl.read_text()), device="cpu",
+                rng_mode="legacy")
+    s.run(trace_path=str(tmp_path / "here.log"))
+    cli_trace = (tmp_path / "cli.log").read_text()
+    assert len(cli_trace.splitlines()) == 5
+    assert cli_trace == (tmp_path / "here.log").read_text()
+
+
+def test_legacy_resume_equals_uninterrupted_run(ragged, tmp_path):
+    """A legacy run resumed from its checkpoint of iteration 2 (the
+    Wichmann-Hill states as lrng_x/y/z and grng_x/y/z, uint32) gives the
+    uninterrupted run's rows and final checkpoint, bit for bit; the fast
+    RNG's sampler refuses that checkpoint."""
+    def run(name, iterations, resume=False, ck=None):
+        text = _ctl(SAMPLE_AGE_VAR_CTL, ragged, tmp_path / f"{name}.log",
+                    iterations, 2)
+        s = Sampler(parse_control_text(text), device="cpu",
+                    rng_mode="legacy")
+        s.run(trace_path=str(tmp_path / f"{name}.log"),
+              checkpoint_path=str(tmp_path / (ck or f"{name}.npz")),
+              checkpoint_every=2, resume=resume, debug_check=True)
+        return (tmp_path / f"{name}.log").read_text().splitlines()
+
+    whole = run("whole", 4)
+    run("first", 2)
+    resumed = run("second", 4, resume=True, ck="first.npz")
+    assert resumed == [whole[0]] + whole[3:]
+    a = np.load(tmp_path / "whole.npz")
+    b = np.load(tmp_path / "first.npz")
+    assert sorted(a.files) == sorted(b.files)
+    assert a["lrng_x"].dtype == np.uint32 and a["grng_z"].shape == (1,)
+    assert "lrng_key" not in a.files
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    fast = Sampler(parse_control_text(_ctl(SAMPLE_AGE_VAR_CTL, ragged,
+                                           tmp_path / "f.log", 4, 2)),
+                   device="cpu")
+    with pytest.raises(ValueError, match="legacy RNG"):
+        fast.run(checkpoint_path=str(tmp_path / "whole.npz"), resume=True)
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--legacy-rng"], "item 17"),
+    # the legacy RNG is ported for one chain and no mesh; with --buckets,
+    # or with --fast-rng, it is a usage error (as gphocs_tpu's)
+    (["--legacy-rng", "--chains", "2"], "item 17b"),
+    (["--device", "cpu", "--chains", "2"], "item 17b"),
+    (["--legacy-rng", "--mesh"], "item 17c"),
+    (["--legacy-rng", "--buckets", "2"], "requires the fast RNG"),
+    (["--device", "cpu", "--buckets", "2"], "requires the fast RNG"),
+    (["--legacy-rng", "--fast-rng"], "mutually exclusive"),
     # chains are ported; with pattern buckets the command line refuses
     # them (a usage error, as gphocs_tpu's)
     (["--chains", "2", "--buckets", "2"], "requires one chain"),
@@ -77,7 +143,8 @@ def test_cli_run_equals_sampler_run(ragged, tmp_path):
 ])
 def test_unported_flags_raise_before_reading_files(flags, item, tmp_path,
                                                    capsys):
-    if "--buckets" in flags or item.startswith("COORD"):
+    if ("--buckets" in flags or item.startswith("COORD")
+            or "--fast-rng" in flags):
         with pytest.raises(SystemExit):
             cli.main([str(tmp_path / "no-such-file.ctl"), *flags])
         assert item in capsys.readouterr().err
@@ -163,7 +230,7 @@ def test_debug_check_names_the_bucket(ragged, tmp_path):
 
 
 def test_cli_runs_chains_with_debug_check(ragged, tmp_path):
-    """`python -m gphocs_tpu_torch ctl --chains 2 --device cpu
+    """`python -m gphocs_tpu_torch ctl --chains 2 --device cpu --fast-rng
     --debug-check` exits 0; the trace is chain 0's, one row per iteration,
     and chain 0 equals the one-chain run with the base seed (CONST rates:
     with VAR rates the trace's variance is the chains' mean, as in
@@ -173,7 +240,7 @@ def test_cli_runs_chains_with_debug_check(ragged, tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--chains",
-         "2", "--device", "cpu", "--debug-check"],
+         "2", "--device", "cpu", "--fast-rng", "--debug-check"],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "2 chains, seeds 7 + 7919 c" in out.stdout
@@ -185,10 +252,11 @@ def test_cli_runs_chains_with_debug_check(ragged, tmp_path):
 
 
 def test_cli_runs_an_admixed_control_file(ragged, tmp_path, capsys):
-    """`python -m gphocs_tpu_torch admix.ctl --device cpu --debug-check`
-    exits 0 and writes the A... trace columns and admixture-trace.out
-    (the iteration, then per admixed leaf and locus its share of the
-    sampling iterations in its second population); the trace equals that
+    """`python -m gphocs_tpu_torch admix.ctl --device cpu --fast-rng
+    --debug-check` exits 0 and writes the A... trace columns and
+    admixture-trace.out (the iteration, then per admixed leaf and locus
+    its share of the sampling iterations in its second population); the
+    trace equals that
     of Sampler.run in this process.  With --buckets 2 the command line
     refuses admixture (a usage error), as gphocs_tpu's does."""
     from gphocs_tpu_torch.config.samples import ADMIX_CTL
@@ -198,7 +266,7 @@ def test_cli_runs_an_admixed_control_file(ragged, tmp_path, capsys):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--device",
-         "cpu", "--debug-check"],
+         "cpu", "--fast-rng", "--debug-check"],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "AdmxCoefs" in out.stderr
@@ -215,7 +283,8 @@ def test_cli_runs_an_admixed_control_file(ragged, tmp_path, capsys):
     assert (tmp_path / "admixture-trace.out").read_text() == (
         tmp_path / "here" / "admixture-trace.out").read_text()
     with pytest.raises(SystemExit):
-        cli.main([str(ctl), "--device", "cpu", "--buckets", "2"])
+        cli.main([str(ctl), "--device", "cpu", "--fast-rng", "--buckets",
+                  "2"])
     assert "admixture requires one pattern bucket" in capsys.readouterr().err
 
 
@@ -264,7 +333,8 @@ def test_cli_on_a_loci_mesh(ragged, tmp_path):
         where.mkdir()
         return subprocess.Popen(
             [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--device",
-             "cpu", "--buckets", "2", "--mesh-timeout", "60", *flags],
+             "cpu", "--fast-rng", "--buckets", "2", "--mesh-timeout", "60",
+             *flags],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env, cwd=where)
 

@@ -255,7 +255,9 @@ def test_rubber_band_sample_age_kernel_matches_plain(warm_sample_age,
     q = rubber_band_eval_plain(s.gen, s.params, s.seq, s.ctx, pop, True, *b,
                                s.cond)
     assert sweeps.LAUNCHES == {"node_age": 0, "mig_age": 0, "rubber_band": 0,
-                               "rubber_band_sample_age": 1, "spr": 0}
+                               "rubber_band_sample_age": 1, "spr": 0,
+                               "node_age_plain": 0, "mig_age_plain": 0,
+                               "spr_plain": 0}
     assert float(k[5]) == float(q[5]) and float(k[6]) == float(q[6])
     assert float(k[5]) + float(k[6]) > 0
     assert bool(k[7]) == bool(q[7]) == conflict
@@ -489,7 +491,9 @@ def test_s32_bucket_matches_plain(build, s32_bucket, host_libs, monkeypatch):
     _close(k[3], q[3], 1e-9)
     _close(k[4], q[4], 1e-9)
     assert sweeps.LAUNCHES == {"node_age": 1, "mig_age": 1, "spr": 1,
-                               "rubber_band": 1, "rubber_band_sample_age": 0}
+                               "rubber_band": 1, "rubber_band_sample_age": 0,
+                               "node_age_plain": 0, "mig_age_plain": 0,
+                               "spr_plain": 0}
 
 
 def test_counts_are_summed_over_the_valid_loci(warm, kernels_on_host):

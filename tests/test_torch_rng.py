@@ -123,3 +123,104 @@ def test_init_fast_lane_mix_and_roundtrip():
                                   np.asarray(want).astype(np.int64))
     back = to_numpy(k1)
     assert np.array_equal(back.key, k1.key.numpy())
+
+
+# ---- the Wichmann-Hill streams of the conformance mode (no JAX) ----------
+# The reference C implementation's values (src/utils.c, gcc -O2), seed
+# 12345, 3 loci + 1 general slot, every slot seeded alike: copied from
+# tests/test_rng.py.
+GOLD_RNDU_SLOT0 = [
+    0.0042688455914678958, 0.62853436425211839, 0.95951417036121711,
+    0.066568566791829653, 0.33884242226486094, 0.25929171797179151,
+    0.30696066853124648, 0.27638592311996035, 0.27231839174055494,
+    0.92301977935130708,
+]
+GOLD_RND2NORMAL8_SLOT1 = [
+    0.66878961090114375, -0.62978615503667335, -0.98304464283311499,
+    -0.96972107693339271, 0.557807077441971, -1.0561921282874003,
+    -0.95513209233305907, 0.50244312769355037,
+]
+GOLD_RNDNORMAL_SLOT2 = [
+    -0.82205829204275882, -0.94807421769542499, -0.18954793512492538,
+    0.12070680375315508, 1.8794910910790084,
+]
+
+
+def _lane(k, i):
+    m = torch.zeros(k, dtype=torch.bool)
+    m[i] = True
+    return m
+
+
+def test_legacy_rndu_equals_c_bitwise():
+    """rndu adds the three IEEE quotients as C does: C's values exactly
+    (17 digits round-trip a double)."""
+    st = TR.init_legacy(4, 12345)
+    out = []
+    for _ in range(10):
+        u, st = TR.rndu(st, _lane(4, 0))
+        out.append(float(u[0]))
+    np.testing.assert_array_equal(out, GOLD_RNDU_SLOT0)
+    # the general stream, seeded alike, repeats slot 0
+    g = TR.init_legacy(1, 12345)
+    for want in GOLD_RNDU_SLOT0[:5]:
+        u, g = TR.general_draw_u(g, torch.float64)
+        assert float(u) == want
+
+
+@pytest.mark.parametrize("draw, lane, gold", [
+    ("rnd2normal8", 1, GOLD_RND2NORMAL8_SLOT1),
+    ("rndnormal", 2, GOLD_RNDNORMAL_SLOT2),
+])
+def test_legacy_normals_equal_c(draw, lane, gold):
+    """The polar normal and the mixture kernel within 5e-15 of C's (torch's
+    log may differ from glibc's by an ulp)."""
+    st = TR.init_legacy(4, 12345)
+    out = []
+    for _ in gold:
+        z, st = getattr(TR, draw)(st, _lane(4, lane))
+        out.append(float(z[lane]))
+    np.testing.assert_allclose(out, gold, rtol=0, atol=5e-15)
+
+
+def test_legacy_masked_lanes_do_not_advance():
+    """Lanes outside the mask keep their state, through rndu and through
+    the normals' rejection loop; a general draw that is not active takes
+    nothing."""
+    st = TR.init_legacy(4, 12345)
+    for _ in range(3):
+        _, st = TR.rndu(st, _lane(4, 1))
+        _, st = TR.rnd2normal8(st, _lane(4, 2))
+    u, st = TR.rndu(st, _lane(4, 0))
+    assert float(u[0]) == GOLD_RNDU_SLOT0[0]
+    assert int(st.x[3]) == 11 and int(st.y[3]) == 23
+    g = TR.init_legacy(1, 12345)
+    _, g2 = TR.general_draw_2normal8(g, torch.float64, torch.tensor(False))
+    assert all(torch.equal(a, b) for a, b in zip(g, g2))
+    _, g3 = TR.general_draw_u(g, torch.float64, False)
+    assert all(torch.equal(a, b) for a, b in zip(g, g3))
+
+
+def test_legacy_wraparound_equals_uint32():
+    """AS183 without the negative correction: x = 177 steps to 2^32 - 2
+    (unsigned wraparound, not -2), and the stream goes on as the host's
+    exact uint32 twin (rng_host.HostRng) does, bit for bit."""
+    from gphocs_tpu_torch.rng_host import HostRng
+
+    host = HostRng(3, 0)
+    host.x[:] = [177, 354, 30000]
+    host.y[:] = [176, 23, 29999]
+    host.z[:] = [178, 170, 30322]
+    st = TR.from_arrays(*host.state_arrays())
+    _, st1 = TR.rndu(st, torch.ones(3, dtype=torch.bool))
+    assert int(st1.x[0]) == 2 ** 32 - 2
+    st = TR.from_arrays(*host.state_arrays())
+    for _ in range(50):
+        u, st = TR.rndu(st, torch.ones(3, dtype=torch.bool))
+        want = [host.rndu(i) for i in range(3)]
+        np.testing.assert_array_equal(u.numpy(), want)
+    for f, a in zip("xyz", host.state_arrays()):
+        np.testing.assert_array_equal(getattr(st, f).numpy(), a, err_msg=f)
+    e, st = TR.rndexp(st, torch.ones(3, dtype=torch.bool), 2.5)
+    np.testing.assert_allclose(e.numpy(), [host.rndexp(i, 2.5)
+                                           for i in range(3)], rtol=1e-15)

@@ -152,7 +152,12 @@ def test_cuda_sampler_needs_a_card():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(rng_mode="legacy"), "item 17"),
+    # the legacy RNG is ported for one chain, one bucket and no mesh
+    (dict(rng_mode="legacy", chains=2), "item 17b"),
+    (dict(rng_mode="legacy", mesh=LociMesh(rank=0, world=2, backend="gloo",
+                                          device=torch.device("cpu"))),
+     "item 17c"),
+    (dict(rng_mode="legacy", buckets=2), "require the fast RNG"),
     # chains are ported; with pattern buckets they are refused (a
     # ValueError), as in gphocs_tpu
     (dict(chains=2, buckets=2), "one chain"),
