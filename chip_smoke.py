@@ -150,11 +150,34 @@ script then exits non-zero without the final line):
      f64: it/s (median of 3 chunks), and per iteration the device
      operations, the device's busy time and idle share (torch.profiler),
      the rubber band's launches and the other kernels' (0);
- 11. one JSON line per path with its it/s (the ragged ones with both
+ 11. the legacy RNG with chains: (11a) LEGACY_CHAINS chains of
+     LEGACY_LOCI loci at f64, plain, with D's sample age and VAR rates,
+     and admixed: chain c at iteration 0 equal to the one-chain legacy
+     initialization with seed 111 + 7919 c (genealogies, parameters,
+     streams bitwise; lnld and lnp within 1e-12 relative), then
+     LEGACY_CHAIN_ITERS iterations on the card, each held against one
+     CPU iteration from the same state as in 10b (per-chain accepts,
+     streams and integers equal, reals within 1e-12 relative), with the
+     launch schedule of one chain; (11b) a 2-chain checkpoint at
+     iteration LEGACY_CKPT resumed on the card, every chain's rows and
+     the final checkpoint (grng_* [C, 1], lrng_* [C, L]) bitwise equal to
+     the uninterrupted run's; (11c) `python -m gphocs_tpu_torch
+     --legacy-rng --chains 2 -v` beside 11a-11b: exit 0, the start line
+     naming mode and chains, the trace rows, a method time for every
+     family and none unavailable; the native sequence reader built, and
+     the set-up of the standard and the ragged file with and without it;
+     (11d) the standard workload at f32 as LEGACY_BIG_CHAINS legacy
+     chains: it/s and chain-it/s (median of 3 chunks), device operations,
+     busy ms and idle share per iteration, the rubber band 3 launches an
+     iteration and the other kernels none.  Phase 4 also reads the
+     migration-age kernel three ways (`device_ms`, tools/kernel_times.py
+     and the profiling family) on three states, with their live
+     migration events;
+ 12. one JSON line per path with its it/s (the ragged ones with both
      readings and their pattern cells, the chains with their chain-it/s
      and device operations per iteration, the mesh with phase 9's
-     readings, the legacy path with phase 10e's), the card's line, one
-     JSON line
+     readings, the legacy paths with phases 10e's and 11d's), the card's
+     line, one JSON line
      with the kernels (launches on the paths, error against the plain
      version, time, the time on the 4 chains' state, the plain version's
      time, and the least time the card could take: `bound_ms`), then the
@@ -182,9 +205,10 @@ What was cut to keep the run short: the three paths of phases 4-5b read
 one simulated sequence file, phase 5b drives its path but does not repeat
 the kernel comparisons of phase 5 (the kernels do not read the VAR
 setting), phase 6c runs S32_CTL with D's sample age estimated, so that
-one state serves both rubber-band modes, and phase 10 holds the card
-against the CPU at 64 loci: the serial rate update takes a host
-synchronization per locus.
+one state serves both rubber-band modes, and phases 10 and 11 hold the
+card against the CPU at 64 loci (11: 2 chains, 3 iterations per
+workload): the serial rate update takes a host synchronization per
+locus.
 
 It needs one CUDA card; without one it exits with status 1 and prints no
 result.  `chip_smoke.py --mesh-rank SPEC RANK` is phase 9b's rank, started
@@ -1904,17 +1928,19 @@ def legacy_streams():
         "bitwise (lane 0 wrapped)")
 
 
-def legacy_sampler(ctl, data, device, dtype, loci=LEGACY_LOCI, **settings):
-    """The conformance mode's sampler of a workload (seed 111, start-mig
-    0), initialized and with its migration rates drawn."""
+def legacy_sampler(ctl, data, device, dtype, loci=LEGACY_LOCI, chains=1,
+                   seed=111, **settings):
+    """The conformance mode's sampler of a workload (start-mig 0; `chains`
+    chains from seed `seed` + 7919 c), initialized and with its migration
+    rates drawn."""
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import with_settings
     from gphocs_tpu_torch.sampler.driver import Sampler
 
     cfg = parse_control_text(with_settings(
-        ctl, random_seed=111, start_mig=0, num_loci=loci, **settings))
+        ctl, random_seed=seed, start_mig=0, num_loci=loci, **settings))
     s = Sampler(cfg, seq_path=data, dtype=dtype, device=device,
-                rng_mode="legacy")
+                rng_mode="legacy", chains=chains)
     s.initialize()
     s._sample_mig_rates_device()
     return s
@@ -1941,20 +1967,24 @@ def legacy_copy(src, dst):
     dst.rate_var = src.rate_var
 
 
-def legacy_vs_cpu(label, ctl, data, sample_age):
-    """Phase 10b, one workload: LEGACY_ITERS iterations of the card's
-    sampler at f64, each held against one iteration of the CPU's sampler
-    from the same state: equal accept counts and streams, equal integer
-    arrays of the genealogies, reals within 1e-9 relative, and the
-    schedule of launches (the sweeps as tensor code, the rubber band's
-    kernel).  Returns the largest relative difference."""
+def legacy_vs_cpu(label, ctl, data, sample_age, chains=1,
+                  iters=LEGACY_ITERS, tol=1e-9, phase="10b"):
+    """Phase 10b (11a with chains), one workload: `iters` iterations of the
+    card's sampler at f64, each held against one iteration of the CPU's
+    sampler from the same state: equal accept counts (per chain) and
+    streams, equal integer arrays of the genealogies, reals within `tol`
+    relative, and the schedule of launches (the sweeps as tensor code, the
+    rubber band's kernel, once for all chains).  Returns the largest
+    relative difference."""
     import torch
     from gphocs_tpu_torch.ops import sweeps
 
     f64 = torch.float64
-    card = legacy_sampler(ctl, data, "cuda", f64)
-    cpu = legacy_sampler(ctl, data, "cpu", f64)
+    card = legacy_sampler(ctl, data, "cuda", f64, chains=chains)
+    cpu = legacy_sampler(ctl, data, "cpu", f64, chains=chains)
     worst = 0.0
+    if chains > 1:
+        legacy_chain_starts(label, ctl, data, card)
 
     def rel(name, a, b):
         nonlocal worst
@@ -1962,10 +1992,10 @@ def legacy_vs_cpu(label, ctl, data, sample_age):
         d = (a - b).abs()
         if a.numel():
             worst = max(worst, float((d / a.abs().clamp(min=1e-300)).max()))
-        check(not bool((d > 1e-9 * a.abs()).any()),
-              f"10b {label}: {name} beyond 1e-9 relative")
+        check(not bool((d > tol * a.abs()).any()),
+              f"{phase} {label}: {name} beyond {tol:g} relative")
 
-    for it in range(LEGACY_ITERS):
+    for it in range(iters):
         legacy_copy(card, cpu)
         sweeps.reset_launch_counts()
         st_g, tr_g = card.step_chunk(1, do_migrate=True)
@@ -1975,14 +2005,14 @@ def legacy_vs_cpu(label, ctl, data, sample_age):
         want.update(dict.fromkeys(PLAIN_SWEEPS, 1),
                     rubber_band=TAU_PROPOSALS,
                     rubber_band_sample_age=int(sample_age))
-        check(launches == want, f"10b {label}: launches {launches}")
+        check(launches == want, f"{phase} {label}: launches {launches}")
         st_c, tr_c = cpu.step_chunk(1, do_migrate=True)
         for f in st_g._fields:
             a, b = getattr(st_c, f), getattr(st_g, f)
             if a.is_floating_point():
                 rel(f, a, b)
             else:
-                check(torch.equal(a, b.cpu()), f"10b {label}: {f} "
+                check(torch.equal(a, b.cpu()), f"{phase} {label}: {f} "
                       f"{a.tolist()} on the CPU, {b.tolist()} on the card")
         for f in tr_g._fields:
             rel(f"trace {f}", getattr(tr_c, f), getattr(tr_g, f))
@@ -1991,18 +2021,18 @@ def legacy_vs_cpu(label, ctl, data, sample_age):
             if a.is_floating_point():
                 rel(f, a, b)
             else:
-                check(torch.equal(a, b.cpu()), f"10b {label}: {f} differs")
+                check(torch.equal(a, b.cpu()), f"{phase} {label}: {f} differs")
         for name, a, b in (("lnld", cpu.lnld, card.lnld),
                            ("lnp", cpu.lnp, card.lnp)):
             rel(name, a, b)
         for r_c, r_g in ((cpu.lrng, card.lrng), (cpu.grng, card.grng)):
             check(all(torch.equal(a, b.cpu()) for a, b in zip(r_c, r_g)),
-                  f"10b {label}: the streams differ")
-    log(f"  {label}: {LEGACY_ITERS} iterations, each equal to the CPU's "
+                  f"{phase} {label}: the streams differ")
+    log(f"  {label}: {iters} iterations, each equal to the CPU's "
         f"(accepts, streams, integers), reals within {worst:.2e} relative; "
-        f"accepts of the last: coal {int(st_g.acc_coal_time)} spr "
-        f"{int(st_g.acc_spr)} taus {st_g.acc_taus.tolist()} rates "
-        f"{int(st_g.acc_locus_rate)} admix {int(st_g.acc_admix)}")
+        f"accepts of the last: coal {st_g.acc_coal_time.tolist()} spr "
+        f"{st_g.acc_spr.tolist()} taus {st_g.acc_taus.tolist()} rates "
+        f"{st_g.acc_locus_rate.tolist()} admix {st_g.acc_admix.tolist()}")
     return worst
 
 
@@ -2179,6 +2209,249 @@ def legacy_phase(tmp, data, card):
     return total, rec
 
 
+LEGACY_CHAINS = 2        # (a)-(c) of phase 11
+LEGACY_CHAIN_ITERS = 3   # (a): iterations held against the CPU, per workload
+LEGACY_BIG_CHAINS = 4    # (d): the standard workload's chains
+
+
+def legacy_chain_starts(label, ctl, data, card):
+    """Phase 11a: chain c of the card's legacy chains at iteration 0 is the
+    one-chain legacy initialization with seed 111 + 7919 c: genealogies,
+    parameters and streams bitwise, the carried lnld and lnp within 1e-12
+    relative (sums over the loci of one chain or of all)."""
+    import torch
+
+    L = card.num_loci
+    for c in range(card.chains):
+        one = legacy_sampler(ctl, data, "cuda", torch.float64,
+                             seed=111 + 7919 * c)
+        gen, params = card.chain_state(c)
+        cut = slice(c * L, (c + 1) * L)
+        for f in gen._fields:
+            check(torch.equal(getattr(gen, f), getattr(one.gen, f)),
+                  f"11a {label}: chain {c}'s initial {f}")
+        for f in params._fields:
+            a, b = getattr(params, f), getattr(one.params, f)
+            check(torch.equal(a, b), f"11a {label}: chain {c}'s {f}")
+        for f in "xyz":
+            check(torch.equal(getattr(card.lrng, f)[cut],
+                              getattr(one.lrng, f))
+                  and torch.equal(getattr(card.grng, f)[c],
+                                  getattr(one.grng, f)),
+                  f"11a {label}: chain {c}'s streams")
+        for name in ("lnld", "lnp"):
+            a, b = getattr(card, name)[cut], getattr(one, name)
+            check(bool(((a - b).abs() <= 1e-12 * b.abs()).all()),
+                  f"11a {label}: chain {c}'s {name}")
+    log(f"  {label}: chain c at iteration 0 equals the one-chain legacy "
+        f"initialization with seed 111 + 7919 c (c < {card.chains})")
+
+
+def mig_age_readings(s, label):
+    """The migration-age kernel read three ways on sampler s's state, with
+    its live migration events: `device_ms`, chip_smoke's reading (CUDA
+    events around 20 launches of a prebuilt argument block);
+    tools/kernel_times.py's `ms` (events around wrapper calls) and
+    `kernel_ms` (the kernel's own duration, torch.profiler); and the
+    profiling family `mig_age` (events around wrapper calls after a warm
+    one, as `-v` prints it)."""
+    import torch
+    from gphocs_tpu_torch import profiling
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.tools import kernel_times as KT
+
+    dev = torch.device("cuda")
+
+    def call():
+        return sweeps.mig_age_sweep(s.gen, s.params, s.lrng, s.ctx,
+                                    s.ft.mig_time, s.lnp)
+
+    prep = sweeps.prepare_mig_age(s.gen, s.params, s.lrng, s.ctx,
+                                  s.ft.mig_time, s.lnp)
+    saved = dict(sweeps.LAUNCHES)
+    rec = {"live_migrations": int((s.gen.mig_branch >= 0).sum()),
+           "device_ms": time_cuda(lambda: prep.launch(dev), 20),
+           "kernel_times_ms": KT._events_ms(call, 20),
+           "kernel_times_kernel_ms": KT._profiled(call, KT.KERNELS["mig_age"],
+                                                  20)[0],
+           "profiling_ms": profiling.kernel_times(s, 20)["mig_age"] * 1e3}
+    sweeps.LAUNCHES.update(saved)
+    log(f"  mig_age on the {label} state ({rec['live_migrations']} live "
+        f"migration events): device_ms {rec['device_ms']:.4f}, "
+        f"kernel_times ms {rec['kernel_times_ms']:.4f} and kernel_ms "
+        f"{rec['kernel_times_kernel_ms']:.4f}, profiling "
+        f"{rec['profiling_ms']:.4f}")
+    return rec
+
+
+def ingest_times(paths):
+    """Host set-up of a sequence file, read and built into SeqData, with
+    and without the native reader (in turns: native, Python, Python,
+    native); ms per file."""
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL
+    from gphocs_tpu_torch.io.sequences import build_seq_data, read_seq_file
+
+    cfg = parse_control_text(SAMPLE_CTL)
+    out = {}
+    for label, path in paths.items():
+        reads = {True: [], False: []}
+        for native in (True, False, False, True):
+            t0 = time.perf_counter()
+            raw = read_seq_file(path, cfg.sample_names, use_native=native)
+            build_seq_data(raw, cfg.is_diploid())
+            reads[native].append((time.perf_counter() - t0) * 1e3)
+        out[label] = {"native_ms": reads[True], "python_ms": reads[False],
+                      "loci": raw.num_loci}
+        log(f"  set-up of {label} ({raw.num_loci} loci): native reader "
+            f"{[round(x, 1) for x in reads[True]]} ms, Python reader "
+            f"{[round(x, 1) for x in reads[False]]} ms")
+    return out
+
+
+def legacy_chains_phase(tmp, data, card):
+    """Phase 11: the legacy RNG with chains on the card.  Returns (the
+    launches of 11d's run on the standard workload, its record)."""
+    import numpy as np
+    import torch
+    from gphocs_tpu_torch.config.samples import (ADMIX_CTL,
+                                                 SAMPLE_AGE_VAR_CTL,
+                                                 SAMPLE_CTL, with_settings)
+    from gphocs_tpu_torch.io.native import native_available
+    from gphocs_tpu_torch.ops import sweeps
+
+    # 11c's command runs beside 11a-11b
+    ctl_path = os.path.join(tmp, "legacy_chains.ctl")
+    trace = os.path.join(tmp, "legacy_chains_cli.log")
+    with open(ctl_path, "w") as f:
+        f.write(with_settings(SAMPLE_AGE_VAR_CTL, seq_file=data,
+                              trace_file=trace, num_loci=LEGACY_LOCI,
+                              mcmc_iterations=4, iterations_per_log=2,
+                              burn_in=0, start_mig=0, random_seed=5))
+    cli_out = open(os.path.join(tmp, "legacy_chains_cli.out"), "w")
+    cli = subprocess.Popen([sys.executable, "-m", "gphocs_tpu_torch",
+                            ctl_path, "--legacy-rng", "--chains",
+                            str(LEGACY_CHAINS), "-v"], cwd=ROOT,
+                           stdout=cli_out, stderr=subprocess.STDOUT,
+                           text=True)
+    f64 = torch.float64
+    try:
+        t0 = time.perf_counter()
+        log(f" -- 11a: {LEGACY_CHAINS} chains x {LEGACY_LOCI} loci at f64 on "
+            f"the card against the CPU, {LEGACY_CHAIN_ITERS} iterations each")
+        worst = max(legacy_vs_cpu(label, ctl, data, sa,
+                                  chains=LEGACY_CHAINS,
+                                  iters=LEGACY_CHAIN_ITERS, tol=1e-12,
+                                  phase="11a")
+                    for label, ctl, sa in (
+                        ("plain", SAMPLE_CTL, False),
+                        ("sample_age_var", SAMPLE_AGE_VAR_CTL, True),
+                        ("admixed", ADMIX_CTL, False)))
+
+        log(f" -- 11b: a {LEGACY_CHAINS}-chain checkpoint at iteration "
+            f"{LEGACY_CKPT} resumed on the card (SAMPLE_AGE_VAR_CTL, f64; "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+        def leg(name, iters, resume=False, ck=None):
+            s = legacy_sampler(SAMPLE_AGE_VAR_CTL, data, "cuda", f64,
+                               chains=LEGACY_CHAINS, mcmc_iterations=iters,
+                               burn_in=0, iterations_per_log=LEGACY_CKPT)
+            s.run(trace_path=os.path.join(tmp, f"legc_{name}.log"),
+                  checkpoint_path=os.path.join(tmp, f"legc_{ck or name}.npz"),
+                  checkpoint_every=LEGACY_CKPT, resume=resume)
+            return s.chain_rows
+
+        whole = leg("whole", 2 * LEGACY_CKPT)
+        leg("first", LEGACY_CKPT)
+        resumed = leg("resumed", 2 * LEGACY_CKPT, resume=True, ck="first")
+        for c in range(LEGACY_CHAINS):
+            check(np.array_equal(whole[c][LEGACY_CKPT:], resumed[c]),
+                  f"11b: chain {c}'s resumed rows differ")
+        za = np.load(os.path.join(tmp, "legc_whole.npz"))
+        zb = np.load(os.path.join(tmp, "legc_first.npz"))
+        check(sorted(za.files) == sorted(zb.files)
+              and za["grng_x"].shape == (LEGACY_CHAINS, 1)
+              and za["lrng_x"].shape == za["lnld"].shape
+              and za["lnld"].shape[0] == LEGACY_CHAINS,
+              "11b: checkpoint keys or the stacked legacy layout")
+        for k in za.files:
+            check(np.array_equal(za[k], zb[k]), f"11b: checkpoint array {k}")
+        log(f"  every chain's rows {LEGACY_CKPT + 1}-{2 * LEGACY_CKPT} and "
+            f"the {len(za.files)} arrays of the final checkpoint bitwise "
+            "equal; grng_* [C, 1], lrng_* [C, L]")
+
+        log(" -- 11c: python -m gphocs_tpu_torch --legacy-rng --chains "
+            f"{LEGACY_CHAINS} -v on the card (started with 11a; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        rc = cli.wait(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+        cli_out.close()
+    text = open(cli_out.name).read()
+    check(rc == 0, f"11c failed:\n{text[-3000:]}")
+    head = text.splitlines()[0]
+    check(f"legacy RNG: node-age/migration-age/SPR sweeps as tensor code, "
+          f"{LEGACY_CHAINS} chains" in head, f"11c: start line {head!r}")
+    rows = open(trace).read().splitlines()
+    check(len(rows) == 5, f"11c: {len(rows)} trace lines")
+    check("unavailable" not in text, "11c: a method time was unavailable")
+    families = {"pruning", "full_stats", "node_age", "spr", "theta", "tau",
+                "mixing", "mig_age"}
+    timed = {ln.split()[0] for ln in text.splitlines()
+             if ln.endswith("%") and " ms " in ln}
+    check(timed == families, f"11c: method times for {sorted(timed)}")
+    check(native_available(), "11c: the native sequence reader did not "
+          "build on the card host")
+    log(f"  exit 0; {head}; {len(rows) - 1} trace rows; method times for "
+        f"all {len(families)} families; the native reader available")
+    setup = ingest_times({"standard": data,
+                          "ragged": os.path.join(tmp, "ragged.txt")})
+
+    log(f" -- 11d: the standard workload ({WORKLOAD_LOCI} loci) at f32 as "
+        f"{LEGACY_BIG_CHAINS} legacy chains, {LEGACY_CHUNK} iterations per "
+        f"chunk ({time.perf_counter() - t0:.1f} s)")
+    s = legacy_sampler(SAMPLE_CTL, data, "cuda", torch.float32, loci=-1,
+                       chains=LEGACY_BIG_CHAINS)
+    s.step_chunk(1, do_migrate=True)
+    sweeps.reset_launch_counts()
+    its = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_chunk = time.perf_counter()
+        s.step_chunk(LEGACY_CHUNK, do_migrate=True)
+        torch.cuda.synchronize()
+        its.append(LEGACY_CHUNK / (time.perf_counter() - t_chunk))
+    n = 3 * LEGACY_CHUNK
+    launches = dict(sweeps.LAUNCHES)
+    want = dict.fromkeys(sweeps.LAUNCHES, 0)
+    want.update(dict.fromkeys(PLAIN_SWEEPS, n),
+                rubber_band=TAU_PROPOSALS * n)
+    check(launches == want, f"11d: launches {launches}")
+    prof = legacy_profile(s, 1)
+    check(bool(torch.isfinite(s.lnld).all()), "11d: lnld")
+    check_carried_lnld(s)
+    it_s = sorted(its)[1]
+    rec = {"chains": LEGACY_BIG_CHAINS, "it_per_s": it_s,
+           "chain_it_per_s": LEGACY_BIG_CHAINS * it_s, "readings": its,
+           "rubber_band_per_iteration": launches["rubber_band"] / n,
+           "kernel_launches_node_age_mig_age_spr":
+               launches["node_age"] + launches["mig_age"] + launches["spr"],
+           **(prof or {}), "worst_rel_vs_cpu": worst, "setup": setup}
+    log(f"  {LEGACY_BIG_CHAINS} chains: {it_s:.3f} it/s, "
+        f"{LEGACY_BIG_CHAINS * it_s:.3f} chain-it/s (median of "
+        f"{[round(x, 3) for x in its]}); device operations per iteration "
+        f"{prof and prof['ops_per_iteration']}; device busy "
+        f"{prof and prof['device_ms_per_iteration']} ms of "
+        f"{prof and prof['wall_ms_per_iteration']} ms per iteration (idle "
+        f"share {prof and prof['idle_share']}); rubber-band launches per "
+        f"iteration {launches['rubber_band'] / n:g}; node-age, "
+        f"migration-age and SPR kernel launches {launches['node_age']}, "
+        f"{launches['mig_age']}, {launches['spr']}; on {card}")
+    log(f"  11d done at {time.perf_counter() - t0:.1f} s")
+    return launches, rec
+
+
 def main():
     import torch
 
@@ -2346,6 +2619,20 @@ def main():
 
     for name, fns in pairs.items():
         time_pair(name, *fns)
+    # the migration-age kernel read three ways, on three states: that of
+    # tools/kernel_times.py (5 iterations from the initialization), this
+    # path's, and (phase 4c) this path's made hot
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 111
+    cfg.mcmc.start_mig = 0
+    kt = Sampler(cfg, seq_path=data, dtype=torch.float32, device="cuda")
+    kt.initialize()
+    kt.step_chunk(5, do_migrate=True)
+    mig_reads = {"kernel_times": mig_age_readings(kt, "kernel_times.py")}
+    del kt
+    mig_reads["standard"] = mig_age_readings(s, "standard path's")
     spr_draws = int(pairs["spr"][0]()[1].ctr) - int(s.lrng.ctr)
     prop = pairs["rubber_band"][0]()
     bounds = {k: bound(*v) + v
@@ -2355,6 +2642,8 @@ def main():
         f"({WORKLOAD_LOCI} loci, f32, then cast to f64)")
     heat(s)
     log(f"  {int((s.gen.mig_branch >= 0).sum())} migrations present")
+    mig_reads["hot"] = mig_age_readings(s, "hot")
+    times["mig_age"]["readings"] = mig_reads
     kernel_checks(s, cmp, F32_TOL)
     log(" -- the same state cast to f64")
     kernel_checks(cast_state(s, torch.float64), cmp, F64_TOL)
@@ -2453,6 +2742,12 @@ def main():
     paths["legacy"] = legacy_rec["f32"]["it_per_s"]
     all_launches.append(legacy_launches)
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    log("== phase 11: the legacy RNG with chains on the card")
+    t_phase = time.perf_counter()
+    lc_launches, lc_rec = legacy_chains_phase(tmp, data, card)
+    paths[f"legacy_chains{LEGACY_BIG_CHAINS}"] = lc_rec["it_per_s"]
+    all_launches.append(lc_launches)
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
@@ -2485,8 +2780,9 @@ def main():
             f"{b_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
     shutil.rmtree(tmp, ignore_errors=True)
     for label, its in paths.items():
-        if label in ragged or label in (f"chains{CHAINS}", "mesh",
-                                        "legacy"):
+        if label in ragged or label in (
+                f"chains{CHAINS}", "mesh", "legacy",
+                f"legacy_chains{LEGACY_BIG_CHAINS}"):
             continue
         log(json.dumps({"path": label, "it_per_s": its, "card": card}))
     c4 = chain_read[f"c{CHAINS}"]
@@ -2503,6 +2799,8 @@ def main():
                     **mesh_rec, "card": card}))
     log(json.dumps({"path": "legacy", "it_per_s": paths["legacy"],
                     **legacy_rec, "card": card}))
+    log(json.dumps({"path": f"legacy_chains{LEGACY_BIG_CHAINS}", **lc_rec,
+                    "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

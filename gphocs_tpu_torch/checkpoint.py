@@ -11,14 +11,15 @@ RNG keys and counters, the sampler's float dtype) and format version, so a
 checkpoint written by either package resumes in the other.  The streams
 are `lrng_key`/`lrng_ctr` and `grng_key`/`grng_ctr` for the fast RNG, and
 the Wichmann-Hill states `lrng_x`, `lrng_y`, `lrng_z` ([L]) and `grng_x`,
-`grng_y`, `grng_z` ([1]), uint32, for the legacy RNG (one chain, one
-bucket).  An unbucketed
+`grng_y`, `grng_z` ([1]), uint32, for the legacy RNG (one bucket; C
+chains' [C, L] and [C, 1]).  An unbucketed
 sampler writes `gen_*`, `lrng_*`, `lnld`, `lnp`, `cond`; a bucketed one
 `b<k>_*` per bucket.  The conditionals are [L, N, P, 4] in both packages;
 a file written on a TPU with the Pallas kernels' lane layout is not.  A
 sampler of C chains writes gphocs_tpu's stacked layout: a leading chain
 axis on every per-chain array ([C, L, ...] per locus, [C, P] parameters,
-[C] counters, the general streams' keys [C, 1]).  The admixture
+[C] counters, the general streams' keys and Wichmann-Hill states
+[C, 1]).  The admixture
 coefficients are `params_admix_coeff`, [A] ([C, A]), with A = 0 where the
 run has no admixed leaves.
 
@@ -56,15 +57,16 @@ def _np(t: torch.Tensor, real) -> np.ndarray:
 
 def _rng_np(pfx: str, st, C: int) -> dict:
     """A stream's arrays as gphocs_tpu stores them, uint32: a fast one's
-    key (C chains' [C, K]) and counter, a Wichmann-Hill one's x, y, z."""
+    key and counter, a Wichmann-Hill one's x, y, z; for C chains the
+    keys and states [C, K] (the general streams [C, 1])."""
     def u32(t):
-        return t.cpu().numpy().astype(np.uint32)
+        a = t.cpu().numpy().astype(np.uint32)
+        return a if C == 1 else a.reshape(C, -1)
 
     if isinstance(st, R.WhRngState):
         return {f"{pfx}_{f}": u32(getattr(st, f)) for f in st._fields}
-    key = u32(st.key)
-    return {f"{pfx}_key": key if C == 1 else key.reshape(C, -1),
-            f"{pfx}_ctr": u32(st.ctr)}
+    return {f"{pfx}_key": u32(st.key),
+            f"{pfx}_ctr": st.ctr.cpu().numpy().astype(np.uint32)}
 
 
 def save_checkpoint(sampler, path: str, iteration: int) -> None:
@@ -151,9 +153,12 @@ def load_checkpoint(sampler, path: str) -> int:
         return from_numpy(a[blocks[k]], **conv)
 
     def rng(pre, block=slice(None)):
-        if legacy:  # one chain, one bucket, no mesh
-            return R.from_arrays(*(data[f"{pre}_{f}"] for f in "xyz"),
-                                 device=sampler.device)
+        if legacy:  # one bucket, no mesh
+            # per-locus [C, L] as [C * L]; the general streams stay [C, 1]
+            return R.from_arrays(*(
+                data[f"{pre}_{f}"].reshape(-1) if pre.endswith("lrng")
+                else data[f"{pre}_{f}"] for f in "xyz"),
+                device=sampler.device)
         key = data[f"{pre}_key"]
         return FastRngState(key=from_numpy(key.reshape(-1)[block], **conv),
                             ctr=from_numpy(data[f"{pre}_ctr"], **conv))

@@ -15,9 +15,9 @@ counter-based streams on the card and the reference-conformance mode
 and SPR sweeps as tensor code, gphocs_tpu's legacy run draw for draw) on
 the CPU, unless `--fast-rng` or `--legacy-rng` says otherwise; both
 together are a usage error, and so are pattern buckets with the legacy
-RNG.  The start line names the mode.  The legacy RNG with chains or on a
-mesh is not ported (ROADMAP Queue 1 items 17b, 17c) and raises before any
-file is read.  `--chains C` runs C independent chains side by side (seeds
+RNG.  The start line names the mode and the chains.  The legacy RNG on a
+mesh is not ported (ROADMAP Queue 1 item 17c) and raises before any file
+is read.  `--chains C` runs C independent chains side by side (seeds
 base + 7919 c; chain 0 writes the trace), not with `--buckets` or a
 coal-stats file.  A control file with admixed samples runs without
 `--buckets` (as in gphocs_tpu) and writes admixture-trace.out beside the
@@ -65,7 +65,8 @@ def main(argv=None):
     ap.add_argument("control_file")
     ap.add_argument("secondary_control", nargs="?", default=None)
     ap.add_argument("-v", "--verbose", action="store_true",
-                    help="print the kernel launches of the run at its end")
+                    help="print the kernel launches of the run and each "
+                         "update family's time at its end")
     ap.add_argument("-n", "--nthreads", type=int, default=0,
                     help="accepted for reference compatibility (ignored)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -122,10 +123,6 @@ def main(argv=None):
     if args.buckets > 1 and legacy:
         ap.error("--buckets requires the fast RNG (as in gphocs_tpu): "
                  "drop --buckets or give --fast-rng")
-    if legacy and args.chains > 1:
-        raise NotImplementedError(
-            "--chains with the legacy RNG is not ported to gphocs_tpu_torch "
-            "yet (ROADMAP Queue 1 item 17b)")
     if legacy and (args.mesh or args.distributed):
         raise NotImplementedError(
             "a loci mesh with the legacy RNG is not ported to "
@@ -209,7 +206,8 @@ def _run(args, ap, mesh):
     say = print if talk else (lambda *a, **k: None)
     rng_mode = "fast" if args.fast_rng else "legacy"
     say(f"gphocs_tpu_torch on {where}, "
-        f"{'float64' if use_x64 else 'float32'}, {route(rng_mode)}")
+        f"{'float64' if use_x64 else 'float32'}, {route(rng_mode)}, "
+        f"{args.chains} chain{'s' if args.chains > 1 else ''}")
     t0 = time.time()
     sampler = Sampler(cfg, dtype=dtype, device=args.device,
                       rng_mode=rng_mode, legacy_rng=not args.production_rng,
@@ -233,8 +231,18 @@ def _run(args, ap, mesh):
                 checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every,
                 resume=args.resume, debug_check=args.debug_check)
-    if args.verbose:
-        say(f"kernel launches: {dict(sweeps.LAUNCHES)}", file=sys.stderr)
+    if args.verbose and talk:
+        from gphocs_tpu_torch.profiling import print_kernel_times
+
+        print(f"kernel launches: {dict(sweeps.LAUNCHES)}", file=sys.stderr)
+        # the reference's printMethodTimes (src/utils.c:233-326), as
+        # gphocs_tpu prints it at the end of a verbose run
+        print("method times (isolated, reference printMethodTimes "
+              "analogue):", file=sys.stderr)
+        try:
+            print_kernel_times(sampler)
+        except Exception as exc:  # profiling must never end a run
+            print(f"  (unavailable: {exc!r})", file=sys.stderr)
     say(f"MCMC finished. Time used: {time.time() - t0:.1f}s")
     return 0
 

@@ -41,10 +41,31 @@ class RawAlignments:
 
 
 def read_seq_file(path: str, sample_names: List[str],
-                  num_loci_limit: int = -1) -> RawAlignments:
-    """Read + canonize a sequence file into a deduplicated PatternSet
-    (the pure-Python reader; gphocs_tpu's C++ ingest module is not part
-    of this package)."""
+                  num_loci_limit: int = -1,
+                  use_native: bool = True) -> RawAlignments:
+    """Read + canonize a sequence file into a deduplicated PatternSet.
+
+    Uses the C++ ingest module (cpp/ingest.cpp, built by io/native.py)
+    when available, the canonization loop being the data-loading hot
+    spot, with this pure-Python reader as the fallback."""
+    if use_native:
+        from gphocs_tpu_torch.io.native import read_seq_file_native
+
+        try:
+            res = read_seq_file_native(path, sample_names, num_loci_limit)
+        except ValueError:  # the Python reader says what is wrong
+            res = None
+        if res is not None:
+            patterns, profiles = res
+            pset = PatternSet()
+            pset.patterns = patterns
+            pset._index = {p: i for i, p in enumerate(patterns)}
+            pset.locus_profiles = profiles
+            return RawAlignments(
+                num_loci=len(profiles),
+                locus_names=[f"locus{i}" for i in range(len(profiles))],
+                pattern_set=pset)
+
     with open(path) as f:
         toks = f.read().split()
     pos = 0

@@ -131,6 +131,13 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         idx.shape)
 
 
+def with_entry(t: torch.Tensor, j: int, value) -> torch.Tensor:
+    """t with its entry j (each chain's, for [C, P]) set to value."""
+    out = t.clone()
+    out[..., j] = value
+    return out
+
+
 def per_chain(x: torch.Tensor, C: Optional[int], op: str = "sum"
               ) -> torch.Tensor:
     """Reduce a per-locus tensor x [L, ...] over its loci: over all of

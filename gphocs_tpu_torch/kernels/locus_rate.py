@@ -32,7 +32,7 @@ import torch
 
 from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch import rng_fast as RF
-from gphocs_tpu_torch.kernels.common import maybe_psum, per_chain
+from gphocs_tpu_torch.kernels.common import maybe_psum, per_chain, rows
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, SeqData
 from gphocs_tpu_torch.utils import reflect
@@ -117,7 +117,8 @@ def _pair_lnld(gen: GenState, seq: SeqData, idx: torch.Tensor,
 
 
 def update_locus_rates(gen: GenState, seq: SeqData, rng, finetune,
-                       lnld: torch.Tensor, var_alpha, ref_locus: int = 0):
+                       lnld: torch.Tensor, var_alpha, ref_locus: int = 0,
+                       chains: int = 1):
     """The serial sweep of the conformance mode (reference
     src/GPhoCS.c:4598-4674; gphocs_tpu's update_locus_rates) on the
     Wichmann-Hill streams: every locus g but the reference locus, in
@@ -132,41 +133,58 @@ def update_locus_rates(gen: GenState, seq: SeqData, rng, finetune,
     with the draws on locus g's own stream (the uniform only where lnacc
     < 0) and the two loci's likelihoods rebuilt.  The carried
     conditionals are left to the caller, which rebuilds them all after
-    the sweep.  Returns (gen, rng, lnld, accepted, rate_var_delta)."""
-    L = gen.num_loci
+    the sweep.  `chains` C: the state holds C chains' loci chain-major,
+    and step g moves locus g of every chain against that chain's
+    reference locus (rows c L + g and c L + ref), each chain drawing and
+    deciding on its own.  Returns (gen, rng, lnld, accepted,
+    rate_var_delta), the last two [C] for C > 1 chains."""
+    K = gen.num_loci
+    L = K // chains                                   # loci of one chain
     dt = lnld.dtype
     dev = lnld.device
-    ar = torch.arange(L, device=dev)
+    first = torch.arange(0, K, L, device=dev)         # [C]
     zero = torch.zeros((), dtype=dt, device=dev)
-    acc = torch.zeros((), dtype=torch.int64, device=dev)
-    dvar = torch.zeros((), dtype=dt, device=dev)
+    n_loci = torch.full((), L, dtype=dt, device=dev)
+    acc = torch.zeros(first.shape, dtype=torch.int64, device=dev)
+    dvar = torch.zeros(first.shape, dtype=dt, device=dev)
     rate = gen.mut_rate
-    pairs = torch.stack([ar, torch.full_like(ar, ref_locus)], dim=1)
+    ri = first + ref_locus
     for g in range(L):
         if g == ref_locus:  # it draws nothing and never moves
             continue
-        active = gen.valid[g]
-        rold, rref = rate[g], rate[ref_locus]
-        onehot = ar == g
-        z, rng = R.rnd2normal8(rng, onehot & active, dt)
-        rnew = reflect(rold + finetune * z[g], zero, rold + rref)
+        gi = first + g
+        active = gen.valid[gi]
+        rold, rref = rate[gi], rate[ri]
+        lanes = torch.zeros((K,), dtype=torch.bool, device=dev)
+        lanes[gi] = active
+        z, rng = R.rnd2normal8(rng, lanes, dt)
+        rnew = reflect(rold + finetune * z[gi], zero, rold + rref)
         rrefnew = rref + rold - rnew
-        new_pair = _pair_lnld(gen, seq, pairs[g],
-                              torch.stack([rnew, rrefnew]))
-        dlnld = (new_pair[0] - lnld[g]) + (new_pair[1] - lnld[ref_locus])
+        new_pair = _pair_lnld(gen, seq, torch.stack([gi, ri], dim=1).view(-1),
+                              torch.stack([rnew, rrefnew], dim=1).view(-1)
+                              ).view(-1, 2)
+        dlnld = ((new_pair[:, 0] - lnld[gi])
+                 + (new_pair[:, 1] - lnld[ri]))
         lnacc = ((var_alpha - 1.0)
                  * torch.log((rnew * rrefnew) / (rold * rref)) + dlnld)
-        u, rng = R.rndu(rng, onehot & active & (lnacc < 0.0), dt)
+        lanes = torch.zeros((K,), dtype=torch.bool, device=dev)
+        lanes[gi] = active & (lnacc < 0.0)
+        u, rng = R.rndu(rng, lanes, dt)
         accept = active & ((lnacc >= 0.0)
-                           | (u[g] < torch.exp(torch.clamp(lnacc, max=0.0))))
+                           | (u[gi] < torch.exp(torch.clamp(lnacc,
+                                                            max=0.0))))
+        on = rows(accept, K, 0)                       # each locus's chain's
         moved = rate.clone()
-        moved[g], moved[ref_locus] = rnew, rrefnew
-        rate = torch.where(accept, moved, rate)
+        moved[gi], moved[ri] = rnew, rrefnew
+        rate = torch.where(on, moved, rate)
         moved = lnld.clone()
-        moved[g], moved[ref_locus] = new_pair[0], new_pair[1]
-        lnld = torch.where(accept, moved, lnld)
+        moved[gi], moved[ri] = new_pair[:, 0], new_pair[:, 1]
+        lnld = torch.where(on, moved, lnld)
         acc = acc + accept.to(torch.int64)
         dvar = dvar + torch.where(
-            accept, (rnew ** 2 + rrefnew ** 2 - rold ** 2 - rref ** 2) / L,
+            accept,
+            (rnew ** 2 + rrefnew ** 2 - rold ** 2 - rref ** 2) / n_loci,
             zero)
+    if chains == 1:
+        acc, dvar = acc[0], dvar[0]
     return gen._replace(mut_rate=rate), rng, lnld, acc, dvar

@@ -15,10 +15,12 @@ parallel.  For C chains ([C, P] parameters, [C] general streams) the
 totals are each chain's and every chain draws, decides and counts on its
 own: the [C, P] (or [C, B]) proposals are one vector step too.
 
-A Wichmann-Hill general stream (the conformance mode, one chain) keeps the
+A Wichmann-Hill general stream (the conformance mode) keeps the
 reference's sequential scan (src/GPhoCS.c:3037-3212): per population (or
 band), in order, one rnd2normal8 and one MH decision (the uniform only
 where lnacc < 0; a migration-rate proposal below the floor takes none).
+C chains' streams ([C, 1]) take the scan's steps together: step p moves
+column p of every chain, each chain drawing and deciding on its own.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from gphocs_tpu_torch import rng_fast as RF
 from gphocs_tpu_torch.constants import MIN_MIG_RATE
 from gphocs_tpu_torch.kernels.common import (Context, chain_count,
                                              maybe_psum, per_chain, rows,
-                                             scalar_mh_accept)
+                                             scalar_mh_accept, with_entry)
 from gphocs_tpu_torch.ops.coalstats import CoalStats
 from gphocs_tpu_torch.state import GenState, Params
 
@@ -110,51 +112,60 @@ def update_mig_rates(gen: GenState, params: Params, rng, ctx: Context,
 
 def _thetas_serial(params: Params, rng, ctx: Context, finetune, lnp,
                    stats: CoalStats, ncoal_tot, coal_tot):
-    """update_thetas on a Wichmann-Hill general stream: one population
-    after another (gphocs_tpu's scan, scalar_params.py:66-94)."""
+    """update_thetas on Wichmann-Hill general streams: one population
+    after another (gphocs_tpu's scan, scalar_params.py:66-94), each step
+    moving every chain's column at once ([C] draws, decisions and
+    counts for C chains)."""
     dt = lnp.dtype
+    L = lnp.shape[0]
     ncoal = stats.num_coals.to(dt)
     theta = params.theta
-    acc = torch.zeros((), dtype=torch.int64, device=lnp.device)
+    acc = torch.zeros(theta.shape[:-1], dtype=torch.int64,
+                      device=lnp.device)
     for pop in range(ctx.num_pops):
-        theta_old = theta[pop]
+        theta_old = theta[..., pop]
         z, rng = R.general_draw_2normal8(rng, dt)
         lnc = finetune * z
         theta_new = theta_old * torch.exp(lnc)
         lnacc = (lnc + lnc * (ctx.theta_alpha[pop] - 1.0)
                  - (theta_new - theta_old) * ctx.theta_beta[pop])
         dinv = 1.0 / theta_new - 1.0 / theta_old
-        lnacc = lnacc + -(lnc * ncoal_tot[pop] + dinv * coal_tot[pop])
+        lnacc = lnacc + -(lnc * ncoal_tot[..., pop]
+                          + dinv * coal_tot[..., pop])
         accept, rng = scalar_mh_accept(rng, lnacc)
-        theta = theta.clone()
-        theta[pop] = torch.where(accept, theta_new, theta_old)
-        dlnp = -(lnc * ncoal[:, pop] + dinv * stats.coal_stats[:, pop])
-        lnp = torch.where(accept, lnp + dlnp, lnp)
+        theta = with_entry(theta, pop,
+                           torch.where(accept, theta_new, theta_old))
+        dlnp = -(rows(lnc, L, 0) * ncoal[:, pop]
+                 + rows(dinv, L, 0) * stats.coal_stats[:, pop])
+        lnp = torch.where(rows(accept, L, 0), lnp + dlnp, lnp)
         acc = acc + accept.to(torch.int64)
     return params._replace(theta=theta), rng, lnp, acc
 
 
 def _mig_rates_serial(params: Params, rng, ctx: Context, finetune, lnp,
                       stats: CoalStats, nmig_tot, mig_tot):
-    """update_mig_rates on a Wichmann-Hill general stream: one band after
-    another (gphocs_tpu's scan, scalar_params.py:128-160)."""
+    """update_mig_rates on Wichmann-Hill general streams: one band after
+    another (gphocs_tpu's scan, scalar_params.py:128-160), every chain's
+    column at once, as _thetas_serial."""
     dt = lnp.dtype
+    L = lnp.shape[0]
     nmig = stats.num_migs.to(dt)
     rate = params.mig_rate
-    acc = torch.zeros((), dtype=torch.int64, device=lnp.device)
+    acc = torch.zeros(rate.shape[:-1], dtype=torch.int64, device=lnp.device)
     for band in range(ctx.num_bands):
-        old = rate[band]
+        old = rate[..., band]
         z, rng = R.general_draw_2normal8(rng, dt)
         lnc = finetune * z
         new = old * torch.exp(lnc)
         skip = new < MIN_MIG_RATE  # skipped before the prior (:3159)
         lnacc = (lnc + lnc * (ctx.mig_alpha[band] - 1.0)
                  - (new - old) * ctx.mig_beta[band])
-        lnacc = lnacc + (lnc * nmig_tot[band] - (new - old) * mig_tot[band])
+        lnacc = lnacc + (lnc * nmig_tot[..., band]
+                         - (new - old) * mig_tot[..., band])
         accept, rng = scalar_mh_accept(rng, lnacc, conflict=skip)
-        rate = rate.clone()
-        rate[band] = torch.where(accept, new, old)
-        dlnp = lnc * nmig[:, band] - (new - old) * stats.mig_stats[:, band]
-        lnp = torch.where(accept, lnp + dlnp, lnp)
+        rate = with_entry(rate, band, torch.where(accept, new, old))
+        dlnp = (rows(lnc, L, 0) * nmig[:, band]
+                - rows(new - old, L, 0) * stats.mig_stats[:, band])
+        lnp = torch.where(rows(accept, L, 0), lnp + dlnp, lnp)
         acc = acc + accept.to(torch.int64)
     return params._replace(mig_rate=rate), rng, lnp, acc

@@ -47,7 +47,8 @@ from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import (Context, band_windows,
                                              chain_count, gen_log_prior,
                                              maybe_psum, per_chain, rows,
-                                             scalar_mh_accept, take)
+                                             scalar_mh_accept, take,
+                                             with_entry)
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, Params, SeqData
 from gphocs_tpu_torch.utils import reflect
@@ -110,7 +111,7 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
         new_age = torch.where(in_pop & ~internal, taunew, new_age)
         new_tau = params.tau
         params_prop = params._replace(
-            sample_age=_with(params.sample_age, pop, new_val))
+            sample_age=with_entry(params.sample_age, pop, new_val))
     else:
         s0, s1 = ctx.pop_sons[pop, 0], ctx.pop_sons[pop, 1]
         in_anc = gen.node_pop == pop
@@ -126,7 +127,7 @@ def _rubber_band_proposal(gen: GenState, params: Params, seq: SeqData,
         moved0 = in_sons & (age > taub0) & (age < tauold) & internal
         new_age = torch.where(moved1, anc_map, age)
         new_age = torch.where(moved0, taub0 + f0 * (age - taub0), new_age)
-        new_tau = _with(params.tau, pop, new_val)
+        new_tau = with_entry(params.tau, pop, new_val)
         params_prop = params._replace(tau=new_tau)
     ntj0 = moved0.sum(dim=1)
     ntj1 = moved1.sum(dim=1)
@@ -291,7 +292,7 @@ def _rubber_band_sweep(gens, params: Params, seqs, rng, ctx: Context,
         field = "sample_age" if is_sample_age else "tau"
         old = getattr(params, field)
         params = params._replace(**{field: torch.where(
-            accept[..., None], _with(old, pop, taunew), old)})
+            accept[..., None], with_entry(old, pop, taunew), old)})
         accepted[..., pop] += accept.to(torch.int64)
         conflicts = conflicts + conflict.to(torch.int64)
     return gens, params, rng, lnlds, lnps, conds, accepted, conflicts
@@ -321,13 +322,6 @@ def _tau_window(params: Params, ctx: Context, pop: int, is_root: bool, dt,
         taub0 = torch.maximum(taub0, torch.where(
             touch_son, bs, torch.full_like(bs, -inf)).amax(dim=-1))
     return taub0, taub1
-
-
-def _with(t: torch.Tensor, pop: int, value) -> torch.Tensor:
-    """t with its entry pop (each chain's, for [C, P]) set to value."""
-    out = t.clone()
-    out[..., pop] = value
-    return out
 
 
 def _one(out):

@@ -42,9 +42,12 @@ S2N = math.sqrt(1.0 / 9.0)
 
 
 class WhRngState(NamedTuple):
-    """Wichmann-Hill states, one lane per stream; int64 holding uint32."""
+    """Wichmann-Hill states, one lane per stream; int64 holding uint32.
+    A sampler of C chains holds its per-locus streams chain-major, [C *
+    L], and its general streams as [C, 1] (one chain's is [1]), the
+    layout of gphocs_tpu's stacked chains."""
 
-    x: torch.Tensor   # [K]
+    x: torch.Tensor   # [K] (general streams of C chains: [C, 1])
     y: torch.Tensor
     z: torch.Tensor
 
@@ -169,15 +172,27 @@ def _scalar(x: torch.Tensor, state: FastRngState) -> torch.Tensor:
     return x[0] if state.ctr.dim() == 0 else x
 
 
+def _general_mask(state: WhRngState, active) -> torch.Tensor:
+    """`active` against a Wichmann-Hill general stream: one chain's stream
+    is [1] and takes a bool or a 0-d mask; C chains' streams are [C, 1]
+    and take a [C] mask (or one for all chains)."""
+    m = torch.as_tensor(active, device=state.x.device)
+    if state.x.dim() == 2 and m.dim() == 1:
+        m = m[:, None]
+    return m
+
+
 def general_draw_u(state, dtype, active=True):
     """Scalar U(0,1) from a size-1 (general) stream ([C] from the general
     streams of C chains).  A Wichmann-Hill stream draws only where
-    `active` (a bool or a 0-d bool tensor) holds."""
+    `active` (a bool or a 0-d bool tensor; [C] for C chains, whose
+    streams are [C, 1]) holds: a chain whose lane is off keeps its
+    state."""
     if isinstance(state, FastRngState):
         u, new = RF.rndu(state, dtype)
         return _scalar(u, state), new
-    u, new = _wh_rndu(state, active)
-    return u[0].to(dtype), new
+    u, new = _wh_rndu(state, _general_mask(state, active))
+    return u[..., 0].to(dtype), new
 
 
 def general_draw_2normal8(state, dtype, active=True):
@@ -186,5 +201,5 @@ def general_draw_2normal8(state, dtype, active=True):
     if isinstance(state, FastRngState):
         z, new = RF.rnd2normal8(state, dtype)
         return _scalar(z, state), new
-    z, new = _wh_rnd2normal8(state, active)
-    return z[0].to(dtype), new
+    z, new = _wh_rnd2normal8(state, _general_mask(state, active))
+    return z[..., 0].to(dtype), new

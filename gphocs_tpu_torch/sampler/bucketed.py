@@ -47,14 +47,19 @@ at the end of the iteration one for its statistics (accepts of the
 sweeps, migrations, lnld and lnp sums).  Every rank makes them all, in
 the same order.
 
-The conformance mode (`legacy`: the Wichmann-Hill streams, one bucket, one
-chain, no mesh) runs gphocs_tpu's mcmc_iteration with use_fused=False:
-the node-age, migration-age and SPR sweeps are their plain versions on
-the state's device (ops/sweeps.*_plain; the kernels implement the counter
+The conformance mode (`legacy`: the Wichmann-Hill streams, one bucket, no
+mesh) runs gphocs_tpu's mcmc_iteration with use_fused=False: the
+node-age, migration-age and SPR sweeps are their plain versions on the
+state's device (ops/sweeps.*_plain; the kernels implement the counter
 streams only), the rate update is the serial, reference-coupled sweep,
 followed by a full rebuild of the conditionals, and the rubber band keeps
 launching its kernel (it draws nothing).  Every other move is the same
-code, drawing from the general stream in sequence.
+code, drawing from the general stream in sequence.  With C chains
+(gphocs_tpu vmaps its legacy chunk) the per-locus streams are chain-major
+[C * L] and the general streams [C, 1]: a lane draws only where its own
+chain's move asks for it, so no chain's draws depend on another's, and
+the loops run over populations, bands, loci of one chain and walk trips,
+never over the chains.
 
 Admixed leaves (one bucket, as in gphocs_tpu, which refuses them with
 buckets): SPR resamples their populations, the prior carries their terms,
@@ -163,7 +168,8 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
             if var_rates and locus_rate_on:
                 if legacy:
                     g, r, lnlds[k], a, dv = update_locus_rates(
-                        g, sq, r, ft.locus_rate, lnlds[k], var_alpha)
+                        g, sq, r, ft.locus_rate, lnlds[k], var_alpha,
+                        chains=C or 1)
                     # rate moves change edge lengths everywhere: rebuild
                     conds[k] = full_build(g, sq)
                 else:

@@ -60,9 +60,10 @@ gphocs_tpu.Sampler(rng_mode="legacy") draw for draw.  The mode is fixed at
 construction and picks the sweeps: the node-age, migration-age and SPR
 kernels implement the counter streams, so this mode runs their plain
 versions, on the state's device, while the rubber band keeps its kernel
-(sampler/bucketed.py).  It takes one chain, one bucket and no mesh:
-pattern buckets are refused as in gphocs_tpu, chains and a mesh raise
-NotImplementedError naming ROADMAP Queue 1 items 17b and 17c.
+(sampler/bucketed.py).  It takes chains (each chain's streams from its
+own host stream, as gphocs_tpu initializes each of its vmapped legacy
+chains) and one bucket: pattern buckets are refused as in gphocs_tpu, a
+mesh raises NotImplementedError naming ROADMAP Queue 1 item 17c.
 """
 
 from __future__ import annotations
@@ -264,8 +265,6 @@ class Sampler:
             raise ValueError(f"rng_mode={rng_mode!r}: 'fast' or 'legacy'")
         self.rng_mode = rng_mode
         if rng_mode == "legacy":
-            if chains > 1:
-                raise _todo("chains with the legacy RNG", "Queue 1 item 17b")
             if mesh is not None:
                 raise _todo("a loci mesh with the legacy RNG (its serial "
                             "rate update crosses the ranks)",
@@ -430,9 +429,16 @@ class Sampler:
             gen = GenState(*(torch.cat(f) for f in zip(*gens)))
             self.params = Params(*(None if f[0] is None else torch.stack(f)
                                    for f in zip(*params)))
-            lrng, self.grng = (FastRngState(
-                key=torch.cat([r.key for r in rs]),
-                ctr=torch.stack([r.ctr for r in rs])) for rs in (lrngs, grngs))
+            if self.rng_mode == "legacy":
+                # per-locus streams [C * L], general streams [C, 1]
+                lrng = R.WhRngState(*(torch.cat(f) for f in zip(*lrngs)))
+                self.grng = R.WhRngState(*(torch.stack(f)
+                                           for f in zip(*grngs)))
+            else:
+                lrng, self.grng = (FastRngState(
+                    key=torch.cat([r.key for r in rs]),
+                    ctr=torch.stack([r.ctr for r in rs]))
+                    for rs in (lrngs, grngs))
             self.rate_var = rvars[-1]
         if self.pad_loci:
             valid = gen.valid.clone()

@@ -91,6 +91,32 @@ def test_cli_legacy_run_equals_sampler_run(flags, ragged, tmp_path):
     assert cli_trace == (tmp_path / "here.log").read_text()
 
 
+@pytest.mark.parametrize("flags", [["--legacy-rng"], []])
+def test_cli_legacy_chains_run_equals_sampler_run(flags, ragged, tmp_path):
+    """`python -m gphocs_tpu_torch ctl --device cpu --chains 2`, with or
+    without --legacy-rng, runs two legacy chains: it exits 0, names the
+    mode and the chains in its start line, and its trace (chain 0's)
+    equals that of Sampler(rng_mode="legacy", chains=2).run in this
+    process, byte for byte."""
+    ctl = tmp_path / "run.ctl"
+    ctl.write_text(_ctl(SAMPLE_CTL, ragged, tmp_path / "cli.log", 3, 3))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "gphocs_tpu_torch", str(ctl), "--device",
+         "cpu", "--chains", "2", *flags],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert ("gphocs_tpu_torch on cpu, float64, legacy RNG: node-age/"
+            "migration-age/SPR sweeps as tensor code, 2 chains"
+            in out.stdout)
+    s = Sampler(parse_control_text(ctl.read_text()), device="cpu",
+                rng_mode="legacy", chains=2)
+    s.run(trace_path=str(tmp_path / "here.log"))
+    cli_trace = (tmp_path / "cli.log").read_text()
+    assert len(cli_trace.splitlines()) == 4
+    assert cli_trace == (tmp_path / "here.log").read_text()
+
+
 def test_legacy_resume_equals_uninterrupted_run(ragged, tmp_path):
     """A legacy run resumed from its checkpoint of iteration 2 (the
     Wichmann-Hill states as lrng_x/y/z and grng_x/y/z, uint32) gives the
@@ -125,10 +151,8 @@ def test_legacy_resume_equals_uninterrupted_run(ragged, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    # the legacy RNG is ported for one chain and no mesh; with --buckets,
+    # the legacy RNG is ported with chains, not on a mesh; with --buckets,
     # or with --fast-rng, it is a usage error (as gphocs_tpu's)
-    (["--legacy-rng", "--chains", "2"], "item 17b"),
-    (["--device", "cpu", "--chains", "2"], "item 17b"),
     (["--legacy-rng", "--mesh"], "item 17c"),
     (["--legacy-rng", "--buckets", "2"], "requires the fast RNG"),
     (["--device", "cpu", "--buckets", "2"], "requires the fast RNG"),

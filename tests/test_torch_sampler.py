@@ -132,6 +132,10 @@ def test_package_never_imports_jax():
             "import gphocs_tpu_torch.tools.convergence\n"
             "import gphocs_tpu_torch.tools.posterior_gate\n"
             "import gphocs_tpu_torch.tools.node_age_probe\n"
+            "import gphocs_tpu_torch.tools.alignstats\n"
+            "import gphocs_tpu_torch.tools.controlgen\n"
+            "import gphocs_tpu_torch.profiling\n"
+            "import gphocs_tpu_torch.io.native\n"
             "import gphocs_tpu_torch.ops.sweeps\n"
             "import gphocs_tpu_torch.io.simulate\n"
             "import gphocs_tpu_torch.config.samples\n"
@@ -152,8 +156,7 @@ def test_cuda_sampler_needs_a_card():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    # the legacy RNG is ported for one chain, one bucket and no mesh
-    (dict(rng_mode="legacy", chains=2), "item 17b"),
+    # the legacy RNG is ported with chains, for one bucket and no mesh
     (dict(rng_mode="legacy", mesh=LociMesh(rank=0, world=2, backend="gloo",
                                           device=torch.device("cpu"))),
      "item 17c"),
@@ -175,6 +178,21 @@ def test_unported_options_raise(kwargs, item):
     err = ValueError if "buckets" in kwargs else NotImplementedError
     with pytest.raises(err, match=item):
         Sampler(cfg, num_loci=4, device="cpu", **kwargs)
+
+
+def test_legacy_chains_run():
+    """Sampler(rng_mode="legacy", chains=2) runs (it raised before the
+    legacy RNG took chains): a prior-only iteration of two chains, with
+    per-locus streams [2 L] and general streams [2, 1] that moved."""
+    cfg = parse_text(SAMPLE_CTL, 23)
+    cfg.mcmc.seq_file = "NONE"
+    s = Sampler(cfg, num_loci=4, device="cpu", rng_mode="legacy", chains=2)
+    s.initialize()
+    g0 = s.grng
+    st, tr = s.step_chunk(1, do_migrate=False)
+    assert s.lrng.x.shape == (8,) and s.grng.x.shape == (2, 1)
+    assert not torch.equal(s.grng.z, g0.z)
+    assert st.acc_theta.shape == (2,) and tr.theta.shape == (1, 2, 7)
 
 
 def test_two_chains_match_jax_vmapped_chains(tmp_path):
