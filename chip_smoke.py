@@ -173,10 +173,29 @@ script then exits non-zero without the final line):
      migration-age kernel three ways (`device_ms`, tools/kernel_times.py
      and the profiling family) on three states, with their live
      migration events;
- 12. one JSON line per path with its it/s (the ragged ones with both
+ 12. chains on the loci mesh: (12a) MESH_CHAINS chains of the standard
+     workload at f32 in a world of one over NCCL, MESH_CHAINS_PAIRS
+     pairs of chunks in turns with the same chains without a mesh, each
+     pair from one state (bitwise equal stats, trace, gathered state,
+     counters, launches: each kernel once per sweep for all chains),
+     with the all-reduces and the host's ms in them per iteration, the
+     chain-it/s of both, and torch.profiler's wall, busy and host ms per
+     iteration of each (the host operations that take more time meshed);
+     (12b) two ranks sharing the card over gloo, each holding
+     its block of every chain, MESH_CHAINS_F64 chains at f64 on 1000 and
+     MESH_PAD_LOCI loci (one padding locus per chain, kept inert) against
+     one process running the same chains with loci_multiple=2, as in 9b;
+     (12c) `python -m gphocs_tpu_torch --distributed ... --chains
+     MESH_CHAINS_F64 --x64`, two processes, MESH_CLI_ITERS iterations
+     against the one-process command (1e-9 relative per column), and a
+     run resumed from the checkpoint of iteration MESH_CHAINS_CKPT whose
+     rows and final checkpoint ([C, L, ...]) must equal the uninterrupted
+     meshed run's bitwise, rank 1 writing no file;
+ 13. one JSON line per path with its it/s (the ragged ones with both
      readings and their pattern cells, the chains with their chain-it/s
      and device operations per iteration, the mesh with phase 9's
-     readings, the legacy paths with phases 10e's and 11d's), the card's
+     readings, the legacy paths with phases 10e's and 11d's, the meshed
+     chains with phase 12's), the card's
      line, one JSON line
      with the kernels (launches on the paths, error against the plain
      version, time, the time on the 4 chains' state, the plain version's
@@ -211,8 +230,8 @@ workload): the serial rate update takes a host synchronization per
 locus.
 
 It needs one CUDA card; without one it exits with status 1 and prints no
-result.  `chip_smoke.py --mesh-rank SPEC RANK` is phase 9b's rank, started
-by the phase itself.
+result.  `chip_smoke.py --mesh-rank SPEC RANK` is a rank of phase 9b or
+12b, started by the phase itself.
 """
 
 import json
@@ -1543,9 +1562,11 @@ MESH_CLI_ITERS = 10
 MESH_TIMEOUT_S = 120    # of every process group and rank process
 
 
-def mesh_sampler(data, dtype, mesh=None, num_loci=-1, loci_multiple=1):
-    """The standard workload's sampler (seed 111) on the card, initialized
-    with the band hot (2e5) so that migrations appear within a chunk."""
+def mesh_sampler(data, dtype, mesh=None, num_loci=-1, loci_multiple=1,
+                 chains=1):
+    """The standard workload's sampler (seed 111; chain c of C: 111 +
+    7919 c) on the card, initialized with the band hot (2e5) so that
+    migrations appear within a chunk."""
     import torch
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import SAMPLE_CTL
@@ -1557,7 +1578,7 @@ def mesh_sampler(data, dtype, mesh=None, num_loci=-1, loci_multiple=1):
     cfg.mcmc.start_mig = 0
     cfg.mcmc.num_loci = num_loci
     s = Sampler(cfg, seq_path=data, dtype=dtype, device="cuda", mesh=mesh,
-                loci_multiple=loci_multiple)
+                loci_multiple=loci_multiple, chains=chains)
     s.initialize()
     s._sample_mig_rates_device()
     s.params = s.params._replace(
@@ -1567,12 +1588,14 @@ def mesh_sampler(data, dtype, mesh=None, num_loci=-1, loci_multiple=1):
 
 
 def mesh_state(s):
-    """The sampler's per-locus state, every rank's loci in order (gathered
-    on a mesh), its counters, parameters and general stream, on the CPU."""
+    """The sampler's per-locus state, every rank's loci in the global
+    chain-major order (gathered on a mesh), its counters, parameters and
+    general streams, on the CPU."""
     from gphocs_tpu_torch.parallel.mesh import gather_rows
 
     def rows(t):
-        return (t if s.mesh is None else gather_rows(s.mesh, t)).cpu()
+        return (t if s.mesh is None
+                else gather_rows(s.mesh, t, s.chains)).cpu()
 
     g = s.gen
     return {"gen": {f: rows(getattr(g, f)) for f in g._fields},
@@ -1643,26 +1666,29 @@ def compare_runs(what, ref, got, exact):
 
 
 def mesh_rank(spec_path, rank):
-    """One of phase 9b's two ranks, sharing the card over gloo: the f64
-    chunk of the standard workload, the same at MESH_PAD_LOCI loci, and
-    the timed f32 chunk; rank 0 writes what they gathered."""
+    """One of the two ranks of phase 9b or 12b (SPEC["chains"]: 1 or
+    MESH_CHAINS_F64), sharing the card over gloo: the f64 chunk of the
+    standard workload, the same at MESH_PAD_LOCI loci, and (9b) the timed
+    f32 chunk; rank 0 writes what they gathered."""
     import torch
     from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
     from gphocs_tpu_torch.parallel import mesh as M
 
     with open(spec_path) as f:
         spec = json.load(f)
+    chains = spec.get("chains", 1)
     M.init_distributed(f"127.0.0.1:{spec['port']}", 2, rank, device="cuda",
                        timeout_s=MESH_TIMEOUT_S)
     try:
         mesh = M.make_mesh()
         check(mesh.backend == "gloo", f"backend {mesh.backend}")
         out = {}
-        for label, dtype, loci, iters in (
-                ("f64", torch.float64, -1, MESH_F64_ITERS),
-                ("f64_pad", torch.float64, MESH_PAD_LOCI, MESH_F64_ITERS),
-                ("f32", torch.float32, -1, MESH_F32_ITERS)):
-            s = mesh_sampler(spec["data"], dtype, mesh, loci)
+        runs = [("f64", torch.float64, -1, MESH_F64_ITERS),
+                ("f64_pad", torch.float64, MESH_PAD_LOCI, MESH_F64_ITERS)]
+        if chains == 1:
+            runs.append(("f32", torch.float32, -1, MESH_F32_ITERS))
+        for label, dtype, loci, iters in runs:
+            s = mesh_sampler(spec["data"], dtype, mesh, loci, chains=chains)
             if label == "f32":
                 s.step_chunk(WARMUP, do_migrate=True)
             res = mesh_chunk(s, iters)
@@ -1670,7 +1696,8 @@ def mesh_rank(spec_path, rank):
             res["launches_by_rank"] = [
                 dict(zip(res["launches"], v.long().tolist()))
                 for v in M.gather_rows(mesh, torch.tensor(
-                    [list(res["launches"].values())], dtype=torch.float64))]
+                    [list(res["launches"].values())], dtype=torch.float64),
+                    1)]
             if label == "f32":
                 _, ld = full_rebuild_and_lnld(s.gen, s.seq)
                 err = M.all_reduce(mesh, [(ld - s.lnld).abs().max()],
@@ -1684,12 +1711,146 @@ def mesh_rank(spec_path, rank):
     return 0
 
 
+def two_ranks(tmp, data, chains):
+    """Phase 9b's or 12b's two ranks (`chip_smoke.py --mesh-rank`),
+    sharing the card over gloo, against one process padded alike at f64
+    (MESH_F64_ITERS iterations, 1000 and MESH_PAD_LOCI loci): equal
+    accept counts, counters and integer arrays, reals within 1e-9
+    relative, each rank launching the schedule's kernels, each chain's
+    padding locus inert.  Returns rank 0's results and the largest
+    relative differences of the reals."""
+    import torch
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    what = "9b" if chains == 1 else "12b"
+    spec = {"port": M.free_port(), "data": data, "chains": chains,
+            "out": os.path.join(tmp, f"ranks_{what}.pt")}
+    spec_path = os.path.join(tmp, f"spec_{what}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    # the one-process references (the padded one as 2 ranks pad)
+    refs = {label: mesh_chunk(mesh_sampler(
+        data, torch.float64, num_loci=loci, loci_multiple=2, chains=chains),
+        MESH_F64_ITERS) for label, loci in (("f64", -1),
+                                            ("f64_pad", MESH_PAD_LOCI))}
+    outs = [open(os.path.join(tmp, f"rank_{what}_{r}.out"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+         spec_path, str(r)], cwd=ROOT, stdout=outs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=MESH_TIMEOUT_S + 180) for p in procs]
+    finally:
+        for p, o in zip(procs, outs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            o.close()
+    for r, rc in enumerate(rcs):
+        text = open(os.path.join(tmp, f"rank_{what}_{r}.out")).read()
+        check(rc == 0, f"{what} rank {r} failed:\n{text[-3000:]}")
+    got = torch.load(spec["out"], weights_only=False)
+    worst = {}
+    for label in ("f64", "f64_pad"):
+        worst[label] = compare_runs(f"{what} {label}", refs[label],
+                                    got[label], exact=False)
+        loci, padded, pad = got[label]["loci"]
+        log(f"  {label}: each rank {loci} rows ({chains} chain(s)) of "
+            f"{chains} x {padded} loci ({pad} padding per chain), launches "
+            f"per rank {got[label]['launches_by_rank']}; counts, counters "
+            f"and integers equal, reals within {worst[label]:.2e} relative")
+        for by_rank in got[label]["launches_by_rank"]:
+            want = {"node_age": MESH_F64_ITERS, "mig_age": MESH_F64_ITERS,
+                    "spr": MESH_F64_ITERS,
+                    "rubber_band": TAU_PROPOSALS * MESH_F64_ITERS,
+                    "rubber_band_sample_age": 0,
+                    **dict.fromkeys(PLAIN_SWEEPS, 0)}
+            check(by_rank == want, f"{what} {label}: launches {by_rank}")
+    Lp = MESH_PAD_LOCI + 1
+    check(got["f64_pad"]["loci"] == [chains * Lp // 2, Lp, 1],
+          f"{what}: rows {got['f64_pad']['loci']}")
+    st = got["f64_pad"]["state"]
+    last = [c * Lp + Lp - 1 for c in range(chains)]
+    check(not bool(st["gen"]["valid"][last].any())
+          and bool((st["lnld"][last] == 0).all())
+          and int(st["gen"]["valid"].sum()) == chains * MESH_PAD_LOCI,
+          f"{what}: a chain's padding locus is not inert")
+    log("  each chain's padding locus inert (valid False, lnld 0)")
+    return got, worst
+
+
+def cli_start(tmp, name, ctl, *flags):
+    """`python -m gphocs_tpu_torch CTL --x64 FLAGS` on the card, in a
+    directory of its own (tmp/cli_NAME, its output in tmp/cli_NAME.out):
+    (name, process, output file)."""
+    where = os.path.join(tmp, f"cli_{name}")
+    os.makedirs(where)
+    out = open(where + ".out", "w")
+    return name, subprocess.Popen(
+        [sys.executable, "-m", "gphocs_tpu_torch", ctl, "--x64",
+         "--mesh-timeout", str(MESH_TIMEOUT_S), *flags], cwd=where,
+        stdout=out, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=ROOT)), out
+
+
+def cli_ranks(tmp, name, ctl, *flags):
+    """cli_start's two `--distributed` ranks, NAME0 and NAME1."""
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    coord = f"127.0.0.1:{M.free_port()}"
+    return [cli_start(tmp, f"{name}{r}", ctl, "--distributed",
+                      f"{coord}:2:{r}", *flags) for r in range(2)]
+
+
+def cli_finish(tmp, procs, what):
+    """Wait for cli_start's processes; each must exit 0."""
+    try:
+        rcs = {n: p.wait(timeout=MESH_TIMEOUT_S + 180) for n, p, _ in procs}
+    finally:
+        for _, p, o in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            o.close()
+    for name, rc in rcs.items():
+        text = open(os.path.join(tmp, f"cli_{name}.out")).read()
+        log(f"  {name}: exit {rc}; " + " | ".join(text.splitlines()[:3]))
+        check(rc == 0, f"{what} {name} failed:\n{text[-3000:]}")
+
+
+def cli_trace_rel(tmp, what, one, rank0):
+    """The largest relative difference, per value, between two commands'
+    traces of MESH_CLI_ITERS rows, which must be within 1e-9."""
+    import numpy as np
+
+    a, b = (np.loadtxt(os.path.join(tmp, f"cli_{n}", "trace.log"),
+                       skiprows=1) for n in (one, rank0))
+    check(a.shape == b.shape == (MESH_CLI_ITERS, a.shape[1]),
+          f"{what} trace shapes {a.shape} {b.shape}")
+    rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-300)
+    check(bool((rel <= 1e-9).all()), f"{what}: rank 0's trace differs by "
+          f"{rel.max():.3e} relative")
+    return float(rel.max())
+
+
+def cli_ctl(tmp, name, data, iterations):
+    """The standard workload's control file for phases 9c and 12c."""
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL, with_settings
+
+    path = os.path.join(tmp, f"{name}.ctl")
+    with open(path, "w") as f:
+        f.write(with_settings(
+            SAMPLE_CTL, seq_file=data, trace_file="trace.log",
+            mcmc_iterations=iterations, iterations_per_log=5, random_seed=5,
+            burn_in=0, start_mig=0))
+    return path
+
+
 def mesh_phase(tmp, data, card):
     """Phase 9: the loci mesh.  Returns (launches of 9a's mesh chunk, a
     record of the phase's readings)."""
-    import numpy as np
     import torch
-    from gphocs_tpu_torch.config.samples import SAMPLE_CTL, with_settings
     from gphocs_tpu_torch.parallel import mesh as M
 
     rec = {}
@@ -1727,59 +1888,12 @@ def mesh_phase(tmp, data, card):
     log(f" -- 9b: two ranks share the card over gloo: f64 "
         f"({WORKLOAD_LOCI} and {MESH_PAD_LOCI} loci, {MESH_F64_ITERS} "
         f"iterations), f32 ({MESH_F32_ITERS} iterations, timed)")
-    spec = {"port": M.free_port(), "data": data,
-            "out": os.path.join(tmp, "mesh_ranks.pt")}
-    spec_path = os.path.join(tmp, "mesh_spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    # the one-process references (the padded one as 2 ranks pad), and
     # the one-process f32 it/s before and after the ranks' run
-    refs = {"f64": mesh_chunk(mesh_sampler(data, torch.float64),
-                              MESH_F64_ITERS),
-            "f64_pad": mesh_chunk(mesh_sampler(
-                data, torch.float64, num_loci=MESH_PAD_LOCI,
-                loci_multiple=2), MESH_F64_ITERS)}
     one = mesh_sampler(data, torch.float32)
     one.step_chunk(WARMUP, do_migrate=True)
     t1 = mesh_chunk(one, MESH_F32_ITERS)["seconds"]
-    outs = [open(os.path.join(tmp, f"mesh_rank{r}.out"), "w")
-            for r in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mesh-rank",
-         spec_path, str(r)], cwd=ROOT, stdout=outs[r],
-        stderr=subprocess.STDOUT) for r in range(2)]
-    try:
-        rcs = [p.wait(timeout=MESH_TIMEOUT_S + 180) for p in procs]
-    finally:
-        for p, o in zip(procs, outs):
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            o.close()
-    for r, rc in enumerate(rcs):
-        text = open(os.path.join(tmp, f"mesh_rank{r}.out")).read()
-        check(rc == 0, f"9b rank {r} failed:\n{text[-3000:]}")
+    got, _ = two_ranks(tmp, data, 1)
     t2 = mesh_chunk(one, MESH_F32_ITERS)["seconds"]
-    got = torch.load(spec["out"], weights_only=False)
-    for label in ("f64", "f64_pad"):
-        worst = compare_runs(f"9b {label}", refs[label], got[label],
-                             exact=False)
-        loci, padded, pad = got[label]["loci"]
-        log(f"  {label}: each rank {loci} of {padded} loci ({pad} padding), "
-            f"launches per rank {got[label]['launches_by_rank']}; counts, "
-            f"counters and integers equal, reals within {worst:.2e} "
-            "relative")
-        for by_rank in got[label]["launches_by_rank"]:
-            want = {"node_age": MESH_F64_ITERS, "mig_age": MESH_F64_ITERS,
-                    "spr": MESH_F64_ITERS,
-                    "rubber_band": TAU_PROPOSALS * MESH_F64_ITERS,
-                    "rubber_band_sample_age": 0,
-                    **dict.fromkeys(PLAIN_SWEEPS, 0)}
-            check(by_rank == want, f"9b {label}: launches {by_rank}")
-    check(got["f64_pad"]["loci"] == [500, 1000, 1], "9b: no padding locus")
-    check(not bool(got["f64_pad"]["state"]["gen"]["valid"][-1])
-          and float(got["f64_pad"]["state"]["lnld"][-1]) == 0.0,
-          "9b: the padding locus is not inert")
     f32 = got["f32"]
     rows_ok = all(bool(torch.isfinite(v).all()) for v in f32["trace"].values())
     check(rows_ok, "9b f32: trace rows not finite")
@@ -1796,54 +1910,18 @@ def mesh_phase(tmp, data, card):
         "launches_by_rank": f32["launches_by_rank"]}
     log(f"  f32: rows finite, carried lnld within "
         f"{f32['lnld_rebuild_err']:.2e} of a rebuild; {rec['gloo2']}")
-    del one, refs, got
+    del one, got
 
     log(f" -- 9c: python -m gphocs_tpu_torch --distributed, 2 processes "
         f"sharing the card, --x64, {MESH_CLI_ITERS} iterations, against the "
         "one-process command")
-    ctl = os.path.join(tmp, "mesh_cli.ctl")
-    with open(ctl, "w") as f:
-        f.write(with_settings(
-            SAMPLE_CTL, seq_file=data, trace_file="trace.log",
-            mcmc_iterations=MESH_CLI_ITERS, iterations_per_log=5,
-            random_seed=5, burn_in=0, start_mig=0))
-    coord = f"127.0.0.1:{M.free_port()}"
-    runs = {"one": [], "rank0": ["--distributed", f"{coord}:2:0"],
-            "rank1": ["--distributed", f"{coord}:2:1"]}
-    procs = {}
-    for name, flags in runs.items():
-        os.makedirs(os.path.join(tmp, f"cli_{name}"))
-        out = open(os.path.join(tmp, f"cli_{name}.out"), "w")
-        procs[name] = (subprocess.Popen(
-            [sys.executable, "-m", "gphocs_tpu_torch", ctl, "--x64",
-             "--mesh-timeout", str(MESH_TIMEOUT_S), *flags],
-            cwd=os.path.join(tmp, f"cli_{name}"), stdout=out,
-            stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=ROOT)), out)
-    try:
-        rcs = {n: p.wait(timeout=MESH_TIMEOUT_S + 180)
-               for n, (p, _) in procs.items()}
-    finally:
-        for p, o in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            o.close()
-    for name, rc in rcs.items():
-        text = open(os.path.join(tmp, f"cli_{name}.out")).read()
-        log(f"  {name}: exit {rc}; " + " | ".join(text.splitlines()[:3]))
-        check(rc == 0, f"9c {name} failed:\n{text[-3000:]}")
+    ctl = cli_ctl(tmp, "mesh_cli", data, MESH_CLI_ITERS)
+    cli_finish(tmp, [cli_start(tmp, "one", ctl),
+                     *cli_ranks(tmp, "rank", ctl)], "9c")
     check(os.listdir(os.path.join(tmp, "cli_rank1")) == [],
           "9c: rank 1 wrote a file")
-    a, b = (np.loadtxt(os.path.join(tmp, f"cli_{n}", "trace.log"),
-                       skiprows=1) for n in ("one", "rank0"))
-    check(a.shape == b.shape == (MESH_CLI_ITERS, a.shape[1]),
-          f"9c trace shapes {a.shape} {b.shape}")
-    rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-300)
-    check(bool((rel <= 1e-9).all()), f"9c: rank 0's trace differs by "
-          f"{rel.max():.3e} relative")
-    rec["cli_max_rel"] = float(rel.max())
-    log(f"  rank 0's trace within {rel.max():.2e} relative of the "
+    rec["cli_max_rel"] = cli_trace_rel(tmp, "9c", "one", "rank0")
+    log(f"  rank 0's trace within {rec['cli_max_rel']:.2e} relative of the "
         "one-process trace, per column; rank 1 wrote no file")
     torch.cuda.synchronize()
     return launches, rec
@@ -2452,6 +2530,203 @@ def legacy_chains_phase(tmp, data, card):
     return launches, rec
 
 
+# -- phase 12: chains on the loci mesh --------------------------------------
+
+MESH_CHAINS = 4          # 12a: chains in the NCCL world of one
+MESH_CHAINS_ITERS = 40   # 12a: iterations of each timed chunk
+MESH_CHAINS_PAIRS = 4    # 12a: pairs of chunks, meshed and not, in turns
+MESH_CHAINS_PROFILED = 3  # 12a: iterations under torch.profiler, each way
+MESH_CHAINS_F64 = 2      # 12b and 12c: chains on two gloo ranks
+MESH_CHAINS_CKPT = 5     # 12c: the checkpoint, resumed to MESH_CLI_ITERS
+
+
+def host_profile(s, iters):
+    """torch.profiler over `iters` iterations of sampler s, the host and
+    the card traced: per iteration the wall ms, the device busy ms, the
+    idle share, the device operations, the cudaLaunchKernel calls and
+    each host operation's self ms (by name).  None where the profiler
+    sees no device operation."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gphocs_tpu_torch.tools.profile_main import _busy_ms
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.step_chunk(iters, do_migrate=True)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as e:
+        log(f"  torch.profiler failed: {e}")
+        return None
+    events = prof.events()
+    ops = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    if not ops:
+        log("  torch.profiler saw no device operation: not measured")
+        return None
+    busy = _busy_ms(events)
+    host = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.self_cpu_time_total:
+            host[e.key] = host.get(e.key, 0.0) \
+                + e.self_cpu_time_total / 1e3 / iters
+    return {"wall_ms_per_iteration": wall / iters,
+            "device_ms_per_iteration": busy / iters,
+            "idle_share": 1.0 - busy / wall,
+            "ops_per_iteration": ops / iters,
+            "launch_calls_per_iteration": sum(
+                1 for e in events if e.name == "cudaLaunchKernel") / iters,
+            "host_self_ms": host}
+
+
+def mesh_chains_turns(data, chains):
+    """Phase 12a: a world of one over NCCL in this process, the standard
+    workload as `chains` chains at f32 with and without the mesh from one
+    state: WARMUP iterations each, then MESH_CHAINS_PAIRS pairs of chunks
+    of MESH_CHAINS_ITERS in turns (plain, meshed, meshed, plain, ...),
+    each meshed chunk bitwise equal to the plain one from the same state
+    (stats, trace, gathered state, counters) with the same launches; then
+    host_profile over MESH_CHAINS_PROFILED iterations, twice each in
+    turns, the host's self ms compared by operation.  Returns (launches of the first
+    meshed chunk, the readings)."""
+    import torch
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    M.init_distributed(f"127.0.0.1:{M.free_port()}", 1, 0, device="cuda",
+                       timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = M.make_mesh()
+        check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        plain = mesh_sampler(data, torch.float32, chains=chains)
+        meshed = mesh_sampler(data, torch.float32, mesh, chains=chains)
+        for f in ("gens", "lrngs", "lnlds", "lnps", "conds", "params",
+                  "grng"):
+            setattr(meshed, f, getattr(plain, f))
+        for smp in (plain, meshed):
+            smp.step_chunk(WARMUP, do_migrate=True)
+        pairs, launches = [], None
+        for k in range(MESH_CHAINS_PAIRS):
+            order = (plain, meshed) if k % 2 == 0 else (meshed, plain)
+            got = {id(smp): mesh_chunk(smp, MESH_CHAINS_ITERS)
+                   for smp in order}
+            if launches is None:
+                launches = check_schedule(MESH_CHAINS_ITERS, 1, False)
+            pairs.append((got[id(plain)], got[id(meshed)]))
+        prof = {"plain": [], "meshed": []}
+        for smp in (plain, meshed, meshed, plain):
+            prof["plain" if smp is plain else "meshed"].append(
+                host_profile(smp, MESH_CHAINS_PROFILED))
+    finally:
+        M.shutdown()
+    for a, b in pairs:
+        compare_runs("12a", a, b, exact=True)
+        check(a["launches"] == b["launches"], f"12a launches "
+              f"{a['launches']} against {b['launches']}")
+    its = [MESH_CHAINS_ITERS / b["seconds"] for _, b in pairs]
+    plain_its = [MESH_CHAINS_ITERS / a["seconds"] for a, _ in pairs]
+    nccl = [b["collectives"] for _, b in pairs]
+    n = len(pairs) * MESH_CHAINS_ITERS
+    rec = {"chains": chains,
+           "it_per_s": sum(its) / len(its),
+           "chain_it_per_s": chains * sum(its) / len(its),
+           "readings": its, "plain_readings": plain_its,
+           "ratio_in_turns": sum(its) / sum(plain_its),
+           "all_reduces_per_iteration":
+               sum(c["all_reduce"] for c in nccl) / n,
+           "all_reduce_host_ms_per_iteration":
+               [1e3 * c["seconds"] / MESH_CHAINS_ITERS for c in nccl]}
+    if all(all(p) for p in prof.values()):
+        # each host operation's self ms per iteration, meshed and not,
+        # the mean of the two profiles of each: the 8 that grew most
+        host = {k: {} for k in prof}
+        for k, ps in prof.items():
+            for p in ps:
+                for op, ms in p.pop("host_self_ms").items():
+                    host[k][op] = host[k].get(op, 0.0) + ms / len(ps)
+        hm, hp = host["meshed"], host["plain"]
+        more = sorted(((hm.get(k, 0.0) - hp.get(k, 0.0), k)
+                       for k in set(hm) | set(hp)), reverse=True)
+        rec["profiled"] = prof
+        rec["host_self_ms_more_meshed"] = {
+            k: [hm.get(k, 0.0), hp.get(k, 0.0)] for _, k in more[:8]}
+        rec["host_self_ms_total"] = [sum(hm.values()), sum(hp.values())]
+    log(f"  bitwise equal to the chains without a mesh in all "
+        f"{len(pairs)} pairs (stats, trace, state, counters); launches "
+        f"{pairs[0][1]['launches']}; {rec}")
+    return launches, rec
+
+
+def mesh_chains_phase(tmp, data, card):
+    """Phase 12: chains on the loci mesh.  Returns (launches of 12a's
+    meshed chunk, a record of the phase's readings)."""
+    import numpy as np
+    import torch
+
+    rec = {}
+    log(f" -- 12a: NCCL, a world of one, {MESH_CHAINS} chains of "
+        f"{WORKLOAD_LOCI} loci at f32: {MESH_CHAINS_PAIRS} pairs of "
+        f"{MESH_CHAINS_ITERS} iterations in turns with the same chains "
+        f"without a mesh, then each profiled, on {card}")
+    launches, rec["nccl1"] = mesh_chains_turns(data, MESH_CHAINS)
+
+    C = MESH_CHAINS_F64
+    log(f" -- 12b: two ranks share the card over gloo, {C} chains at f64 "
+        f"({WORKLOAD_LOCI} and {MESH_PAD_LOCI} loci, {MESH_F64_ITERS} "
+        "iterations), against one process with loci_multiple=2")
+    _, worst = two_ranks(tmp, data, C)
+    rec.update({f"gloo2_{k}_max_rel": v for k, v in worst.items()})
+
+    log(f" -- 12c: python -m gphocs_tpu_torch --distributed --chains {C} "
+        f"--x64, 2 processes sharing the card, {MESH_CLI_ITERS} iterations "
+        f"with a checkpoint at {MESH_CHAINS_CKPT} and --resume, against the "
+        "one-process command")
+    whole = cli_ctl(tmp, "chains_whole", data, MESH_CLI_ITERS)
+    first = cli_ctl(tmp, "chains_first", data, MESH_CHAINS_CKPT)
+    ck = {n: os.path.join(tmp, f"chains_{n}.npz")
+          for n in ("whole", "first", "second")}
+    chains = ["--chains", str(C), "--checkpoint-every", str(MESH_CHAINS_CKPT)]
+    cli_finish(tmp, [
+        cli_start(tmp, "chains_one", whole, *chains),
+        *cli_ranks(tmp, "chains_whole", whole, *chains,
+                   "--checkpoint", ck["whole"]),
+        *cli_ranks(tmp, "chains_first", first, *chains,
+                   "--checkpoint", ck["first"])], "12c")
+    shutil.copy(ck["first"], ck["second"])
+    cli_finish(tmp, cli_ranks(tmp, "chains_second", whole, *chains,
+                              "--checkpoint", ck["second"], "--resume"),
+               "12c")
+    for name in ("whole", "first", "second"):
+        check(os.listdir(os.path.join(tmp, f"cli_chains_{name}1")) == [],
+              f"12c: rank 1 of {name} wrote a file")
+    rec["cli_max_rel"] = cli_trace_rel(tmp, "12c", "chains_one",
+                                       "chains_whole0")
+
+    def trace(name):
+        with open(os.path.join(tmp, f"cli_{name}", "trace.log")) as f:
+            return f.read().splitlines()
+
+    rows = trace("chains_whole0")
+    check(trace("chains_second0") == [rows[0]] + rows[1 + MESH_CHAINS_CKPT:],
+          "12c: the resumed trace differs from the uninterrupted one")
+    za, zb = np.load(ck["whole"]), np.load(ck["second"])
+    check(sorted(za.files) == sorted(zb.files)
+          and all(np.array_equal(za[k], zb[k]) for k in za.files),
+          "12c: the resumed run's checkpoint differs")
+    check(za["gen_age"].shape[:2] == (C, WORKLOAD_LOCI)
+          and za["params_theta"].shape[0] == C,
+          f"12c: checkpoint layout {za['gen_age'].shape}")
+    log(f"  rank 0's trace within {rec['cli_max_rel']:.2e} relative of the "
+        "one-process trace; the resumed trace and checkpoint bitwise equal "
+        f"to the uninterrupted run's ([{C}, {WORKLOAD_LOCI}, ...]); rank 1 "
+        "wrote no file")
+    torch.cuda.synchronize()
+    return launches, rec
+
+
 def main():
     import torch
 
@@ -2748,6 +3023,12 @@ def main():
     paths[f"legacy_chains{LEGACY_BIG_CHAINS}"] = lc_rec["it_per_s"]
     all_launches.append(lc_launches)
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    log("== phase 12: chains on the loci mesh")
+    t_phase = time.perf_counter()
+    mc_launches, mc_rec = mesh_chains_phase(tmp, data, card)
+    paths["mesh_chains"] = mc_rec["nccl1"]["it_per_s"]
+    all_launches.append(mc_launches)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
@@ -2782,7 +3063,7 @@ def main():
     for label, its in paths.items():
         if label in ragged or label in (
                 f"chains{CHAINS}", "mesh", "legacy",
-                f"legacy_chains{LEGACY_BIG_CHAINS}"):
+                f"legacy_chains{LEGACY_BIG_CHAINS}", "mesh_chains"):
             continue
         log(json.dumps({"path": label, "it_per_s": its, "card": card}))
     c4 = chain_read[f"c{CHAINS}"]
@@ -2801,6 +3082,8 @@ def main():
                     **legacy_rec, "card": card}))
     log(json.dumps({"path": f"legacy_chains{LEGACY_BIG_CHAINS}", **lc_rec,
                     "card": card}))
+    log(json.dumps({"path": "mesh_chains", "it_per_s": paths["mesh_chains"],
+                    **mc_rec, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
@@ -2811,7 +3094,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 9b
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 9b or 12b
         sys.path.insert(0, ROOT)
         sys.exit(mesh_rank(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -25,8 +25,12 @@ run has no admixed leaves.
 
 On a loci mesh the file is the one gphocs_tpu writes for the same mesh
 run: the padded loci of every bucket, gathered from the ranks in rank
-order, written by rank 0 (every rank takes part in the gathers).  On
-resume every rank reads the file and keeps its block.
+order (C chains: every chain's Lp padded loci, [C, Lp, ...], each
+gathered from the ranks' blocks of it), written by rank 0 (every rank
+takes part in the gathers).  It is the file of one process running the
+same chains with `loci_multiple` = the world size, and each resumes in
+the other.  On resume every rank reads the file and keeps its block (of
+every chain: the sampler's `blocks`).
 """
 
 from __future__ import annotations
@@ -76,8 +80,8 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
     C = getattr(sampler, "chains", 1)
     mesh = getattr(sampler, "mesh", None)
 
-    def rows(t):  # every rank's loci
-        return t if mesh is None else gather_rows(mesh, t)
+    def rows(t):  # every rank's loci, chain-major for C chains
+        return t if mesh is None else gather_rows(mesh, t, C)
 
     def per_locus(t):  # C chains' [C * L, ...] as [C, L, ...]
         a = _np(rows(t), real)

@@ -16,12 +16,13 @@ and SPR sweeps as tensor code, gphocs_tpu's legacy run draw for draw) on
 the CPU, unless `--fast-rng` or `--legacy-rng` says otherwise; both
 together are a usage error, and so are pattern buckets with the legacy
 RNG.  The start line names the mode and the chains.  The legacy RNG on a
-mesh is not ported (ROADMAP Queue 1 item 17c) and raises before any file
-is read.  `--chains C` runs C independent chains side by side (seeds
-base + 7919 c; chain 0 writes the trace), not with `--buckets` or a
-coal-stats file.  A control file with admixed samples runs without
-`--buckets` (as in gphocs_tpu) and writes admixture-trace.out beside the
-trace.  `-n` is accepted for compatibility and ignored.
+mesh, with or without `--chains`, is not ported (ROADMAP Queue 1 item
+17c) and raises before any file is read.  `--chains C` runs C
+independent chains side by side (seeds base + 7919 c; chain 0 writes the
+trace), not with `--buckets` or a coal-stats file.  A control file with
+admixed samples runs without `--buckets` (as in gphocs_tpu) and writes
+admixture-trace.out beside the trace.  `-n` is accepted for compatibility
+and ignored.
 
 Loci sharding (parallel/mesh.py): `--distributed COORD:NPROC:PID` runs
 this process as rank PID of NPROC, COORD being rank 0's host:port; every
@@ -30,8 +31,9 @@ visible CUDA device itself (this process is rank 0, the others are
 started as `--distributed` processes on 127.0.0.1), or a world of one with
 `--device cpu`.  Rank 0 prints, writes the trace, the checkpoint and the
 other files; a rank that fails fails the run (the process group's
-timeout is --mesh-timeout).  Chains on a mesh are not ported (ROADMAP
-Queue 1 item 15b).
+timeout is --mesh-timeout).  With `--chains C` every rank holds its block
+of every chain's loci (the fast RNG); the trace is chain 0's, as in one
+process.
 """
 
 from __future__ import annotations
@@ -136,10 +138,6 @@ def main(argv=None):
     rank_of = None
     if args.distributed:
         rank_of = _parse_distributed(ap, args.distributed)
-    if (args.mesh or args.distributed) and args.chains > 1:
-        raise NotImplementedError(
-            "--chains on a loci mesh is not ported to gphocs_tpu_torch yet "
-            "(ROADMAP Queue 1 item 15b)")
 
     import torch
 

@@ -278,25 +278,29 @@ def check_global_sums(sampler) -> List[str]:
     """On a loci mesh: the sums over all ranks' loci of the carried lnld
     and lnp (those the trace prints) against the same sums of the
     recomputed values, after one all-reduce, within check_likelihoods'
-    tolerance per locus (atol * L + rtol * |sum|)."""
+    tolerance per locus (atol * L + rtol * |sum|); each chain's on its
+    own for C chains."""
     from gphocs_tpu_torch.kernels.common import gen_log_prior, maybe_psum
     from gphocs_tpu_torch.ops.pruning import data_log_likelihood
 
     f32 = sampler.dtype == torch.float32
     atol, rtol = (1e-3, 1e-5) if f32 else (1e-8, 0.0)
-    sums = torch.zeros(4, dtype=torch.float64, device=sampler.device)
+    C = getattr(sampler, "chains", 1)
+    sums = torch.zeros((C, 4), dtype=torch.float64, device=sampler.device)
     for g, sq, ld, lp in zip(sampler.gens, sampler.seqs, sampler.lnlds,
                              sampler.lnps):
         sums = sums + torch.stack([
-            data_log_likelihood(g, sq).double().sum(), ld.double().sum(),
-            gen_log_prior(g, sampler.params, sampler.ctx).double().sum(),
-            lp.double().sum()])
+            x.double().view(C, -1).sum(dim=1) for x in (
+                data_log_likelihood(g, sq), ld,
+                gen_log_prior(g, sampler.params, sampler.ctx), lp)], dim=1)
     sums = maybe_psum(sums, sampler.mesh).tolist()
-    L = sum(sampler.global_rows)
+    L = sum(sampler.global_rows) // C
     errs = []
-    for what, fresh, carried in (("data lnL", *sums[:2]),
-                                 ("genealogy prior", *sums[2:])):
-        if abs(fresh - carried) > atol * L + rtol * abs(fresh):
-            errs.append(f"carried {what} sum over all ranks drifts by "
-                        f"{abs(fresh - carried)}")
+    for c, row in enumerate(sums):
+        chain = f"chain {c}: " if C > 1 else ""
+        for what, fresh, carried in (("data lnL", *row[:2]),
+                                     ("genealogy prior", *row[2:])):
+            if abs(fresh - carried) > atol * L + rtol * abs(fresh):
+                errs.append(f"{chain}carried {what} sum over all ranks "
+                            f"drifts by {abs(fresh - carried)}")
     return errs

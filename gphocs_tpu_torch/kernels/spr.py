@@ -421,21 +421,22 @@ def update_spr(gen: GenState, params: Params, seq: SeqData,
     (gen, rng, lnld, cond, accepted_count); the genealogy log-prior must
     be recomputed by the caller.  sync_group = 0 means L (global trip
     synchronization; a chain's loci for C chains, whose counts are
-    [C]).  loci_axis: the loci mesh of one chain's rank, whose L loci are
-    one trip group spanning all ranks (sync_group L): its liveness and
-    the counter advance are reduced over the ranks, so the sharded sweep
-    equals the unsharded one draw for draw.  The accept count stays the
-    rank's own."""
+    [C]).  loci_axis: the loci mesh of the rank, whose block of each
+    chain (L loci, or C chains' L / C each) is one trip group per chain
+    spanning all ranks (sync_group L): each group's liveness ([C]) and
+    each chain's counter advance are reduced over the ranks, so the
+    sharded sweep equals the unsharded one draw for draw.  The accept
+    count stays the rank's own."""
     L, N = gen.father.shape
     dt = gen.age.dtype
     dev = gen.age.device
     ar = torch.arange(L, device=dev)
     nid = torch.arange(N, device=dev)[None, :]
     G = sync_group or L
-    if loci_axis is not None and (G != L or chain_count(params)):
-        raise ValueError("a loci mesh takes one chain in one trip group")
-    doff = torch.zeros((L,), dtype=torch.int64, device=dev)
     C = chain_count(params)
+    if loci_axis is not None and G < L // (C or 1):
+        raise ValueError("a loci mesh takes one trip group per chain")
+    doff = torch.zeros((L,), dtype=torch.int64, device=dev)
     acc = torch.zeros(params.theta.shape[:-1], dtype=torch.int64,
                       device=dev)
     fast = isinstance(rng, RF.FastRngState)

@@ -5,11 +5,17 @@ gphocs_tpu/parallel/mesh.py and of gphocs_tpu's shard_map path over its
 One process per rank.  Rank r holds the contiguous block [r * Lb / W,
 (r + 1) * Lb / W) of the Lb (padded) loci of every pattern bucket, as
 P("loci") places them, and runs the four kernels on that block on its own
-device.  The population parameters, the general stream, the finetunes
-and the Context are replicated: every rank draws the same general-stream
-values, and every reduction across loci is an explicit all-reduce at the
-place where gphocs_tpu has its maybe_psum / maybe_pmax
-(kernels/common.py), so every rank takes the same global decisions.
+device.  C chains (one bucket) are held chain-major, [C * Lp, ...], each
+chain's Lp loci padded on their own: rank r holds its block of every
+chain, rows [c Lp + r Ls, c Lp + (r + 1) Ls) for c = 0 .. C-1 with
+Ls = Lp / W (`LociMesh.chain_block`), which is again chain-major,
+[C * Ls, ...], so the kernels run its C chains of Ls loci at once.  The
+population parameters, the general streams, the finetunes and the
+Context are replicated: every rank draws the same general-stream values,
+and every reduction across loci is an explicit all-reduce at the place
+where gphocs_tpu has its maybe_psum / maybe_pmax (kernels/common.py), so
+every rank takes the same global decisions; with chains each carries a
+value per chain.
 Reductions that fall at the same point travel in one float64 tensor
 (`all_reduce`); a max that travels beside sums goes as a sum of 0/1
 flags.
@@ -28,6 +34,9 @@ branch makes the others fail instead of waiting forever.
 Gloo's all_gather takes CPU tensors only (its all_reduce and broadcast
 take CUDA tensors too): the host-side gathers of checkpoints and of
 admixture-trace.out (`gather_rows`) go through the CPU under gloo.
+`gather_rows(mesh, x, C)` puts the ranks' chain-major blocks back in
+the global chain-major order; a plain rank-order concatenation would
+give [W, C, Ls] order, a state that runs but is wrong.
 """
 
 from __future__ import annotations
@@ -73,6 +82,14 @@ class LociMesh:
         """This rank's rows of n (a multiple of the world size) loci."""
         lo, hi = shard_bounds(n, self.world)[self.rank]
         return slice(lo, hi)
+
+    def chain_block(self, n: int, chains: int) -> np.ndarray:
+        """The index array of this rank's rows of `chains` chains of n
+        loci each (n a multiple of the world size), held chain-major: its
+        block of every chain, in chain order.  gather_rows inverts it."""
+        b = self.block(n)
+        return (np.arange(chains)[:, None] * n
+                + np.arange(b.start, b.stop)).reshape(-1)
 
     def barrier(self) -> None:
         all_reduce(self, [torch.zeros(1, device=self.device)])
@@ -174,17 +191,21 @@ def all_reduce(mesh: LociMesh, xs: Sequence, op: str = "sum") -> list:
     return out
 
 
-def gather_rows(mesh: LociMesh, x: torch.Tensor) -> torch.Tensor:
-    """The ranks' blocks of x ([Ls, ...] each) in rank order, [W Ls, ...],
-    on the CPU of every rank (through the device under NCCL, through the
-    CPU under gloo)."""
+def gather_rows(mesh: LociMesh, x: torch.Tensor,
+                chains: int) -> torch.Tensor:
+    """The ranks' blocks of x, each [C * Ls, ...] (LociMesh.chain_block's
+    rows of C = `chains` chains), in the global chain-major order, [C * W
+    Ls, ...], on the CPU of every rank (through the device under NCCL,
+    through the CPU under gloo).  For one chain that is rank order."""
     src = x.detach()
     src = src.cpu() if mesh.backend == "gloo" else src.to(mesh.device)
     is_bool = src.dtype == torch.bool
     src = (src.to(torch.uint8) if is_bool else src).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src, group=mesh.group)
-    out = torch.cat(parts).cpu()
+    out = torch.stack(parts).cpu()                  # [W, C * Ls, ...]
+    out = out.view(mesh.world, chains, -1, *src.shape[1:]).transpose(0, 1)
+    out = out.reshape(-1, *src.shape[1:])
     return out.to(torch.bool) if is_bool else out
 
 

@@ -15,7 +15,9 @@ The per-locus state is held per pattern bucket (`gens`, `seqs`, `lrngs`,
 
 `chains=C` runs C independent chains, as gphocs_tpu's vmapped chains do:
 chain c is initialized from seed base + 7919 c (its host stream, its
-genealogies, its per-locus and general streams), shares the sequence data,
+genealogies, its per-locus and general streams, over its loci padded as
+one chain's: `loci_multiple` pads each chain, as gphocs_tpu pads
+`num_loci` before it stacks its chains), shares the sequence data,
 and draws and decides every move on its own, so that it equals a one-chain
 run with its seed.  The state holds the chains side by side, not in a
 loop: the per-locus tensors chain-major ([C * L, ...], one bucket), the
@@ -43,12 +45,18 @@ covers them, as gphocs_tpu pads `num_loci`; a bucketed one pads each
 bucket with copies of its first locus).  Every rank builds the global
 initial state from the host stream and keeps its block of every bucket,
 so rank r's state is rows [r Ls, (r + 1) Ls) of the padded unsharded
-state (`loci_multiple` pads one process's state the same way).  The
-parameters and the general stream are replicated; the all-reduces are
-sampler/bucketed.py's.  Rank 0 alone writes the trace, the log, the
-coal-stats file, admixture-trace.out and the checkpoint (gathered from
-every rank); every rank makes every collective, those of the log points
-included.  Chains on a mesh are refused (ROADMAP Queue 1 item 15b).
+state (`loci_multiple` pads one process's state the same way).  With C
+chains (one bucket) each chain's loci are padded on their own, to Lp, and
+rank r keeps its block of every chain, rows [c Lp + r Ls, c Lp + (r + 1)
+Ls) for every c (LociMesh.chain_block): chain-major again, [C * Ls, ...],
+so each kernel launches once per sweep for all C chains of the rank, and
+every all-reduce carries the chains' [C] values (the collectives of an
+iteration are those of one chain).  Chain c equals the one-chain meshed
+run with seed base + 7919 c.  The parameters and the general streams are
+replicated; the all-reduces are sampler/bucketed.py's.  Rank 0 alone
+writes the trace, the log, the coal-stats file, admixture-trace.out and
+the checkpoint (gathered from every rank); every rank makes every
+collective, those of the log points included.
 
 `rng_mode="legacy"` is the conformance mode: the reference's
 Wichmann-Hill streams (rng.py), initialized as gphocs_tpu's legacy mode
@@ -272,9 +280,6 @@ class Sampler:
             if buckets > 1:
                 raise ValueError("pattern buckets require the fast RNG (as "
                                  "in gphocs_tpu): drop buckets")
-        if mesh is not None and chains > 1:
-            raise _todo("chains on a loci mesh (the chain-major layout "
-                        "needs a sharding of its own)", "Queue 1 item 15b")
         if mesh is not None:
             if torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device!r}: the mesh's rank runs "
@@ -347,13 +352,9 @@ class Sampler:
                 group_nphases=np.ones((self.num_loci, 1)),
                 pattern_valid=np.zeros((self.num_loci, 1), bool),
                 group_members=group_members(gid))]
-        if chains > 1:  # the chains share the data: [C * L, ...]
-            seqs = [SeqData(*(None if x is None
-                              else np.concatenate([x] * chains)
-                              for x in seqs[0]))]
-        # inert padding loci: an unbucketed state pads num_loci, and the
-        # initialization covers them; a bucketed one pads every bucket
-        # with copies of its first locus (initialize)
+        # inert padding loci: an unbucketed state pads num_loci (each
+        # chain's), and the initialization covers them; a bucketed one
+        # pads every bucket with copies of its first locus (initialize)
         self.bucket_pads = [(-sq.group_id.shape[0]) % loci_multiple
                             for sq in seqs]
         self.pad_loci = 0
@@ -361,9 +362,15 @@ class Sampler:
             self.pad_loci = self.bucket_pads[0]
             self.num_loci += self.pad_loci
         seqs = [pad_seq(sq, pad) for sq, pad in zip(seqs, self.bucket_pads)]
-        # every bucket's loci, padded, and those that this process holds
+        if chains > 1:  # the chains share the data: [C * Lp, ...]
+            seqs = [SeqData(*(None if x is None
+                              else np.concatenate([x] * chains)
+                              for x in seqs[0]))]
+        # every bucket's loci, padded (all chains'), and the rows of them
+        # that this process holds: its block of every chain
         self.global_rows = [sq.group_id.shape[0] for sq in seqs]
-        self.blocks = [slice(0, n) if mesh is None else mesh.block(n)
+        self.blocks = [slice(0, n) if mesh is None
+                       else mesh.chain_block(n // chains, chains)
                        for n in self.global_rows]
         self.seqs = tuple(
             from_numpy(SeqData(*(None if x is None else x[b] for x in sq)),
@@ -440,9 +447,10 @@ class Sampler:
                     ctr=torch.stack([r.ctr for r in rs]))
                     for rs in (lrngs, grngs))
             self.rate_var = rvars[-1]
-        if self.pad_loci:
+        if self.pad_loci:  # the last pad_loci of every chain
             valid = gen.valid.clone()
-            valid[self.num_loci - self.pad_loci:] = False
+            valid.view(self.chains, -1)[:, self.num_loci - self.pad_loci:] \
+                = False
             gen = gen._replace(valid=valid)
         if self.bucket_perm is not None:
             # loci in bucket order; every locus keeps its own key, every
@@ -728,7 +736,7 @@ class Sampler:
                 if iteration % spl == 0:
                     if admix_count and C == 1:
                         in2 = (admix_in2 if self.mesh is None
-                               else gather_rows(self.mesh, admix_in2))
+                               else gather_rows(self.mesh, admix_in2, C))
                         if trace_path and writer:
                             _write_admix_trace(trace_path, iteration - 1,
                                                in2, admix_count)
@@ -776,9 +784,10 @@ class Sampler:
         invariants of every bucket's genealogies and the carried lnld/lnp
         against a recomputation.  Returns the violations, each naming its
         bucket or its chain where there are several.  On a loci mesh each
-        rank checks its own loci (the messages name the rank), the global
-        carried sums are checked after their all-reduce, and the count of
-        violations is all-reduced, so that every rank fails together."""
+        rank checks its own loci (its block of every chain; the messages
+        name the rank), the global carried sums are checked after their
+        all-reduce (each chain's), and the count of violations is
+        all-reduced once, so that every rank fails together."""
         from gphocs_tpu_torch.debugcheck import (check_gen_state,
                                                  check_global_sums,
                                                  check_likelihoods)
@@ -803,8 +812,9 @@ class Sampler:
                         if n else [])
 
     def chain_state(self, c: int):
-        """Chain c's genealogies and parameters, as one chain's (views)."""
-        L = self.num_loci
+        """Chain c's genealogies and parameters, as one chain's (views; on
+        a loci mesh, the rank's block of chain c)."""
+        L = self.gen.num_loci // self.chains
         return (GenState(*(x[c * L:(c + 1) * L] for x in self.gen)),
                 Params(*(None if x is None else x[c] for x in self.params)))
 

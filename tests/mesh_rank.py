@@ -4,10 +4,13 @@
 
 runs rank RANK of SPEC["world"] gloo ranks (rank 0 at 127.0.0.1:
 SPEC["port"]) on one case of SPEC, and rank 0 writes the result, gathered
-from every rank, to SPEC["out"] with torch.save.  `run_ranks` starts all
-ranks of a SPEC and waits for them.  The same functions give the unsharded
-reference in the test's own process, with the loci padded as the mesh
-pads them (Sampler(loci_multiple=world)).
+from every rank, to SPEC["out"] with torch.save; or, where SPEC has
+"cases", on each of them in turn (each a case's spec with its own "out"),
+in one process group.  `run_ranks` starts all ranks of a SPEC and waits
+for them.  The same functions give the unsharded reference in the test's
+own process, with the loci padded as the mesh pads them
+(Sampler(loci_multiple=world)).  SPEC["chains"] (default 1) runs that
+many chains side by side.
 
 Cases (SPEC["case"]):
   node_age  one node-age sweep of the warmed state;
@@ -17,9 +20,12 @@ Cases (SPEC["case"]):
   carried   the same from a state saved with torch.save (SPEC["state"]:
             the unsharded per-locus tensors, of which each rank takes its
             block, and the replicated ones);
+  resume    `iters` iterations from the checkpoint SPEC["ckpt"]
+            (checkpoint.load_checkpoint: each rank keeps its block);
   run       Sampler.run on the control text SPEC["ctl_text"] with a
             trace and a checkpoint (SPEC["run"]: run()'s arguments), each
-            rank writing nothing but what rank 0 writes.
+            rank writing nothing but what rank 0 writes; with SPEC["out"],
+            rank 0 saves every chain's rows (`chain_rows`).
 """
 
 import json
@@ -27,6 +33,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from gphocs_tpu_torch.config import parse_control_text
@@ -39,8 +46,21 @@ from gphocs_tpu_torch.state import GenState
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 60  # of the process group and of every rank's process
+REL = 1e-9      # reals of a sharded run against the unsharded one
 
 torch.set_num_threads(1)
+
+
+def dense_file(d) -> str:
+    """SAMPLE_CTL's 24 loci x 300 bp (seed 11) in directory d."""
+    from gphocs_tpu_torch.io.simulate import simulate_seq_file
+    from gphocs_tpu_torch.model import build_poptree
+
+    cfg = parse_control_text(samples.SAMPLE_CTL)
+    path = os.path.join(str(d), "seqs.txt")
+    simulate_seq_file(cfg, build_poptree(cfg), path, num_loci=24,
+                      seq_len=300, seed=11)
+    return path
 
 
 def warm_sampler(spec, mesh=None, loci_multiple=1) -> Sampler:
@@ -53,7 +73,7 @@ def warm_sampler(spec, mesh=None, loci_multiple=1) -> Sampler:
     cfg.mcmc.num_loci = spec.get("num_loci", cfg.mcmc.num_loci)
     s = Sampler(cfg, seq_path=spec["seqs"], dtype=torch.float64,
                 device="cpu", buckets=spec.get("buckets", 1), mesh=mesh,
-                loci_multiple=loci_multiple)
+                loci_multiple=loci_multiple, chains=spec.get("chains", 1))
     s.initialize()
     s._sample_mig_rates_device()
     s.params = s.params._replace(
@@ -63,10 +83,11 @@ def warm_sampler(spec, mesh=None, loci_multiple=1) -> Sampler:
 
 
 def state_of(s: Sampler) -> dict:
-    """The per-locus state of every bucket (all ranks' loci, in order),
-    the per-locus counters, the parameters and the general stream."""
+    """The per-locus state of every bucket (all ranks' loci, in the
+    global chain-major order), the per-locus counters, the parameters and
+    the general stream."""
     def rows(t):
-        return t if s.mesh is None else gather_rows(s.mesh, t)
+        return t if s.mesh is None else gather_rows(s.mesh, t, s.chains)
 
     return {"gens": [GenState(*(rows(x) for x in g)) for g in s.gens],
             "lnlds": [rows(x) for x in s.lnlds],
@@ -107,6 +128,45 @@ def load_carried(s: Sampler, state: dict) -> None:
     s.params, s.grng, s.ft = state["params"], state["grng"], state["ft"]
 
 
+def run_case(spec: dict, mesh, rank: int):
+    """One case of a spec on this rank; its result (rank 0's is saved)."""
+    case = spec["case"]
+    if case == "run":
+        cfg = parse_control_text(spec["ctl_text"])
+        s = Sampler(cfg, device="cpu", mesh=mesh,
+                    buckets=spec.get("buckets", 1),
+                    chains=spec.get("chains", 1))
+        s.run(**spec["run"])
+        return {"chain_rows": s.chain_rows} if "out" in spec else None
+    if case == "carried":
+        cfg = parse_control_text(getattr(samples, spec["ctl"]))
+        s = Sampler(cfg, seq_path=spec["seqs"], device="cpu", mesh=mesh)
+        s.initialize()
+        load_carried(s, torch.load(spec["state"], weights_only=False))
+        return chunk_case(s, spec["iters"])
+    if case == "resume":
+        from gphocs_tpu_torch.checkpoint import load_checkpoint
+
+        cfg = parse_control_text(getattr(samples, spec["ctl"]))
+        s = Sampler(cfg, seq_path=spec["seqs"], device="cpu", mesh=mesh,
+                    chains=spec.get("chains", 1))
+        s.initialize()
+        load_checkpoint(s, spec["ckpt"])
+        return chunk_case(s, spec["iters"])
+    if case == "check":
+        s = warm_sampler(spec, mesh)
+        out = {"clean": s.check_state()}
+        if rank == 1:  # two loci moved apart: their sum stays
+            d = torch.zeros_like(s.lnld)
+            d[:2] = torch.tensor([1e-3, -1e-3])
+            s.lnld = s.lnld + d
+        out["moved"] = s.check_state()
+        return out
+    s = warm_sampler(spec, mesh)
+    return (node_age_case(s) if case == "node_age"
+            else chunk_case(s, spec["iters"]))
+
+
 def main(spec_path: str, rank: int) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
@@ -114,41 +174,62 @@ def main(spec_path: str, rank: int) -> int:
                        device="cpu", timeout_s=TIMEOUT_S)
     try:
         mesh = M.make_mesh()
-        case = spec["case"]
-        if case == "run":
-            cfg = parse_control_text(spec["ctl_text"])
-            s = Sampler(cfg, device="cpu", mesh=mesh,
-                        buckets=spec.get("buckets", 1))
-            s.run(**spec["run"])
-            out = None
-        elif case == "carried":
-            cfg = parse_control_text(getattr(samples, spec["ctl"]))
-            s = Sampler(cfg, seq_path=spec["seqs"], device="cpu", mesh=mesh)
-            s.initialize()
-            load_carried(s, torch.load(spec["state"], weights_only=False))
-            out = chunk_case(s, spec["iters"])
-        elif case == "check":
-            s = warm_sampler(spec, mesh)
-            out = {"clean": s.check_state()}
-            if rank == 1:  # two loci moved apart: their sum stays
-                d = torch.zeros_like(s.lnld)
-                d[:2] = torch.tensor([1e-3, -1e-3])
-                s.lnld = s.lnld + d
-            out["moved"] = s.check_state()
-        else:
-            s = warm_sampler(spec, mesh)
-            out = (node_age_case(s) if case == "node_age"
-                   else chunk_case(s, spec["iters"]))
-        if out is not None and rank == 0:
-            torch.save(out, spec["out"])
+        for one in spec.get("cases", [spec]):
+            out = run_case(one, mesh, rank)
+            if out is not None and rank == 0:
+                torch.save(out, one["out"])
     finally:
         M.shutdown()
     return 0
 
 
-def run_ranks(spec: dict, tmp_path) -> None:
+def close(a, b, what):
+    np.testing.assert_allclose(b.double().numpy(), a.double().numpy(),
+                               rtol=REL, atol=0, err_msg=what)
+
+
+def same_state(ref: dict, got: dict, exact: bool = False) -> None:
+    """Two state_of() results: integer arrays, keys and counters equal,
+    reals within REL relative, or everything bitwise where `exact`."""
+    def same(a, b, what):
+        if exact or not a.is_floating_point():
+            assert a.shape == b.shape and torch.equal(a, b), what
+        else:
+            close(a, b, what)
+
+    for g_r, g_g in zip(ref["gens"], got["gens"]):
+        for f in g_r._fields:
+            same(getattr(g_r, f), getattr(g_g, f), f"gen.{f}")
+    for k in ("lnlds", "lnps", "conds", "keys", "ctrs"):
+        for a, b in zip(ref[k], got[k]):
+            same(a, b, k)
+    assert torch.equal(ref["grng"].ctr, got["grng"].ctr)
+    assert torch.equal(ref["grng"].key, got["grng"].key)
+    for f in ref["params"]._fields:
+        a, b = getattr(ref["params"], f), getattr(got["params"], f)
+        if a is not None:
+            same(a, b, f"params.{f}")
+
+
+def same_chunk(ref: dict, got: dict, exact: bool = False) -> None:
+    """Two chunk_case() results: stats, trace and state as same_state
+    holds them."""
+    for part in ("stats", "trace"):
+        r, g = ref[part], got[part]
+        for f in r._fields:
+            a, b = getattr(r, f), getattr(g, f)
+            if exact or not a.is_floating_point():
+                assert a.shape == b.shape and torch.equal(a, b), \
+                    f"{part}.{f}"
+            else:
+                close(a, b, f"{part}.{f}")
+    same_state(ref["state"], got["state"], exact)
+
+
+def run_ranks(spec: dict, tmp_path, timeout_s: float = TIMEOUT_S + 60
+              ) -> None:
     """Start SPEC's ranks side by side and wait for them; every one must
-    exit 0 within TIMEOUT_S plus its start-up."""
+    exit 0 within timeout_s (by default TIMEOUT_S plus its start-up)."""
     spec = dict(spec, port=M.free_port())
     path = os.path.join(str(tmp_path), f"spec_{spec['port']}.json")
     with open(path, "w") as f:
@@ -161,7 +242,7 @@ def run_ranks(spec: dict, tmp_path) -> None:
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT_S + 60)[0])
+            outs.append(p.communicate(timeout=timeout_s)[0])
     finally:
         for p in procs:
             if p.poll() is None:

@@ -160,9 +160,10 @@ def test_legacy_resume_equals_uninterrupted_run(ragged, tmp_path):
     # chains are ported; with pattern buckets the command line refuses
     # them (a usage error, as gphocs_tpu's)
     (["--chains", "2", "--buckets", "2"], "requires one chain"),
-    # loci sharding is ported: chains on a mesh are not, and a malformed
-    # --distributed is a usage error
-    (["--distributed", "host:1234:2:0", "--chains", "2"], "item 15b"),
+    # loci sharding is ported, with chains: the legacy RNG's chains on a
+    # mesh are not, and a malformed --distributed is a usage error
+    (["--legacy-rng", "--distributed", "host:1234:2:0", "--chains", "2"],
+     "item 17c"),
     (["--distributed", "host:2:0"], "COORD = host:port"),
 ])
 def test_unported_flags_raise_before_reading_files(flags, item, tmp_path,

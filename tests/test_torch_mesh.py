@@ -24,12 +24,11 @@ from gphocs_tpu_torch.model import build_poptree
 from gphocs_tpu_torch.parallel.mesh import LociMesh, shard_bounds
 from gphocs_tpu_torch.sampler.driver import Sampler
 
-from tests.mesh_rank import chunk_case, node_age_case, run_ranks, warm_sampler
+from tests.mesh_rank import (chunk_case, node_age_case, run_ranks,
+                             same_chunk, same_state, warm_sampler)
 
 # one intra-op thread (tests/torch_twins.py says why)
 torch.set_num_threads(1)
-
-REL = 1e-9
 
 
 @pytest.fixture(scope="module")
@@ -42,36 +41,6 @@ def data(tmp_path_factory):
     ragged = str(d / "ragged.txt")
     simulate_ragged_file(ragged, num_loci=14)
     return {"dense": dense, "ragged": ragged}
-
-
-def _close(a, b, what):
-    np.testing.assert_allclose(b.double().numpy(), a.double().numpy(),
-                               rtol=REL, atol=0, err_msg=what)
-
-
-def _same_state(ref, got, exact=False):
-    """Every bucket's genealogies, counters and parameters: integer arrays
-    and counters equal, reals within 1e-9 relative (or bitwise)."""
-    for g_r, g_g in zip(ref["gens"], got["gens"]):
-        for f in g_r._fields:
-            a, b = getattr(g_r, f), getattr(g_g, f)
-            if exact or not a.is_floating_point():
-                assert torch.equal(a, b), f
-            else:
-                _close(a, b, f)
-    for k in ("lnlds", "lnps", "conds"):
-        for a, b in zip(ref[k], got[k]):
-            if exact:
-                assert torch.equal(a, b), k
-            _close(a, b, k)
-    for k in ("keys", "ctrs"):
-        for a, b in zip(ref[k], got[k]):
-            assert torch.equal(a, b), k
-    assert torch.equal(ref["grng"].ctr, got["grng"].ctr)
-    for f in ref["params"]._fields:
-        a, b = getattr(ref["params"], f), getattr(got["params"], f)
-        if a is not None:
-            _close(a, b, f)
 
 
 def test_shard_bounds_and_padding_rule():
@@ -98,7 +67,7 @@ def test_node_age_sweep_bitwise_however_sharded(world, data, tmp_path):
     run_ranks(spec, tmp_path)
     got = torch.load(spec["out"], weights_only=False)
     assert int(ref["acc"]) > 0 and torch.equal(ref["acc"], got["acc"])
-    _same_state(ref["state"], got["state"], exact=True)
+    same_state(ref["state"], got["state"], exact=True)
 
 
 @pytest.mark.timeout(150)
@@ -130,21 +99,13 @@ def test_five_iterations_sharded_equal_unsharded(case, data, tmp_path):
     ref = chunk_case(s, 5)
     run_ranks(spec, tmp_path)
     got = torch.load(spec["out"], weights_only=False)
-    st_r, st_g = ref["stats"], got["stats"]
-    for f in st_r._fields:
-        a, b = getattr(st_r, f), getattr(st_g, f)
-        if a.is_floating_point():
-            _close(a, b, f)
-        else:
-            assert torch.equal(a, b), f
+    same_chunk(ref, got)
+    st_r = ref["stats"]
     for f in ("acc_coal_time", "acc_mig_time", "acc_spr", "acc_theta",
               "acc_mixing"):
         assert int(getattr(st_r, f)) > 0, f
     if case["ctl"] == "ADMIX_CTL":
         assert int(st_r.acc_admix) > 0
-    for f in ref["trace"]._fields:
-        _close(getattr(ref["trace"], f), getattr(got["trace"], f), f)
-    _same_state(ref["state"], got["state"])
 
 
 @pytest.mark.timeout(120)
@@ -217,8 +178,11 @@ def test_state_check_fails_on_every_rank(data, tmp_path):
 
 
 def test_chains_on_a_mesh_are_refused():
+    """Chains on a mesh run with the fast RNG (tests/
+    test_torch_mesh_chains.py); the legacy RNG's are refused, naming their
+    ROADMAP item."""
     mesh = LociMesh(rank=0, world=2, backend="gloo",
                     device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    with pytest.raises(NotImplementedError, match="item 17c"):
         Sampler(parse_control_text(SAMPLE_CTL), num_loci=4, device="cpu",
-                mesh=mesh, chains=2)
+                mesh=mesh, chains=2, rng_mode="legacy")

@@ -167,9 +167,11 @@ def test_cuda_sampler_needs_a_card():
     # admixture is ported; with pattern buckets it is refused (a
     # ValueError), as in gphocs_tpu
     (dict(admixed=[("five", 3, 1, "d")], buckets=2), "one pattern bucket"),
-    # loci sharding is ported; chains on a mesh are not
-    (dict(mesh=LociMesh(rank=0, world=2, backend="gloo",
-                        device=torch.device("cpu")), chains=2), "item 15b"),
+    # loci sharding is ported, with chains; the legacy RNG's chains on a
+    # mesh are not
+    (dict(rng_mode="legacy", mesh=LociMesh(rank=0, world=2, backend="gloo",
+                                          device=torch.device("cpu")),
+          chains=2), "item 17c"),
 ])
 def test_unported_options_raise(kwargs, item):
     cfg = parse_control_text(SAMPLE_CTL)
