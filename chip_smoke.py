@@ -191,11 +191,37 @@ script then exits non-zero without the final line):
      run resumed from the checkpoint of iteration MESH_CHAINS_CKPT whose
      rows and final checkpoint ([C, L, ...]) must equal the uninterrupted
      meshed run's bitwise, rank 1 writing no file;
- 13. one JSON line per path with its it/s (the ragged ones with both
+ 13. the legacy RNG on the loci mesh: (13a) the standard workload with
+     `locus-mut-rate VAR 1.0` (legacy_var_ctl: the serial rate update
+     crosses the ranks) at f32 in a world of one over NCCL, one chain and
+     2, LEGACY_MESH_ITERS chunks of one iteration each way in turns with
+     the same sampler without a mesh from one state, each meshed chunk
+     bitwise equal (stats, trace, gathered state, Wichmann-Hill streams)
+     with the same launches (the rubber band 3 an iteration, no other
+     kernel), with the all-reduces, broadcasts and gathers per iteration
+     and the host's ms in them, it/s each way, and one profiled meshed
+     iteration (device operations, busy ms, idle share); (13b) two ranks
+     sharing the card over gloo at f64, `chip_smoke.py --mesh-rank` with
+     rng_mode "legacy" in its spec: LEGACY_MESH_WORKLOADS (VAR rates
+     with D's sample age and admixed, LEGACY_LOCI loci and one fewer,
+     one chain and 2), each card iteration held against one iteration of
+     a one-process CPU sampler with loci_multiple=2 from the same
+     gathered state, as in 10b (accepts per chain, streams and integer
+     arrays equal, reals within 1e-9 relative), each rank launching the
+     legacy schedule, and the rubber band (both modes where D's sample
+     age is estimated) against its plain version on each rank's block;
+     (13c) `python -m gphocs_tpu_torch --legacy-rng --distributed ...
+     --chains 2 --x64`, two processes, LEGACY_MESH_CLI_ITERS iterations
+     of LEGACY_LOCI loci against the one-process command (1e-9 relative
+     per column), and a run resumed from the checkpoint of iteration
+     LEGACY_MESH_CKPT whose rows and final checkpoint ([C, Lp, ...],
+     lrng_* [C, Lp], grng_* [C, 1]) must equal the uninterrupted meshed
+     run's bitwise, rank 1 writing no file;
+ 14. one JSON line per path with its it/s (the ragged ones with both
      readings and their pattern cells, the chains with their chain-it/s
      and device operations per iteration, the mesh with phase 9's
      readings, the legacy paths with phases 10e's and 11d's, the meshed
-     chains with phase 12's), the card's
+     chains with phase 12's, the legacy mesh with phase 13's), the card's
      line, one JSON line
      with the kernels (launches on the paths, error against the plain
      version, time, the time on the 4 chains' state, the plain version's
@@ -227,11 +253,16 @@ setting), phase 6c runs S32_CTL with D's sample age estimated, so that
 one state serves both rubber-band modes, and phases 10 and 11 hold the
 card against the CPU at 64 loci (11: 2 chains, 3 iterations per
 workload): the serial rate update takes a host synchronization per
-locus.
+locus.  Phase 13 holds the card against the CPU at 64 and 63 loci on
+four workloads of two iterations each (not the cross product of control
+file, chain count and padding), and 13a, whose rate update walks 1000
+loci with ~760 device operations each (8-17 s an iteration on the card),
+runs LEGACY_MESH_ITERS iteration each way per chain count and profiles
+the meshed sampler only.
 
 It needs one CUDA card; without one it exits with status 1 and prints no
-result.  `chip_smoke.py --mesh-rank SPEC RANK` is a rank of phase 9b or
-12b, started by the phase itself.
+result.  `chip_smoke.py --mesh-rank SPEC RANK` is a rank of phase 9b,
+12b or 13b, started by the phase itself.
 """
 
 import json
@@ -449,8 +480,7 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
     from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
     from gphocs_tpu_torch.kernels.spr import update_spr
-    from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
-                                              update_taus, update_taus_fused)
+    from gphocs_tpu_torch.kernels.tau import update_taus, update_taus_fused
     from gphocs_tpu_torch.ops import sweeps
 
     g, pr, sq, r, c = s.gen, s.params, s.seq, s.lrng, s.ctx
@@ -505,7 +535,29 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     cmp.close("spr", "lnld", k[2], q[2], t_ld)
     cmp.close("spr", "cond", k[3] / cond_scale, q[3] / cond_scale, t_cond)
 
+    outs += rubber_band_checks(s, cmp, tol, cond_scale)
+    args = (g, pr, sq, s.grng, c, s.ft.taus, ld, lp, cond,
+            s.tree.num_pops, s.tree.num_cur_pops)
+    k = update_taus_fused(*args)
+    q = update_taus(*args)
+    cmp.equal("rubber_band", "tau accepts", k[6], q[6])
+    check(same(k[2].ctr, q[2].ctr), "tau sweep: counter")
+    cmp.close("rubber_band", "tau", k[1].tau, q[1].tau, tol["tau"])
+    cmp.close("rubber_band", "sweep lnld", k[3], q[3], t_ld)
+    return outs
+
+
+def rubber_band_checks(s, cmp, tol, cond_scale=1.0):
+    """The rubber band's τ mode against its plain version on the state
+    `s`, one proposal per ancestral population (tau_bounds): equal
+    Jacobian counts and conflict flags, reals within `tol`.  Returns the
+    kernel's outputs."""
+    from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
+    from gphocs_tpu_torch.ops import sweeps
+
+    g, pr, sq, c, cond = s.gen, s.params, s.seq, s.ctx, s.cond
     log("  rubber_band")
+    outs = []
     for pop in range(s.tree.num_cur_pops, s.tree.num_pops):
         b = tau_bounds(s, pop)
         k = sweeps.rubber_band_eval(g, pr, sq, c, pop, False, *b, cond)
@@ -515,21 +567,13 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
         check(same(k[7], q[7]), f"rubber_band: conflict, pop {pop}")
         log(f"    pop {pop}: ntj0 {k[5].tolist()} ntj1 {k[6].tolist()} "
             f"conflict {k[7].tolist()}")
-        cmp.close("rubber_band", "age", k[0], q[0], t_age)
-        cmp.close("rubber_band", "mig_age", k[1], q[1], t_age)
+        cmp.close("rubber_band", "age", k[0], q[0], tol["age"])
+        cmp.close("rubber_band", "mig_age", k[1], q[1], tol["age"])
         cmp.close("rubber_band", "cond", k[2] / cond_scale,
-                  q[2] / cond_scale, t_cond)
-        cmp.close("rubber_band", "lnld", k[3], q[3], t_ld)
-        cmp.close("rubber_band", "lnp", k[4], q[4], t_ld)
+                  q[2] / cond_scale, tol["cond"])
+        cmp.close("rubber_band", "lnld", k[3], q[3], tol["lnld"])
+        cmp.close("rubber_band", "lnp", k[4], q[4], tol["lnld"])
         outs += list(k)
-    args = (g, pr, sq, s.grng, c, s.ft.taus, ld, lp, cond,
-            s.tree.num_pops, s.tree.num_cur_pops)
-    k = update_taus_fused(*args)
-    q = update_taus(*args)
-    cmp.equal("rubber_band", "tau accepts", k[6], q[6])
-    check(same(k[2].ctr, q[2].ctr), "tau sweep: counter")
-    cmp.close("rubber_band", "tau", k[1].tau, q[1].tau, tol["tau"])
-    cmp.close("rubber_band", "sweep lnld", k[3], q[3], t_ld)
     return outs
 
 
@@ -1593,17 +1637,24 @@ def mesh_state(s):
     general streams, on the CPU."""
     from gphocs_tpu_torch.parallel.mesh import gather_rows
 
+    from gphocs_tpu_torch.rng import WhRngState
+
     def rows(t):
         return (t if s.mesh is None
                 else gather_rows(s.mesh, t, s.chains)).cpu()
 
     g = s.gen
-    return {"gen": {f: rows(getattr(g, f)) for f in g._fields},
-            "lnld": rows(s.lnld), "lnp": rows(s.lnp), "cond": rows(s.cond),
-            "key": rows(s.lrng.key), "ctr": s.lrng.ctr.cpu(),
-            "params": {f: getattr(s.params, f).cpu()
-                       for f in s.params._fields},
-            "grng_ctr": s.grng.ctr.cpu()}
+    out = {"gen": {f: rows(getattr(g, f)) for f in g._fields},
+           "lnld": rows(s.lnld), "lnp": rows(s.lnp), "cond": rows(s.cond),
+           "params": {f: getattr(s.params, f).cpu()
+                      for f in s.params._fields}}
+    if isinstance(s.lrng, WhRngState):  # the legacy RNG's streams
+        out.update({f"lrng_{f}": rows(getattr(s.lrng, f)) for f in "xyz"})
+        out.update({f"grng_{f}": getattr(s.grng, f).cpu() for f in "xyz"})
+    else:
+        out.update(key=rows(s.lrng.key), ctr=s.lrng.ctr.cpu(),
+                   grng_ctr=s.grng.ctr.cpu())
+    return out
 
 
 def mesh_chunk(s, iters):
@@ -1633,13 +1684,14 @@ def mesh_chunk(s, iters):
 def compare_runs(what, ref, got, exact):
     """Equal accept counts, counters and integer arrays; reals (trace
     rows, state) equal bitwise where `exact`, else within 1e-9 relative.
-    Returns the largest relative difference of the reals."""
+    Returns the largest relative difference of the reals (and logs the
+    field that has it)."""
     import torch
 
-    worst = 0.0
+    worst, worst_at = 0.0, None
 
     def one(name, a, b):
-        nonlocal worst
+        nonlocal worst, worst_at
         check(a.shape == b.shape, f"{what}: {name} shape {tuple(a.shape)} "
               f"against {tuple(b.shape)}")
         if exact or not a.is_floating_point():
@@ -1648,20 +1700,26 @@ def compare_runs(what, ref, got, exact):
         d = (a.double() - b.double()).abs()
         bad = d > 1e-9 * a.double().abs()
         if a.numel():
-            worst = max(worst, float((d / a.double().abs().clamp(
-                min=1e-300)).max()))
+            rel = float((d / a.double().abs().clamp(min=1e-300)).max())
+            if rel > worst:
+                worst, worst_at = rel, name
         check(not bool(bad.any()), f"{what}: {name} beyond 1e-9 relative")
 
     for part in ("stats", "trace"):
         for f in ref[part]:
             one(f"{part}.{f}", ref[part][f], got[part][f])
     rs, gs = ref["state"], got["state"]
+    check(sorted(rs) == sorted(gs), f"{what}: state keys {sorted(gs)}")
     for f in rs["gen"]:
         one(f"gen.{f}", rs["gen"][f], gs["gen"][f])
-    for f in ("lnld", "lnp", "cond", "key", "ctr", "grng_ctr"):
-        one(f, rs[f], gs[f])
+    for f in rs:  # lnld, lnp, cond and the streams
+        if f not in ("gen", "params"):
+            one(f, rs[f], gs[f])
     for f in rs["params"]:
         one(f"params.{f}", rs["params"][f], gs["params"][f])
+    if worst_at:
+        log(f"    {what}: largest relative difference {worst:.2e}, in "
+            f"{worst_at}")
     return worst
 
 
@@ -1669,13 +1727,16 @@ def mesh_rank(spec_path, rank):
     """One of the two ranks of phase 9b or 12b (SPEC["chains"]: 1 or
     MESH_CHAINS_F64), sharing the card over gloo: the f64 chunk of the
     standard workload, the same at MESH_PAD_LOCI loci, and (9b) the timed
-    f32 chunk; rank 0 writes what they gathered."""
+    f32 chunk; rank 0 writes what they gathered.  A SPEC with rng_mode
+    "legacy" is one of phase 13b's ranks (legacy_mesh_rank)."""
     import torch
     from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
     from gphocs_tpu_torch.parallel import mesh as M
 
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec.get("rng_mode") == "legacy":  # a rank of phase 13b
+        return legacy_mesh_rank(spec, rank)
     chains = spec.get("chains", 1)
     M.init_distributed(f"127.0.0.1:{spec['port']}", 2, rank, device="cuda",
                        timeout_s=MESH_TIMEOUT_S)
@@ -1819,14 +1880,14 @@ def cli_finish(tmp, procs, what):
         check(rc == 0, f"{what} {name} failed:\n{text[-3000:]}")
 
 
-def cli_trace_rel(tmp, what, one, rank0):
+def cli_trace_rel(tmp, what, one, rank0, iters=MESH_CLI_ITERS):
     """The largest relative difference, per value, between two commands'
-    traces of MESH_CLI_ITERS rows, which must be within 1e-9."""
+    traces of `iters` rows, which must be within 1e-9."""
     import numpy as np
 
     a, b = (np.loadtxt(os.path.join(tmp, f"cli_{n}", "trace.log"),
                        skiprows=1) for n in (one, rank0))
-    check(a.shape == b.shape == (MESH_CLI_ITERS, a.shape[1]),
+    check(a.shape == b.shape == (iters, a.shape[1]),
           f"{what} trace shapes {a.shape} {b.shape}")
     rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-300)
     check(bool((rel <= 1e-9).all()), f"{what}: rank 0's trace differs by "
@@ -1949,6 +2010,18 @@ GOLD_RNDNORMAL_SLOT2 = [
 PLAIN_SWEEPS = ("node_age_plain", "mig_age_plain", "spr_plain")
 
 
+def legacy_schedule(iters, sample_age):
+    """The launches of `iters` legacy iterations: the sweeps as tensor
+    code, the rubber band 3 times an iteration (+1 with a sample age)."""
+    from gphocs_tpu_torch.ops import sweeps
+
+    want = dict.fromkeys(sweeps.LAUNCHES, 0)
+    want.update(dict.fromkeys(PLAIN_SWEEPS, iters),
+                rubber_band=TAU_PROPOSALS * iters,
+                rubber_band_sample_age=int(sample_age) * iters)
+    return want
+
+
 def legacy_streams():
     """Phase 10a: the Wichmann-Hill streams on the card: rndu bitwise equal
     to C's values, the normals within 5e-15, masked lanes unmoved, and
@@ -2007,10 +2080,10 @@ def legacy_streams():
 
 
 def legacy_sampler(ctl, data, device, dtype, loci=LEGACY_LOCI, chains=1,
-                   seed=111, **settings):
+                   seed=111, mesh=None, loci_multiple=1, **settings):
     """The conformance mode's sampler of a workload (start-mig 0; `chains`
-    chains from seed `seed` + 7919 c), initialized and with its migration
-    rates drawn."""
+    chains from seed `seed` + 7919 c; on `mesh`, this rank's block),
+    initialized and with its migration rates drawn."""
     from gphocs_tpu_torch.config import parse_control_text
     from gphocs_tpu_torch.config.samples import with_settings
     from gphocs_tpu_torch.sampler.driver import Sampler
@@ -2018,7 +2091,8 @@ def legacy_sampler(ctl, data, device, dtype, loci=LEGACY_LOCI, chains=1,
     cfg = parse_control_text(with_settings(
         ctl, random_seed=seed, start_mig=0, num_loci=loci, **settings))
     s = Sampler(cfg, seq_path=data, dtype=dtype, device=device,
-                rng_mode="legacy", chains=chains)
+                rng_mode="legacy", chains=chains, mesh=mesh,
+                loci_multiple=loci_multiple)
     s.initialize()
     s._sample_mig_rates_device()
     return s
@@ -2079,11 +2153,8 @@ def legacy_vs_cpu(label, ctl, data, sample_age, chains=1,
         st_g, tr_g = card.step_chunk(1, do_migrate=True)
         torch.cuda.synchronize()
         launches = dict(sweeps.LAUNCHES)
-        want = dict.fromkeys(sweeps.LAUNCHES, 0)
-        want.update(dict.fromkeys(PLAIN_SWEEPS, 1),
-                    rubber_band=TAU_PROPOSALS,
-                    rubber_band_sample_age=int(sample_age))
-        check(launches == want, f"{phase} {label}: launches {launches}")
+        check(launches == legacy_schedule(1, sample_age),
+              f"{phase} {label}: launches {launches}")
         st_c, tr_c = cpu.step_chunk(1, do_migrate=True)
         for f in st_g._fields:
             a, b = getattr(st_c, f), getattr(st_g, f)
@@ -2114,18 +2185,30 @@ def legacy_vs_cpu(label, ctl, data, sample_age, chains=1,
     return worst
 
 
-def legacy_profile(s, iters):
-    """Device operations, device busy ms and wall ms per iteration of
-    sampler s, and the idle share, from torch.profiler over `iters`
-    iterations (None where the profiler sees no device operation).  It
-    traces the device's activity alone: the host's ~40,000 operations an
-    iteration would cost seconds of the profiler's own processing; where
-    that gives no device event, it traces both."""
-    import torch
+def device_spans(prof):
+    """[(start, end)] in µs of every device operation that torch.profiler
+    traced, read from its raw (kineto) events: its Python event list
+    took ~2 minutes to build for the ~760,000 device operations of one
+    VAR legacy iteration on the card's host (phase 13a)."""
     from torch.autograd import DeviceType
+
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def legacy_profile(s, iters):
+    """Device operations, device busy ms (the union of their time
+    ranges) and wall ms per iteration of sampler s, and the idle share,
+    from torch.profiler over `iters` iterations (None where the profiler
+    sees no device operation).  It traces the device's activity alone:
+    the host's ~40,000 operations an iteration would cost seconds of the
+    profiler's own processing; where that gives no device event, it
+    traces both."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gphocs_tpu_torch.tools.profile_main import _busy_ms
+    from gphocs_tpu_torch.tools.profile_main import _union_ms
 
     for acts in ([ProfilerActivity.CUDA],
                  [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -2139,16 +2222,15 @@ def legacy_profile(s, iters):
         except (AssertionError, RuntimeError) as e:
             log(f"  torch.profiler with {[a.name for a in acts]}: {e}")
             continue
-        events = prof.events()
-        n = sum(1 for e in events if e.device_type == DeviceType.CUDA)
-        if n:
+        spans = device_spans(prof)
+        if spans:
             break
     else:
         log("  torch.profiler saw no device operation: not measured")
         return None
     log(f"  profiled with {[a.name for a in acts]}")
-    busy = _busy_ms(events)
-    return {"ops_per_iteration": n / iters,
+    busy = _union_ms(spans)
+    return {"ops_per_iteration": len(spans) / iters,
             "device_ms_per_iteration": busy / iters,
             "wall_ms_per_iteration": wall / iters,
             "idle_share": 1.0 - busy / wall}
@@ -2258,10 +2340,8 @@ def legacy_phase(tmp, data, card):
         launches = dict(sweeps.LAUNCHES)
         for k, v in launches.items():
             total[k] += v
-        want = dict.fromkeys(sweeps.LAUNCHES, 0)
-        want.update(dict.fromkeys(PLAIN_SWEEPS, n),
-                    rubber_band=TAU_PROPOSALS * n)
-        check(launches == want, f"10e {name}: launches {launches}")
+        check(launches == legacy_schedule(n, False),
+              f"10e {name}: launches {launches}")
         prof = legacy_profile(s, 1)
         check(bool(torch.isfinite(s.lnld).all()), f"10e {name}: lnld")
         check_carried_lnld(s)
@@ -2502,10 +2582,7 @@ def legacy_chains_phase(tmp, data, card):
         its.append(LEGACY_CHUNK / (time.perf_counter() - t_chunk))
     n = 3 * LEGACY_CHUNK
     launches = dict(sweeps.LAUNCHES)
-    want = dict.fromkeys(sweeps.LAUNCHES, 0)
-    want.update(dict.fromkeys(PLAIN_SWEEPS, n),
-                rubber_band=TAU_PROPOSALS * n)
-    check(launches == want, f"11d: launches {launches}")
+    check(launches == legacy_schedule(n, False), f"11d: launches {launches}")
     prof = legacy_profile(s, 1)
     check(bool(torch.isfinite(s.lnld).all()), "11d: lnld")
     check_carried_lnld(s)
@@ -2723,6 +2800,337 @@ def mesh_chains_phase(tmp, data, card):
         "one-process trace; the resumed trace and checkpoint bitwise equal "
         f"to the uninterrupted run's ([{C}, {WORKLOAD_LOCI}, ...]); rank 1 "
         "wrote no file")
+    torch.cuda.synchronize()
+    return launches, rec
+
+
+# -- phase 13: the legacy RNG on the loci mesh ------------------------------
+
+LEGACY_MESH_CHAINS = (1, 2)  # 13a: the chain counts, in turns each
+LEGACY_MESH_ITERS = 1        # 13a: iterations each way, one per chunk
+LEGACY_MESH_CPU_ITERS = 2    # 13b: card iterations held against the CPU
+# 13b: (label, control file of config/samples.py, loci, chains)
+LEGACY_MESH_WORKLOADS = (
+    ("var", "SAMPLE_AGE_VAR_CTL", LEGACY_LOCI, 1),
+    ("var_pad_chains2", "SAMPLE_AGE_VAR_CTL", LEGACY_LOCI - 1, 2),
+    ("admix_pad", "ADMIX_CTL", LEGACY_LOCI - 1, 1),
+    ("admix_chains2", "ADMIX_CTL", LEGACY_LOCI, 2))
+LEGACY_MESH_CLI_ITERS = 4    # 13c
+LEGACY_MESH_CKPT = 2         # 13c: the checkpoint, resumed to 4
+
+
+def legacy_var_ctl():
+    """SAMPLE_CTL with `locus-mut-rate VAR 1.0` and SAMPLE_AGE_VAR_CTL's
+    rate finetune (0.3): 13a's workload, whose rate update crosses the
+    ranks."""
+    from gphocs_tpu_torch.config.samples import SAMPLE_CTL, with_settings
+
+    return with_settings(SAMPLE_CTL, locus_mut_rate="VAR 1.0",
+                         finetune_locus_rate=0.3)
+
+
+def legacy_mesh_turns(data, card):
+    """Phase 13a: a world of one over NCCL in this process, 13a's
+    workload at f32 under the legacy RNG with and without the mesh from
+    one state, for each chain count of LEGACY_MESH_CHAINS:
+    LEGACY_MESH_ITERS chunks of one iteration each way in turns (plain,
+    meshed, meshed, plain), each meshed chunk bitwise equal to the plain
+    one (stats, trace, gathered state, streams) with the same launches;
+    then legacy_profile over one iteration of the meshed sampler.
+    Returns (the meshed chunks' launches, the readings per chain
+    count)."""
+    import torch
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    ctl = legacy_var_ctl()
+    total = dict.fromkeys(sweeps.LAUNCHES, 0)
+    rec = {}
+    M.init_distributed(f"127.0.0.1:{M.free_port()}", 1, 0, device="cuda",
+                       timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = M.make_mesh()
+        check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        for C in LEGACY_MESH_CHAINS:
+            t0 = time.perf_counter()
+            plain = legacy_sampler(ctl, data, "cuda", torch.float32,
+                                   loci=-1, chains=C)
+            meshed = legacy_sampler(ctl, data, "cuda", torch.float32,
+                                    loci=-1, chains=C, mesh=mesh)
+            legacy_copy(plain, meshed)
+            setup = time.perf_counter() - t0
+            pairs = []
+            for k in range(LEGACY_MESH_ITERS):
+                order = (plain, meshed) if k % 2 == 0 else (meshed, plain)
+                got = {id(x): mesh_chunk(x, 1) for x in order}
+                pairs.append((got[id(plain)], got[id(meshed)]))
+            # one profiled iteration of the meshed sampler (~15-17 s on
+            # the card, and its ~760,000 device events to read)
+            prof = legacy_profile(meshed, 1)
+            for a, b in pairs:
+                compare_runs(f"13a C={C}", a, b, exact=True)
+                check(a["launches"] == b["launches"] == legacy_schedule(
+                    1, False), f"13a C={C}: launches {b['launches']}")
+                for key, v in b["launches"].items():
+                    total[key] += v
+            coll = [b["collectives"] for _, b in pairs]
+            n = len(pairs)
+            acc = [int(b["stats"]["acc_locus_rate"].sum()) for _, b in pairs]
+            check(min(acc) > 0, f"13a C={C}: no rate move accepted")
+            rec[f"c{C}"] = {
+                "it_per_s": [1.0 / b["seconds"] for _, b in pairs],
+                "plain_it_per_s": [1.0 / a["seconds"] for a, _ in pairs],
+                "ratio_in_turns": sum(a["seconds"] for a, _ in pairs)
+                / sum(b["seconds"] for _, b in pairs),
+                **{f"{k}_per_iteration": sum(c[k] for c in coll) / n
+                   for k in ("all_reduce", "broadcast", "all_gather")},
+                "host_ms_per_iteration": {
+                    k: 1e3 * sum(c[key] for c in coll) / n
+                    for k, key in (("all_reduce", "seconds"),
+                                   ("broadcast", "broadcast_seconds"),
+                                   ("all_gather", "all_gather_seconds"))},
+                "rate_accepts": acc,
+                "rubber_band_per_iteration":
+                    pairs[0][1]["launches"]["rubber_band"],
+                "setup_s": setup, "profiled": prof}
+            log(f"  C={C}: {n} pairs bitwise equal (stats, trace, state, "
+                f"streams); {rec[f'c{C}']}; on {card}")
+            del plain, meshed, pairs
+    finally:
+        M.shutdown()
+    return total, rec
+
+
+def legacy_gathered(s):
+    """The legacy sampler's state with every rank's loci gathered, on the
+    CPU, as legacy_copy reads it (gens, params, lrngs, grng, lnlds,
+    lnps, conds, rate_var)."""
+    from gphocs_tpu_torch.parallel.mesh import gather_rows
+    from gphocs_tpu_torch.rng import WhRngState
+    from gphocs_tpu_torch.state import GenState
+
+    def rows(t):
+        return gather_rows(s.mesh, t, s.chains).cpu()
+
+    return {"gens": (GenState(*(rows(x) for x in s.gen)),),
+            "lrngs": (WhRngState(*(rows(x) for x in s.lrng)),),
+            "lnlds": (rows(s.lnld),), "lnps": (rows(s.lnp),),
+            "conds": (rows(s.cond),),
+            "params": type(s.params)(*(None if x is None else x.cpu()
+                                       for x in s.params)),
+            "grng": WhRngState(*(x.cpu() for x in s.grng)),
+            "rate_var": s.rate_var}
+
+
+def legacy_mesh_rank(spec, rank):
+    """One of the two ranks of phase 13b, sharing the card over gloo:
+    for each workload of SPEC, its legacy sampler at f64 on this rank's
+    block, then SPEC["iters"] chunks of one iteration, each with the
+    gathered state before it, and after the last the rubber band (both
+    modes where the workload estimates a sample age) against its plain
+    version on the rank's block; rank 0 writes what they gathered."""
+    import torch
+    from gphocs_tpu_torch.config import samples
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    M.init_distributed(f"127.0.0.1:{spec['port']}", 2, rank, device="cuda",
+                       timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = M.make_mesh()
+        check(mesh.backend == "gloo", f"backend {mesh.backend}")
+        out = {}
+        for label, ctl, loci, chains in spec["workloads"]:
+            s = legacy_sampler(getattr(samples, ctl), spec["data"], "cuda",
+                               torch.float64, loci=loci, chains=chains,
+                               mesh=mesh)
+            steps = []
+            for _ in range(spec["iters"]):
+                before = legacy_gathered(s)
+                res = mesh_chunk(s, 1)
+                res["before"] = before
+                res["launches_by_rank"] = [
+                    dict(zip(res["launches"], v.long().tolist()))
+                    for v in M.gather_rows(mesh, torch.tensor(
+                        [list(res["launches"].values())],
+                        dtype=torch.float64), 1)]
+                steps.append(res)
+            cmp = Compare()
+            rubber_band_checks(s, cmp, F64_TOL)
+            if bool(s.tree.update_sample_age[SAMPLE_AGE_POP]):
+                sample_age_checks(s, cmp, F64_TOL)
+            errs = M.all_reduce(mesh, [torch.tensor(
+                [cmp.err.get(k, 0.0) for k in ("rubber_band",
+                                               "rubber_band_sample_age")])],
+                "max")[0]
+            out[label] = {"steps": steps, "rubber_band_err": errs.tolist(),
+                          "loci": [s.gen.num_loci, s.num_loci, s.pad_loci]}
+        if rank == 0:
+            torch.save(out, spec["out"])
+    finally:
+        M.shutdown()
+    return 0
+
+
+def legacy_two_ranks(tmp, data):
+    """Phase 13b: two ranks sharing the card over gloo
+    (`chip_smoke.py --mesh-rank`, legacy_mesh_rank) on the workloads of
+    LEGACY_MESH_WORKLOADS at f64; each of their card iterations held
+    against one iteration of a one-process CPU sampler with
+    loci_multiple=2 from the same gathered state: equal accept counts
+    (per chain), streams and integer arrays, reals within 1e-9 relative,
+    each rank launching the legacy schedule, each chain's padding locus
+    inert, the rubber band equal to its plain version on each rank's
+    block.  Returns the largest relative difference per workload."""
+    import types
+
+    import torch
+    from gphocs_tpu_torch.config import samples
+    from gphocs_tpu_torch.parallel import mesh as M
+
+    spec = {"port": M.free_port(), "data": data, "rng_mode": "legacy",
+            "workloads": LEGACY_MESH_WORKLOADS,
+            "iters": LEGACY_MESH_CPU_ITERS,
+            "out": os.path.join(tmp, "ranks_13b.pt")}
+    spec_path = os.path.join(tmp, "spec_13b.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    outs = [open(os.path.join(tmp, f"rank_13b_{r}.out"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+         spec_path, str(r)], cwd=ROOT, stdout=outs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=MESH_TIMEOUT_S + 300) for p in procs]
+    finally:
+        for p, o in zip(procs, outs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            o.close()
+    for r, rc in enumerate(rcs):
+        text = open(os.path.join(tmp, f"rank_13b_{r}.out")).read()
+        check(rc == 0, f"13b rank {r} failed:\n{text[-3000:]}")
+    got = torch.load(spec["out"], weights_only=False)
+    worst = {}
+    for label, ctl, loci, chains in LEGACY_MESH_WORKLOADS:
+        res = got[label]
+        sample_age = ctl == "SAMPLE_AGE_VAR_CTL"
+        cpu = legacy_sampler(getattr(samples, ctl), data, "cpu",
+                             torch.float64, loci=loci, chains=chains,
+                             loci_multiple=2)
+        worst[label] = 0.0
+        for i, step in enumerate(res["steps"]):
+            legacy_copy(types.SimpleNamespace(**step["before"]), cpu)
+            ref = mesh_chunk(cpu, 1)
+            worst[label] = max(worst[label], compare_runs(
+                f"13b {label} iteration {i}", ref, step, exact=False))
+            for by_rank in step["launches_by_rank"]:
+                check(by_rank == legacy_schedule(1, sample_age),
+                      f"13b {label}: launches {by_rank}")
+        Lp = LEGACY_LOCI
+        check(res["loci"] == [chains * Lp // 2, Lp, Lp - loci],
+              f"13b {label}: rows {res['loci']}")
+        st = res["steps"][-1]["state"]
+        if loci < Lp:
+            last = [c * Lp + Lp - 1 for c in range(chains)]
+            check(not bool(st["gen"]["valid"][last].any())
+                  and bool((st["lnld"][last] == 0).all()),
+                  f"13b {label}: a padding locus is not inert")
+        acc = res["steps"][-1]["stats"]
+        log(f"  {label}: {chains} chain(s) of {loci} loci ({Lp - loci} "
+            f"padding each), each rank {res['loci'][0]} rows; "
+            f"{len(res['steps'])} card iterations, each equal to one CPU "
+            f"iteration (accepts, streams, integers), reals within "
+            f"{worst[label]:.2e} relative; accepts of the last: spr "
+            f"{acc['acc_spr'].tolist()} rates "
+            f"{acc['acc_locus_rate'].tolist()} admix "
+            f"{acc['acc_admix'].tolist()}; rubber band against its plain "
+            f"version on each rank's block, max |diff| (tau, sample age) "
+            f"{res['rubber_band_err']}")
+    return worst
+
+
+def legacy_mesh_phase(tmp, data, card):
+    """Phase 13: the legacy RNG on the loci mesh.  Returns (launches of
+    13a's meshed chunks, a record of the phase's readings)."""
+    import numpy as np
+    import torch
+    from gphocs_tpu_torch.config.samples import (SAMPLE_AGE_VAR_CTL,
+                                                 with_settings)
+
+    t0 = time.perf_counter()
+    log(f" -- 13a: NCCL, a world of one, {WORKLOAD_LOCI} loci with VAR "
+        f"rates at f32, {LEGACY_MESH_CHAINS} chain(s): "
+        f"{LEGACY_MESH_ITERS} chunk(s) of one iteration each way in turns, "
+        f"on {card}")
+    launches, rec = legacy_mesh_turns(data, card)
+    rec = {"nccl1": rec}
+
+    log(f" -- 13b: two ranks share the card over gloo at f64 "
+        f"({LEGACY_MESH_CPU_ITERS} iterations per workload, each against "
+        f"the CPU; {time.perf_counter() - t0:.1f} s)")
+    rec["gloo2_max_rel"] = legacy_two_ranks(tmp, data)
+
+    C = 2
+    log(f" -- 13c: python -m gphocs_tpu_torch --legacy-rng --distributed "
+        f"--chains {C} --x64, 2 processes sharing the card, "
+        f"{LEGACY_MESH_CLI_ITERS} iterations of {LEGACY_LOCI} loci with a "
+        f"checkpoint at {LEGACY_MESH_CKPT} and --resume, against the "
+        f"one-process command ({time.perf_counter() - t0:.1f} s)")
+
+    def ctl(name, iterations):
+        path = os.path.join(tmp, f"{name}.ctl")
+        with open(path, "w") as f:
+            f.write(with_settings(
+                SAMPLE_AGE_VAR_CTL, seq_file=data, trace_file="trace.log",
+                num_loci=LEGACY_LOCI, mcmc_iterations=iterations,
+                iterations_per_log=LEGACY_MESH_CKPT, random_seed=5,
+                burn_in=0, start_mig=0))
+        return path
+
+    whole = ctl("lm_whole", LEGACY_MESH_CLI_ITERS)
+    first = ctl("lm_first", LEGACY_MESH_CKPT)
+    ck = {n: os.path.join(tmp, f"lm_{n}.npz")
+          for n in ("whole", "first", "second")}
+    flags = ["--legacy-rng", "--chains", str(C), "--checkpoint-every",
+             str(LEGACY_MESH_CKPT)]
+    cli_finish(tmp, [
+        cli_start(tmp, "lm_one", whole, *flags),
+        *cli_ranks(tmp, "lm_whole", whole, *flags,
+                   "--checkpoint", ck["whole"]),
+        *cli_ranks(tmp, "lm_first", first, *flags,
+                   "--checkpoint", ck["first"])], "13c")
+    shutil.copy(ck["first"], ck["second"])
+    cli_finish(tmp, cli_ranks(tmp, "lm_second", whole, *flags,
+                              "--checkpoint", ck["second"], "--resume"),
+               "13c")
+    for name in ("whole", "first", "second"):
+        check(os.listdir(os.path.join(tmp, f"cli_lm_{name}1")) == [],
+              f"13c: rank 1 of {name} wrote a file")
+    rec["cli_max_rel"] = cli_trace_rel(tmp, "13c", "lm_one", "lm_whole0",
+                                       LEGACY_MESH_CLI_ITERS)
+
+    def trace(name):
+        with open(os.path.join(tmp, f"cli_{name}", "trace.log")) as f:
+            return f.read().splitlines()
+
+    rows = trace("lm_whole0")
+    check(trace("lm_second0") == [rows[0]] + rows[1 + LEGACY_MESH_CKPT:],
+          "13c: the resumed trace differs from the uninterrupted one")
+    za, zb = np.load(ck["whole"]), np.load(ck["second"])
+    check(sorted(za.files) == sorted(zb.files)
+          and all(np.array_equal(za[k], zb[k]) for k in za.files),
+          "13c: the resumed run's checkpoint differs")
+    check(za["gen_age"].shape[:2] == (C, LEGACY_LOCI)
+          and za["lrng_x"].shape == (C, LEGACY_LOCI)
+          and za["grng_x"].shape == (C, 1) and "lrng_key" not in za.files,
+          f"13c: checkpoint layout {za['gen_age'].shape} "
+          f"{za['lrng_x'].shape}")
+    log(f"  rank 0's trace within {rec['cli_max_rel']:.2e} relative of the "
+        "one-process trace; the resumed trace and checkpoint bitwise equal "
+        f"to the uninterrupted run's ([{C}, {LEGACY_LOCI}, ...], lrng_* "
+        f"[{C}, {LEGACY_LOCI}], grng_* [{C}, 1]); rank 1 wrote no file")
     torch.cuda.synchronize()
     return launches, rec
 
@@ -3029,6 +3437,13 @@ def main():
     paths["mesh_chains"] = mc_rec["nccl1"]["it_per_s"]
     all_launches.append(mc_launches)
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    log("== phase 13: the legacy RNG on the loci mesh")
+    t_phase = time.perf_counter()
+    lm_launches, lm_rec = legacy_mesh_phase(tmp, data, card)
+    its = lm_rec["nccl1"]["c1"]["it_per_s"]
+    paths["legacy_mesh"] = sum(its) / len(its)
+    all_launches.append(lm_launches)
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
@@ -3063,7 +3478,8 @@ def main():
     for label, its in paths.items():
         if label in ragged or label in (
                 f"chains{CHAINS}", "mesh", "legacy",
-                f"legacy_chains{LEGACY_BIG_CHAINS}", "mesh_chains"):
+                f"legacy_chains{LEGACY_BIG_CHAINS}", "mesh_chains",
+                "legacy_mesh"):
             continue
         log(json.dumps({"path": label, "it_per_s": its, "card": card}))
     c4 = chain_read[f"c{CHAINS}"]
@@ -3084,6 +3500,8 @@ def main():
                     "card": card}))
     log(json.dumps({"path": "mesh_chains", "it_per_s": paths["mesh_chains"],
                     **mc_rec, "card": card}))
+    log(json.dumps({"path": "legacy_mesh", "it_per_s": paths["legacy_mesh"],
+                    **lm_rec, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
@@ -3094,7 +3512,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 9b or 12b
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 9b, 12b or 13b
         sys.path.insert(0, ROOT)
         sys.exit(mesh_rank(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -12,9 +12,10 @@ checkpoint written by either package resumes in the other.  The streams
 are `lrng_key`/`lrng_ctr` and `grng_key`/`grng_ctr` for the fast RNG, and
 the Wichmann-Hill states `lrng_x`, `lrng_y`, `lrng_z` ([L]) and `grng_x`,
 `grng_y`, `grng_z` ([1]), uint32, for the legacy RNG (one bucket; C
-chains' [C, L] and [C, 1]).  An unbucketed
-sampler writes `gen_*`, `lrng_*`, `lnld`, `lnp`, `cond`; a bucketed one
-`b<k>_*` per bucket.  The conditionals are [L, N, P, 4] in both packages;
+chains' [C, L] and [C, 1]; on a mesh the per-locus ones gathered like
+the genealogies, the general ones rank 0's, as every rank holds them).
+An unbucketed sampler writes `gen_*`, `lrng_*`, `lnld`, `lnp`, `cond`; a
+bucketed one `b<k>_*` per bucket.  The conditionals are [L, N, P, 4] in both packages;
 a file written on a TPU with the Pallas kernels' lane layout is not.  A
 sampler of C chains writes gphocs_tpu's stacked layout: a leading chain
 axis on every per-chain array ([C, L, ...] per locus, [C, P] parameters,
@@ -98,6 +99,8 @@ def save_checkpoint(sampler, path: str, iteration: int) -> None:
         lrng = sampler.lrngs[k]
         if isinstance(lrng, FastRngState):
             lrng = lrng._replace(key=rows(lrng.key))
+        else:
+            lrng = R.WhRngState(*(rows(f) for f in lrng))
         arrays.update(_rng_np(f"{p}lrng", lrng, C))
         arrays[f"{p}lnld"] = per_locus(sampler.lnlds[k])
         arrays[f"{p}lnp"] = per_locus(sampler.lnps[k])
@@ -157,10 +160,11 @@ def load_checkpoint(sampler, path: str) -> int:
         return from_numpy(a[blocks[k]], **conv)
 
     def rng(pre, block=slice(None)):
-        if legacy:  # one bucket, no mesh
-            # per-locus [C, L] as [C * L]; the general streams stay [C, 1]
+        if legacy:  # one bucket
+            # per-locus [C, L] as [C * L], the rank's block of it; the
+            # general streams stay [C, 1]
             return R.from_arrays(*(
-                data[f"{pre}_{f}"].reshape(-1) if pre.endswith("lrng")
+                data[f"{pre}_{f}"].reshape(-1)[block] if pre.endswith("lrng")
                 else data[f"{pre}_{f}"] for f in "xyz"),
                 device=sampler.device)
         key = data[f"{pre}_key"]

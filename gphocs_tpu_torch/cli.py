@@ -15,9 +15,7 @@ counter-based streams on the card and the reference-conformance mode
 and SPR sweeps as tensor code, gphocs_tpu's legacy run draw for draw) on
 the CPU, unless `--fast-rng` or `--legacy-rng` says otherwise; both
 together are a usage error, and so are pattern buckets with the legacy
-RNG.  The start line names the mode and the chains.  The legacy RNG on a
-mesh, with or without `--chains`, is not ported (ROADMAP Queue 1 item
-17c) and raises before any file is read.  `--chains C` runs C
+RNG.  The start line names the mode and the chains.  `--chains C` runs C
 independent chains side by side (seeds base + 7919 c; chain 0 writes the
 trace), not with `--buckets` or a coal-stats file.  A control file with
 admixed samples runs without `--buckets` (as in gphocs_tpu) and writes
@@ -32,8 +30,13 @@ started as `--distributed` processes on 127.0.0.1), or a world of one with
 `--device cpu`.  Rank 0 prints, writes the trace, the checkpoint and the
 other files; a rank that fails fails the run (the process group's
 timeout is --mesh-timeout).  With `--chains C` every rank holds its block
-of every chain's loci (the fast RNG); the trace is chain 0's, as in one
-process.
+of every chain's loci; the trace is chain 0's, as in one process.  Both
+RNG modes run on a mesh: `--device cpu --mesh` takes the legacy RNG, as
+on the CPU without a mesh, and its serial rate update hands its carry
+from rank to rank (W broadcasts per update).  Every rank makes every
+collective, those of the trace, the checkpoints, `--debug-check` and the
+coal-stats file included; rank 0 is the only writer, and `-v`'s method
+times are rank 0's own loci, timed without collectives.
 """
 
 from __future__ import annotations
@@ -125,10 +128,6 @@ def main(argv=None):
     if args.buckets > 1 and legacy:
         ap.error("--buckets requires the fast RNG (as in gphocs_tpu): "
                  "drop --buckets or give --fast-rng")
-    if legacy and (args.mesh or args.distributed):
-        raise NotImplementedError(
-            "a loci mesh with the legacy RNG is not ported to "
-            "gphocs_tpu_torch yet (ROADMAP Queue 1 item 17c)")
     if args.chains < 1:
         ap.error("--chains takes one chain or more")
     if args.buckets > 1 and args.chains > 1:

@@ -24,6 +24,12 @@ rndu (the accept).  The counter advances by 5.
 C chains (chain-major loci, a counter per chain): every chain matches its
 own loci and keeps its own simplex; the counts and variance deltas are
 [C].
+
+On a loci mesh the paired update pairs within each rank's block, as
+gphocs_tpu's shard_map does, and all-reduces its counts; the serial
+sweep scans the ranks' blocks in rank order, each rank handing the
+reference locus's carry to the next with one broadcast (W per sweep), so
+that it gives the one-process sweep's bits on the padded loci.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 
 from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch import rng_fast as RF
-from gphocs_tpu_torch.kernels.common import maybe_psum, per_chain, rows
+from gphocs_tpu_torch.kernels.common import maybe_psum, per_chain
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.state import GenState, SeqData
 from gphocs_tpu_torch.utils import reflect
@@ -107,18 +113,28 @@ def update_locus_rates_paired(gen: GenState, seq: SeqData, rng, finetune,
     return gen, rng, lnld, cond, acc, dvar / L_total
 
 
-def _pair_lnld(gen: GenState, seq: SeqData, idx: torch.Tensor,
-               rates: torch.Tensor) -> torch.Tensor:
-    """Data log-likelihood of the loci `idx` with their rates replaced by
-    `rates` (gphocs_tpu's _pair_lnld): a full rebuild of those loci."""
-    sub = GenState(*(x[idx] for x in gen))._replace(mut_rate=rates)
-    sq = SeqData(*(None if x is None else x[idx] for x in seq))
-    return full_rebuild_and_lnld(sub, sq)[1]
+def _pair_lnld(gen: GenState, seq: SeqData, ref_gen: GenState,
+               ref_seq: SeqData, gi: torch.Tensor, rnew: torch.Tensor,
+               rrefnew: torch.Tensor) -> torch.Tensor:
+    """Data log-likelihood of the loci gi ([C], one per chain) and of
+    their chains' reference loci (ref_gen, ref_seq: [C] rows), with
+    their rates replaced by rnew and rrefnew (gphocs_tpu's _pair_lnld):
+    a full rebuild of the 2C loci, held as pairs (g, ref) chain by
+    chain.  Returns [C, 2]."""
+    def pairs(a, b):
+        return torch.stack([a, b], dim=1).reshape(-1, *a.shape[1:])
+
+    sub = GenState(*(pairs(x[gi], r) for x, r in zip(gen, ref_gen)))
+    sub = sub._replace(mut_rate=pairs(rnew, rrefnew))
+    sq = SeqData(*(None if x is None else pairs(x[gi], r)
+                   for x, r in zip(seq, ref_seq)))
+    return full_rebuild_and_lnld(sub, sq)[1].view(-1, 2)
 
 
 def update_locus_rates(gen: GenState, seq: SeqData, rng, finetune,
                        lnld: torch.Tensor, var_alpha, ref_locus: int = 0,
-                       chains: int = 1):
+                       chains: int = 1, loci_axis=None,
+                       ref_seq: SeqData = None):
     """The serial sweep of the conformance mode (reference
     src/GPhoCS.c:4598-4674; gphocs_tpu's update_locus_rates) on the
     Wichmann-Hill streams: every locus g but the reference locus, in
@@ -137,54 +153,96 @@ def update_locus_rates(gen: GenState, seq: SeqData, rng, finetune,
     and step g moves locus g of every chain against that chain's
     reference locus (rows c L + g and c L + ref), each chain drawing and
     deciding on its own.  Returns (gen, rng, lnld, accepted,
-    rate_var_delta), the last two [C] for C > 1 chains."""
+    rate_var_delta), the last two [C] for C > 1 chains.
+
+    The scan carries the reference loci's rates and lnld, the accepts
+    and the variance delta ([C] each) and writes the reference rows back
+    at its end.  On a loci mesh (`loci_axis`, W ranks; the reference
+    locus must be 0) rank r holds the loci [r Ls, (r + 1) Ls) of every
+    chain, so the global order of the scan is rank 0's block, then rank
+    1's, and so on: rank r scans its block once the ranks before it are
+    done and then broadcasts the carry (rank 0's broadcast also carries
+    the reference loci's genealogy rows, which the update never changes),
+    W broadcasts in rank order whatever the data.  `ref_seq` is the
+    reference locus's SeqData row ([1, ...] or [C, ...]), which every
+    rank holds; rank 0 writes the reference rows back after the last
+    broadcast.  Each step's arithmetic is the one-process step's, on the
+    same rows and streams, so W ranks give the bits of one process
+    running the padded loci; the counts and the variance delta (divided
+    by the padded loci of a chain, W Ls) are global on every rank."""
+    from gphocs_tpu_torch.parallel.mesh import broadcast
+
     K = gen.num_loci
-    L = K // chains                                   # loci of one chain
+    Ls = K // chains                                  # loci of one block
+    W, rank = ((1, 0) if loci_axis is None
+               else (loci_axis.world, loci_axis.rank))
+    if loci_axis is not None and ref_locus != 0:
+        raise ValueError("a loci mesh takes the reference locus 0")
     dt = lnld.dtype
     dev = lnld.device
-    first = torch.arange(0, K, L, device=dev)         # [C]
+    first = torch.arange(0, K, Ls, device=dev)        # [C]
     zero = torch.zeros((), dtype=dt, device=dev)
-    n_loci = torch.full((), L, dtype=dt, device=dev)
+    n_loci = torch.full((), Ls * W, dtype=dt, device=dev)
+    ri = first + ref_locus
+    # the carry: the reference rows, their rate and lnld, the accepts and
+    # the variance delta; off rank 0, placeholders of their shapes
+    ref_gen = GenState(*(x[ri] for x in gen))
+    if ref_seq is None:
+        ref_seq = SeqData(*(None if x is None else x[ri] for x in seq))
+    ref_seq = SeqData(*(None if x is None else x.expand(
+        len(first), *x.shape[1:]) for x in ref_seq))
+    rref, lnld_ref = gen.mut_rate[ri], lnld[ri]
     acc = torch.zeros(first.shape, dtype=torch.int64, device=dev)
     dvar = torch.zeros(first.shape, dtype=dt, device=dev)
     rate = gen.mut_rate
-    ri = first + ref_locus
-    for g in range(L):
-        if g == ref_locus:  # it draws nothing and never moves
-            continue
-        gi = first + g
-        active = gen.valid[gi]
-        rold, rref = rate[gi], rate[ri]
-        lanes = torch.zeros((K,), dtype=torch.bool, device=dev)
-        lanes[gi] = active
-        z, rng = R.rnd2normal8(rng, lanes, dt)
-        rnew = reflect(rold + finetune * z[gi], zero, rold + rref)
-        rrefnew = rref + rold - rnew
-        new_pair = _pair_lnld(gen, seq, torch.stack([gi, ri], dim=1).view(-1),
-                              torch.stack([rnew, rrefnew], dim=1).view(-1)
-                              ).view(-1, 2)
-        dlnld = ((new_pair[:, 0] - lnld[gi])
-                 + (new_pair[:, 1] - lnld[ri]))
-        lnacc = ((var_alpha - 1.0)
-                 * torch.log((rnew * rrefnew) / (rold * rref)) + dlnld)
-        lanes = torch.zeros((K,), dtype=torch.bool, device=dev)
-        lanes[gi] = active & (lnacc < 0.0)
-        u, rng = R.rndu(rng, lanes, dt)
-        accept = active & ((lnacc >= 0.0)
-                           | (u[gi] < torch.exp(torch.clamp(lnacc,
-                                                            max=0.0))))
-        on = rows(accept, K, 0)                       # each locus's chain's
-        moved = rate.clone()
-        moved[gi], moved[ri] = rnew, rrefnew
-        rate = torch.where(on, moved, rate)
-        moved = lnld.clone()
-        moved[gi], moved[ri] = new_pair[:, 0], new_pair[:, 1]
-        lnld = torch.where(on, moved, lnld)
-        acc = acc + accept.to(torch.int64)
-        dvar = dvar + torch.where(
-            accept,
-            (rnew ** 2 + rrefnew ** 2 - rold ** 2 - rref ** 2) / n_loci,
-            zero)
+    for src in range(W):
+        if src == rank:
+            for g in range(Ls):
+                if rank == 0 and g == ref_locus:  # draws nothing, never moves
+                    continue
+                gi = first + g
+                active = gen.valid[gi]
+                rold = rate[gi]
+                lanes = torch.zeros((K,), dtype=torch.bool, device=dev)
+                lanes[gi] = active
+                z, rng = R.rnd2normal8(rng, lanes, dt)
+                rnew = reflect(rold + finetune * z[gi], zero, rold + rref)
+                rrefnew = rref + rold - rnew
+                new_pair = _pair_lnld(gen, seq, ref_gen, ref_seq, gi, rnew,
+                                      rrefnew)
+                dlnld = ((new_pair[:, 0] - lnld[gi])
+                         + (new_pair[:, 1] - lnld_ref))
+                lnacc = ((var_alpha - 1.0)
+                         * torch.log((rnew * rrefnew) / (rold * rref))
+                         + dlnld)
+                lanes = torch.zeros((K,), dtype=torch.bool, device=dev)
+                lanes[gi] = active & (lnacc < 0.0)
+                u, rng = R.rndu(rng, lanes, dt)
+                accept = active & ((lnacc >= 0.0)
+                                   | (u[gi] < torch.exp(torch.clamp(
+                                       lnacc, max=0.0))))
+                rate = rate.index_put((gi,), torch.where(accept, rnew,
+                                                         rold))
+                lnld = lnld.index_put((gi,), torch.where(
+                    accept, new_pair[:, 0], lnld[gi]))
+                dvar = dvar + torch.where(
+                    accept,
+                    (rnew ** 2 + rrefnew ** 2 - rold ** 2 - rref ** 2)
+                    / n_loci, zero)
+                rref = torch.where(accept, rrefnew, rref)
+                lnld_ref = torch.where(accept, new_pair[:, 1], lnld_ref)
+                acc = acc + accept.to(torch.int64)
+        if loci_axis is not None:
+            carry = [rref, lnld_ref, acc, dvar]
+            if src == 0:
+                carry += list(ref_gen)
+            carry = broadcast(loci_axis, carry, src)
+            rref, lnld_ref, acc, dvar = carry[:4]
+            if src == 0:
+                ref_gen = GenState(*carry[4:])
+    if rank == 0:
+        rate = rate.index_put((ri,), rref)
+        lnld = lnld.index_put((ri,), lnld_ref)
     if chains == 1:
         acc, dvar = acc[0], dvar[0]
     return gen._replace(mut_rate=rate), rng, lnld, acc, dvar

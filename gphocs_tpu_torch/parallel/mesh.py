@@ -18,7 +18,9 @@ every rank takes the same global decisions; with chains each carries a
 value per chain.
 Reductions that fall at the same point travel in one float64 tensor
 (`all_reduce`); a max that travels beside sums goes as a sum of 0/1
-flags.
+flags.  The conformance mode's serial rate update (kernels/locus_rate.py)
+hands its carry from rank to rank with `broadcast`, one float64 tensor
+sent by one rank: W of them per update, in rank order.
 
 The loci are padded to a multiple of the world size with inert loci
 (`pad_seq`, `pad_bucket`): valid False, zero pattern counts, one phase,
@@ -55,17 +57,21 @@ from gphocs_tpu_torch.rng_fast import GOLDEN, MASK32
 
 DEFAULT_TIMEOUT_S = 600.0
 
-# all-reduces since the last reset_collective_counts(), and the host's
-# seconds inside them (gloo waits for the device at every collective;
-# NCCL's host time is the enqueue)
-COLLECTIVES = {"all_reduce": 0, "seconds": 0.0}
+# all-reduces, broadcasts and gathers since the last
+# reset_collective_counts(), and the host's seconds inside each kind
+# ("seconds": the all-reduces'; gloo waits for the device at every
+# collective; NCCL's host time is the enqueue)
+COLLECTIVES = {"all_reduce": 0, "seconds": 0.0, "broadcast": 0,
+               "broadcast_seconds": 0.0, "all_gather": 0,
+               "all_gather_seconds": 0.0}
 
 _DEVICE: Optional[torch.device] = None
 
 
 def reset_collective_counts() -> None:
-    COLLECTIVES["all_reduce"] = 0
-    COLLECTIVES["seconds"] = 0.0
+    COLLECTIVES.update(all_reduce=0, seconds=0.0, broadcast=0,
+                       broadcast_seconds=0.0, all_gather=0,
+                       all_gather_seconds=0.0)
 
 
 @dataclass(frozen=True)
@@ -171,24 +177,45 @@ def shutdown() -> None:
     _DEVICE = None
 
 
-def all_reduce(mesh: LociMesh, xs: Sequence, op: str = "sum") -> list:
-    """xs reduced over the ranks ("sum" or "max"), in one all-reduce of
-    one float64 tensor; each comes back in its own dtype and shape (a
-    bool summed over ranks is True where any rank's is).  Exact for
-    integer counts below 2^53 and for a world of one."""
+def _pack(mesh: LociMesh, xs: Sequence):
     xs = [torch.as_tensor(x, device=mesh.device) for x in xs]
-    flat = torch.cat([x.reshape(-1).to(torch.float64) for x in xs])
-    t0 = time.perf_counter()
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM if op == "sum"
-                    else dist.ReduceOp.MAX, group=mesh.group)
-    COLLECTIVES["all_reduce"] += 1
-    COLLECTIVES["seconds"] += time.perf_counter() - t0
+    return xs, torch.cat([x.reshape(-1).to(torch.float64) for x in xs])
+
+
+def _unpack(xs: list, flat: torch.Tensor) -> list:
     out, off = [], 0
     for x in xs:
         n = x.numel()
         out.append(flat[off:off + n].reshape(x.shape).to(x.dtype))
         off += n
     return out
+
+
+def all_reduce(mesh: LociMesh, xs: Sequence, op: str = "sum") -> list:
+    """xs reduced over the ranks ("sum" or "max"), in one all-reduce of
+    one float64 tensor; each comes back in its own dtype and shape (a
+    bool summed over ranks is True where any rank's is).  Exact for
+    integer counts below 2^53 and for a world of one."""
+    xs, flat = _pack(mesh, xs)
+    t0 = time.perf_counter()
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=mesh.group)
+    COLLECTIVES["all_reduce"] += 1
+    COLLECTIVES["seconds"] += time.perf_counter() - t0
+    return _unpack(xs, flat)
+
+
+def broadcast(mesh: LociMesh, xs: Sequence, src: int) -> list:
+    """Rank `src`'s xs on every rank, in one broadcast of one float64
+    tensor; each comes back in its own dtype and shape (every rank passes
+    tensors of the same shapes; the others' values are dropped).  Bitwise
+    for every f32/f64 value, bools and integers below 2^53."""
+    xs, flat = _pack(mesh, xs)
+    t0 = time.perf_counter()
+    dist.broadcast(flat, src=src, group=mesh.group)
+    COLLECTIVES["broadcast"] += 1
+    COLLECTIVES["broadcast_seconds"] += time.perf_counter() - t0
+    return _unpack(xs, flat)
 
 
 def gather_rows(mesh: LociMesh, x: torch.Tensor,
@@ -202,7 +229,10 @@ def gather_rows(mesh: LociMesh, x: torch.Tensor,
     is_bool = src.dtype == torch.bool
     src = (src.to(torch.uint8) if is_bool else src).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
+    t0 = time.perf_counter()
     dist.all_gather(parts, src, group=mesh.group)
+    COLLECTIVES["all_gather"] += 1
+    COLLECTIVES["all_gather_seconds"] += time.perf_counter() - t0
     out = torch.stack(parts).cpu()                  # [W, C * Ls, ...]
     out = out.view(mesh.world, chains, -1, *src.shape[1:]).transpose(0, 1)
     out = out.reshape(-1, *src.shape[1:])

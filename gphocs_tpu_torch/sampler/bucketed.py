@@ -47,19 +47,26 @@ at the end of the iteration one for its statistics (accepts of the
 sweeps, migrations, lnld and lnp sums).  Every rank makes them all, in
 the same order.
 
-The conformance mode (`legacy`: the Wichmann-Hill streams, one bucket, no
-mesh) runs gphocs_tpu's mcmc_iteration with use_fused=False: the
-node-age, migration-age and SPR sweeps are their plain versions on the
-state's device (ops/sweeps.*_plain; the kernels implement the counter
-streams only), the rate update is the serial, reference-coupled sweep,
-followed by a full rebuild of the conditionals, and the rubber band keeps
+The conformance mode (`legacy`: the Wichmann-Hill streams, one bucket)
+runs gphocs_tpu's mcmc_iteration with use_fused=False: the node-age,
+migration-age and SPR sweeps are their plain versions on the state's
+device (ops/sweeps.*_plain; the kernels implement the counter streams
+only), the rate update is the serial, reference-coupled sweep, followed
+by a full rebuild of the conditionals, and the rubber band keeps
 launching its kernel (it draws nothing).  Every other move is the same
 code, drawing from the general stream in sequence.  With C chains
 (gphocs_tpu vmaps its legacy chunk) the per-locus streams are chain-major
 [C * L] and the general streams [C, 1]: a lane draws only where its own
 chain's move asks for it, so no chain's draws depend on another's, and
 the loops run over populations, bands, loci of one chain and walk trips,
-never over the chains.
+never over the chains.  On a loci mesh the legacy sweeps run on the
+rank's block with no collective: a Wichmann-Hill lane draws only where
+its own locus asks (SPR's trips synchronize within the block, which
+changes no lane's draws), the rate update hands its carry from rank to
+rank (kernels/locus_rate.py; `ref_seq` is the reference locus's data
+row), the global moves make the all-reduces of the fast mode, and the
+iteration's lnld and lnp sums come from the gathered loci, added in one
+process's order, so that the trace has the one-process run's bits.
 
 Admixed leaves (one bucket, as in gphocs_tpu, which refuses them with
 buckets): SPR resamples their populations, the prior carries their terms,
@@ -91,6 +98,7 @@ from gphocs_tpu_torch.kernels.tau import (update_sample_ages_buckets,
 from gphocs_tpu_torch.ops import sweeps
 from gphocs_tpu_torch.ops.coalstats import CoalStats
 from gphocs_tpu_torch.ops.likelihood_cache import full_build
+from gphocs_tpu_torch.parallel.mesh import gather_rows
 from gphocs_tpu_torch.sampler.step import ChunkTrace, Finetunes, StepStats
 
 
@@ -111,7 +119,7 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                            mixing_on: bool = True, var_rates: bool = False,
                            locus_rate_on: bool = True,
                            var_alpha: float = 1.0, loci_axis=None,
-                           legacy: bool = False):
+                           legacy: bool = False, ref_seq=None):
     """One iteration over the buckets.  `gens`, `seqs`, `lrngs`, `lnlds`,
     `lnps`, `conds` hold one entry per bucket.  Returns (gens, params,
     lrngs, grng, lnlds, lnps, conds, StepStats) with lists.
@@ -120,13 +128,15 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
     var_rates: `locus-mut-rate VAR` (var_alpha is its Dirichlet alpha); the
     paired rate update runs within each bucket.  The *_on flags skip an
     update whose finetune is 0.  legacy: the conformance mode's
-    schedule (the module's docstring) for Wichmann-Hill streams.
+    schedule (the module's docstring) for Wichmann-Hill streams;
+    ref_seq: its rate update's reference locus's data row (on a loci
+    mesh; None: the bucket's own row).
 
     conds: carried pruning conditionals, consistent with (gens, seqs) on
     entry and on return."""
     K = len(gens)
-    if legacy and (K > 1 or loci_axis is not None):
-        raise ValueError("the conformance mode runs one bucket, no mesh")
+    if legacy and K > 1:
+        raise ValueError("the conformance mode runs one bucket")
     if legacy:
         node_age, mig_age, spr = (sweeps.node_age_sweep_plain,
                                   sweeps.mig_age_sweep_plain,
@@ -169,7 +179,8 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
                 if legacy:
                     g, r, lnlds[k], a, dv = update_locus_rates(
                         g, sq, r, ft.locus_rate, lnlds[k], var_alpha,
-                        chains=C or 1)
+                        chains=C or 1, loci_axis=loci_axis,
+                        ref_seq=ref_seq)
                     # rate moves change edge lengths everywhere: rebuild
                     conds[k] = full_build(g, sq)
                 else:
@@ -224,13 +235,23 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
         return x.sum() if C is None else x.reshape(C, -1).sum(dim=1)
 
     # the sweeps' accepts and the sums over loci are the rank's own on a
-    # loci mesh; the counts of the global moves (and the paired rate
-    # update's, reduced where it ran) are every rank's already
-    acc_ct, acc_mt, acc_spr, num_migs, lnld_sum, lnp_sum = maybe_psum(
-        [acc_ct, acc_mt, acc_spr,
-         sum(total(g.mig_branch >= 0) for g in gens),
-         sum(total(x) for x in lnlds), sum(total(x) for x in lnps)],
-        loci_axis)
+    # loci mesh; the counts of the global moves (and the rate update's,
+    # reduced or handed on where it ran) are every rank's already
+    if legacy and loci_axis is not None:
+        # the conformance mode's lnld and lnp sums add in one process's
+        # order: every rank sums the gathered [C * Lp] loci on its device
+        both = gather_rows(loci_axis, torch.stack([lnlds[0], lnps[0]], 1),
+                           C or 1).to(dev)
+        lnld_sum, lnp_sum = (total(both[:, j].contiguous()) for j in (0, 1))
+        acc_ct, acc_mt, acc_spr, num_migs = maybe_psum(
+            [acc_ct, acc_mt, acc_spr, total(gens[0].mig_branch >= 0)],
+            loci_axis)
+    else:
+        acc_ct, acc_mt, acc_spr, num_migs, lnld_sum, lnp_sum = maybe_psum(
+            [acc_ct, acc_mt, acc_spr,
+             sum(total(g.mig_branch >= 0) for g in gens),
+             sum(total(x) for x in lnlds), sum(total(x) for x in lnps)],
+            loci_axis)
     out = StepStats(
         acc_coal_time=acc_ct, acc_mig_time=acc_mt, acc_spr=acc_spr,
         acc_theta=acc_th, acc_mig_rate=acc_mr, acc_taus=acc_taus,

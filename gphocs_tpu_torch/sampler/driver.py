@@ -70,8 +70,14 @@ kernels implement the counter streams, so this mode runs their plain
 versions, on the state's device, while the rubber band keeps its kernel
 (sampler/bucketed.py).  It takes chains (each chain's streams from its
 own host stream, as gphocs_tpu initializes each of its vmapped legacy
-chains) and one bucket: pattern buckets are refused as in gphocs_tpu, a
-mesh raises NotImplementedError naming ROADMAP Queue 1 item 17c.
+chains) and one bucket: pattern buckets are refused as in gphocs_tpu.
+On a loci mesh every rank initializes the padded Lp loci of every chain
+(HostRng(Lp + 1) per chain) and keeps its block of the genealogies and
+of the per-locus Wichmann-Hill streams; the general streams ([1], or
+[C, 1]) are replicated.  The serial rate update hands its carry from
+rank to rank, each rank keeping the reference locus's data row
+(`ref_seq`), so W ranks equal one process with `loci_multiple` = W bit
+for bit; gphocs_tpu's legacy run on a mesh is that padded run too.
 """
 
 from __future__ import annotations
@@ -128,11 +134,6 @@ def route(rng_mode: str) -> str:
         return ("legacy RNG: node-age/migration-age/SPR sweeps as tensor "
                 "code")
     return "fast RNG"
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to gphocs_tpu_torch yet (ROADMAP {item})")
 
 
 def _write_admix_trace(trace_path: str, iteration: int,
@@ -272,14 +273,9 @@ class Sampler:
         if rng_mode not in ("fast", "legacy"):
             raise ValueError(f"rng_mode={rng_mode!r}: 'fast' or 'legacy'")
         self.rng_mode = rng_mode
-        if rng_mode == "legacy":
-            if mesh is not None:
-                raise _todo("a loci mesh with the legacy RNG (its serial "
-                            "rate update crosses the ranks)",
-                            "Queue 1 item 17c")
-            if buckets > 1:
-                raise ValueError("pattern buckets require the fast RNG (as "
-                                 "in gphocs_tpu): drop buckets")
+        if rng_mode == "legacy" and buckets > 1:
+            raise ValueError("pattern buckets require the fast RNG (as in "
+                             "gphocs_tpu): drop buckets")
         if mesh is not None:
             if torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device!r}: the mesh's rank runs "
@@ -376,6 +372,13 @@ class Sampler:
             from_numpy(SeqData(*(None if x is None else x[b] for x in sq)),
                        device=self.device, dtype=dtype)
             for sq, b in zip(seqs, self.blocks))
+        # the legacy rate update's reference locus (locus 0) on a mesh:
+        # its data row, which every rank keeps
+        self.ref_seq = None
+        if mesh is not None and rng_mode == "legacy":
+            self.ref_seq = from_numpy(
+                SeqData(*(None if x is None else x[:1] for x in seqs[0])),
+                device=self.device, dtype=dtype)
         # the cost-minimizing partition may use fewer buckets than asked
         self.buckets = len(self.seqs)
         self.host_rng = HostRng(self.num_loci + 1, seed, legacy=legacy_rng)
@@ -466,8 +469,8 @@ class Sampler:
                 pad = 0
             n = rows - pad
             g = GenState(*(x[off:off + n] for x in gen))
-            if self.rng_mode == "legacy":  # one bucket, no mesh
-                r = lrng
+            if self.rng_mode == "legacy":  # one bucket: its block
+                r = R.WhRngState(*(f[b] for f in lrng))
             else:
                 g, key = pad_bucket(g, lrng.key[off:off + n], pad)
                 r = lrng._replace(key=key[b])
@@ -558,7 +561,7 @@ class Sampler:
             var_rates=cfg.mcmc.mut_rate_mode == 1,
             locus_rate_on=self.ft_search["locus_rate"].value > 0,
             var_alpha=cfg.mcmc.var_rates_alpha, loci_axis=self.mesh,
-            legacy=self.rng_mode == "legacy")
+            legacy=self.rng_mode == "legacy", ref_seq=self.ref_seq)
         self.gens, self.lrngs = tuple(gens), tuple(lrngs)
         self.lnlds, self.lnps, self.conds = (tuple(lnlds), tuple(lnps),
                                              tuple(conds))

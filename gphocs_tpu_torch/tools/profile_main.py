@@ -87,10 +87,14 @@ def _busy_ms(events) -> float:
     op and once under its own name.)"""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA)
+    return _union_ms((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA)
+
+
+def _union_ms(spans) -> float:
+    """The length of the union of (start, end) spans in µs, in ms."""
     busy, end = 0, None
-    for a, b in spans:
+    for a, b in sorted(spans):
         if end is None or a > end:
             busy += b - a
             end = b

@@ -10,7 +10,8 @@ in one process group.  `run_ranks` starts all ranks of a SPEC and waits
 for them.  The same functions give the unsharded reference in the test's
 own process, with the loci padded as the mesh pads them
 (Sampler(loci_multiple=world)).  SPEC["chains"] (default 1) runs that
-many chains side by side.
+many chains side by side, SPEC["rng_mode"] (default "fast") picks the
+streams.
 
 Cases (SPEC["case"]):
   node_age  one node-age sweep of the warmed state;
@@ -25,7 +26,9 @@ Cases (SPEC["case"]):
   run       Sampler.run on the control text SPEC["ctl_text"] with a
             trace and a checkpoint (SPEC["run"]: run()'s arguments), each
             rank writing nothing but what rank 0 writes; with SPEC["out"],
-            rank 0 saves every chain's rows (`chain_rows`).
+            rank 0 saves every chain's rows (`chain_rows`);
+  locus_rate  the legacy RNG's serial rate update alone on the warmed
+            state (SPEC["finetune"]), with the collectives it made.
 """
 
 import json
@@ -41,6 +44,7 @@ from gphocs_tpu_torch.config import samples
 from gphocs_tpu_torch.kernels.common import gen_log_prior
 from gphocs_tpu_torch.parallel import mesh as M
 from gphocs_tpu_torch.parallel.mesh import gather_rows
+from gphocs_tpu_torch.rng import WhRngState
 from gphocs_tpu_torch.sampler.driver import Sampler
 from gphocs_tpu_torch.state import GenState
 
@@ -73,7 +77,8 @@ def warm_sampler(spec, mesh=None, loci_multiple=1) -> Sampler:
     cfg.mcmc.num_loci = spec.get("num_loci", cfg.mcmc.num_loci)
     s = Sampler(cfg, seq_path=spec["seqs"], dtype=torch.float64,
                 device="cpu", buckets=spec.get("buckets", 1), mesh=mesh,
-                loci_multiple=loci_multiple, chains=spec.get("chains", 1))
+                loci_multiple=loci_multiple, chains=spec.get("chains", 1),
+                rng_mode=spec.get("rng_mode", "fast"))
     s.initialize()
     s._sample_mig_rates_device()
     s.params = s.params._replace(
@@ -84,18 +89,23 @@ def warm_sampler(spec, mesh=None, loci_multiple=1) -> Sampler:
 
 def state_of(s: Sampler) -> dict:
     """The per-locus state of every bucket (all ranks' loci, in the
-    global chain-major order), the per-locus counters, the parameters and
-    the general stream."""
+    global chain-major order), the per-locus streams (fast: keys and
+    counters; legacy: the Wichmann-Hill states, "wh"), the parameters
+    and the general stream."""
     def rows(t):
         return t if s.mesh is None else gather_rows(s.mesh, t, s.chains)
 
-    return {"gens": [GenState(*(rows(x) for x in g)) for g in s.gens],
-            "lnlds": [rows(x) for x in s.lnlds],
-            "lnps": [rows(x) for x in s.lnps],
-            "conds": [rows(x) for x in s.conds],
-            "keys": [rows(r.key) for r in s.lrngs],
-            "ctrs": [r.ctr for r in s.lrngs],
-            "params": s.params, "grng": s.grng}
+    out = {"gens": [GenState(*(rows(x) for x in g)) for g in s.gens],
+           "lnlds": [rows(x) for x in s.lnlds],
+           "lnps": [rows(x) for x in s.lnps],
+           "conds": [rows(x) for x in s.conds],
+           "params": s.params, "grng": s.grng}
+    if isinstance(s.lrngs[0], WhRngState):
+        out["wh"] = [WhRngState(*(rows(f) for f in r)) for r in s.lrngs]
+    else:
+        out["keys"] = [rows(r.key) for r in s.lrngs]
+        out["ctrs"] = [r.ctr for r in s.lrngs]
+    return out
 
 
 def node_age_case(s: Sampler) -> dict:
@@ -109,6 +119,22 @@ def node_age_case(s: Sampler) -> dict:
     if s.mesh is not None:
         acc = M.all_reduce(s.mesh, [acc])[0]
     return {"acc": acc, "state": state_of(s)}
+
+
+def locus_rate_case(s: Sampler, finetune: float) -> dict:
+    """The legacy serial rate update alone (one chain), with its accepts,
+    variance delta and the collectives it made."""
+    from gphocs_tpu_torch.kernels.locus_rate import update_locus_rates
+
+    M.reset_collective_counts()
+    g, r, lnld, acc, dvar = update_locus_rates(
+        s.gen, s.seq, s.lrng, torch.tensor(finetune, dtype=torch.float64),
+        s.lnld, s.cfg.mcmc.var_rates_alpha, chains=s.chains,
+        loci_axis=s.mesh, ref_seq=s.ref_seq)
+    coll = {k: M.COLLECTIVES[k] for k in ("all_reduce", "broadcast")}
+    s.gen, s.lrng, s.lnld = g, r, lnld
+    return {"acc": acc, "dvar": dvar, "collectives": coll,
+            "state": state_of(s)}
 
 
 def chunk_case(s: Sampler, iters: int) -> dict:
@@ -135,7 +161,8 @@ def run_case(spec: dict, mesh, rank: int):
         cfg = parse_control_text(spec["ctl_text"])
         s = Sampler(cfg, device="cpu", mesh=mesh,
                     buckets=spec.get("buckets", 1),
-                    chains=spec.get("chains", 1))
+                    chains=spec.get("chains", 1),
+                    rng_mode=spec.get("rng_mode", "fast"))
         s.run(**spec["run"])
         return {"chain_rows": s.chain_rows} if "out" in spec else None
     if case == "carried":
@@ -149,7 +176,8 @@ def run_case(spec: dict, mesh, rank: int):
 
         cfg = parse_control_text(getattr(samples, spec["ctl"]))
         s = Sampler(cfg, seq_path=spec["seqs"], device="cpu", mesh=mesh,
-                    chains=spec.get("chains", 1))
+                    chains=spec.get("chains", 1),
+                    rng_mode=spec.get("rng_mode", "fast"))
         s.initialize()
         load_checkpoint(s, spec["ckpt"])
         return chunk_case(s, spec["iters"])
@@ -163,6 +191,8 @@ def run_case(spec: dict, mesh, rank: int):
         out["moved"] = s.check_state()
         return out
     s = warm_sampler(spec, mesh)
+    if case == "locus_rate":
+        return locus_rate_case(s, spec["finetune"])
     return (node_age_case(s) if case == "node_age"
             else chunk_case(s, spec["iters"]))
 
@@ -200,11 +230,16 @@ def same_state(ref: dict, got: dict, exact: bool = False) -> None:
     for g_r, g_g in zip(ref["gens"], got["gens"]):
         for f in g_r._fields:
             same(getattr(g_r, f), getattr(g_g, f), f"gen.{f}")
+    assert sorted(ref) == sorted(got)
     for k in ("lnlds", "lnps", "conds", "keys", "ctrs"):
-        for a, b in zip(ref[k], got[k]):
+        for a, b in zip(ref.get(k, ()), got.get(k, ())):
             same(a, b, k)
-    assert torch.equal(ref["grng"].ctr, got["grng"].ctr)
-    assert torch.equal(ref["grng"].key, got["grng"].key)
+    for r_r, r_g in zip(ref.get("wh", ()), got.get("wh", ())):
+        for f in r_r._fields:
+            same(getattr(r_r, f), getattr(r_g, f), f"wh.{f}")
+    for f in ref["grng"]._fields:
+        assert torch.equal(getattr(ref["grng"], f),
+                           getattr(got["grng"], f)), f"grng.{f}"
     for f in ref["params"]._fields:
         a, b = getattr(ref["params"], f), getattr(got["params"], f)
         if a is not None:

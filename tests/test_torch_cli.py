@@ -151,30 +151,34 @@ def test_legacy_resume_equals_uninterrupted_run(ragged, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    # the legacy RNG is ported with chains, not on a mesh; with --buckets,
-    # or with --fast-rng, it is a usage error (as gphocs_tpu's)
-    (["--legacy-rng", "--mesh"], "item 17c"),
+    # the legacy RNG with --buckets, or with --fast-rng, is a usage error
+    # (as gphocs_tpu's)
     (["--legacy-rng", "--buckets", "2"], "requires the fast RNG"),
     (["--device", "cpu", "--buckets", "2"], "requires the fast RNG"),
     (["--legacy-rng", "--fast-rng"], "mutually exclusive"),
     # chains are ported; with pattern buckets the command line refuses
     # them (a usage error, as gphocs_tpu's)
     (["--chains", "2", "--buckets", "2"], "requires one chain"),
-    # loci sharding is ported, with chains: the legacy RNG's chains on a
-    # mesh are not, and a malformed --distributed is a usage error
-    (["--legacy-rng", "--distributed", "host:1234:2:0", "--chains", "2"],
-     "item 17c"),
+    # a malformed --distributed is a usage error
     (["--distributed", "host:2:0"], "COORD = host:port"),
 ])
 def test_unported_flags_raise_before_reading_files(flags, item, tmp_path,
                                                    capsys):
-    if ("--buckets" in flags or item.startswith("COORD")
-            or "--fast-rng" in flags):
-        with pytest.raises(SystemExit):
-            cli.main([str(tmp_path / "no-such-file.ctl"), *flags])
-        assert item in capsys.readouterr().err
-        return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(SystemExit):
+        cli.main([str(tmp_path / "no-such-file.ctl"), *flags])
+    assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    # the legacy RNG on a mesh (a world of one on the CPU), one chain and
+    # chains; the CPU's default RNG is the legacy one
+    ["--legacy-rng", "--mesh", "--device", "cpu"],
+    ["--mesh", "--device", "cpu", "--chains", "2"],
+])
+def test_legacy_mesh_reaches_the_file_read(flags, tmp_path):
+    """`--legacy-rng --mesh` is no usage error any more: the command
+    joins its mesh and fails only at the missing control file."""
+    with pytest.raises(FileNotFoundError):
         cli.main([str(tmp_path / "no-such-file.ctl"), *flags])
 
 

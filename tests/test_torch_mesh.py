@@ -177,12 +177,30 @@ def test_state_check_fails_on_every_rank(data, tmp_path):
     assert got["moved"] == ["rank 0: 1 violation(s) on other ranks"]
 
 
-def test_chains_on_a_mesh_are_refused():
-    """Chains on a mesh run with the fast RNG (tests/
-    test_torch_mesh_chains.py); the legacy RNG's are refused, naming their
-    ROADMAP item."""
+@pytest.mark.parametrize("chains", [1, 2])
+def test_legacy_chains_on_a_mesh_hold_their_block(chains, data):
+    """The legacy RNG on a mesh, one chain and 2 (it was refused before):
+    rank 0 of 2 on the 24 loci holds rows [0, 12) of every chain of the
+    one-process state, locus 0 of each chain at rows c * 12, and its
+    Wichmann-Hill streams there; the reference locus's data row is the
+    file's first locus."""
+    cfg = parse_control_text(SAMPLE_CTL)
+    cfg.mcmc.random_seed = 5
     mesh = LociMesh(rank=0, world=2, backend="gloo",
                     device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        Sampler(parse_control_text(SAMPLE_CTL), num_loci=4, device="cpu",
-                mesh=mesh, chains=2, rng_mode="legacy")
+    s = Sampler(cfg, seq_path=data["dense"], device="cpu", mesh=mesh,
+                chains=chains, rng_mode="legacy")
+    one = Sampler(cfg, seq_path=data["dense"], device="cpu", chains=chains,
+                  rng_mode="legacy")
+    s.initialize()
+    one.initialize()
+    rows = mesh.chain_block(24, chains)
+    assert s.gen.num_loci == 12 * chains
+    for f in s.gen._fields:
+        assert torch.equal(getattr(s.gen, f), getattr(one.gen, f)[rows]), f
+    for a, b in zip(s.lrng, one.lrng):
+        assert torch.equal(a, b[rows])
+    first = torch.arange(chains) * 12
+    assert torch.equal(s.lrng.x[first], one.lrng.x[first * 2])
+    for a, b in zip(s.ref_seq, one.seq):
+        assert a is None or torch.equal(a, b[:1])

@@ -156,10 +156,7 @@ def test_cuda_sampler_needs_a_card():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    # the legacy RNG is ported with chains, for one bucket and no mesh
-    (dict(rng_mode="legacy", mesh=LociMesh(rank=0, world=2, backend="gloo",
-                                          device=torch.device("cpu"))),
-     "item 17c"),
+    # the legacy RNG is ported with chains and on a mesh, for one bucket
     (dict(rng_mode="legacy", buckets=2), "require the fast RNG"),
     # chains are ported; with pattern buckets they are refused (a
     # ValueError), as in gphocs_tpu
@@ -167,19 +164,44 @@ def test_cuda_sampler_needs_a_card():
     # admixture is ported; with pattern buckets it is refused (a
     # ValueError), as in gphocs_tpu
     (dict(admixed=[("five", 3, 1, "d")], buckets=2), "one pattern bucket"),
-    # loci sharding is ported, with chains; the legacy RNG's chains on a
-    # mesh are not
-    (dict(rng_mode="legacy", mesh=LociMesh(rank=0, world=2, backend="gloo",
-                                          device=torch.device("cpu")),
-          chains=2), "item 17c"),
 ])
 def test_unported_options_raise(kwargs, item):
     cfg = parse_control_text(SAMPLE_CTL)
     kwargs = dict(kwargs)
     cfg.admixed = kwargs.pop("admixed", [])
-    err = ValueError if "buckets" in kwargs else NotImplementedError
-    with pytest.raises(err, match=item):
+    with pytest.raises(ValueError, match=item):
         Sampler(cfg, num_loci=4, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+def test_meshed_legacy_sampler_holds_its_block(chains):
+    """Sampler(rng_mode="legacy", mesh=...) builds (it raised before the
+    legacy RNG ran on a mesh): rank 1 of 2, a prior-only run of 5 loci
+    per chain padded to 6, holds rows [3, 6) of every chain of the
+    one-process state with loci_multiple=2 (genealogies and Wichmann-Hill
+    streams, [C * 3]), the general streams whole, and locus 0's data
+    row."""
+    cfg = parse_text(SAMPLE_CTL, 23)
+    cfg.mcmc.seq_file = "NONE"
+    mesh = LociMesh(rank=1, world=2, backend="gloo",
+                    device=torch.device("cpu"))
+    s = Sampler(cfg, num_loci=5, device="cpu", rng_mode="legacy",
+                mesh=mesh, chains=chains)
+    one = Sampler(cfg, num_loci=5, device="cpu", rng_mode="legacy",
+                  loci_multiple=2, chains=chains)
+    s.initialize()
+    one.initialize()
+    rows = mesh.chain_block(6, chains)
+    assert (s.num_loci, s.pad_loci, s.gen.num_loci) == (6, 1, 3 * chains)
+    for f in s.gen._fields:
+        assert torch.equal(getattr(s.gen, f), getattr(one.gen, f)[rows]), f
+    for a, b in zip(s.lrng, one.lrng):
+        assert a.shape == (3 * chains,) and torch.equal(a, b[rows])
+    for a, b in zip(s.grng, one.grng):
+        assert torch.equal(a, b)
+    assert not s.gen.valid.view(chains, 3)[:, 2].any()
+    for a, b in zip(s.ref_seq, one.seq):
+        assert a is None or torch.equal(a, b[:1])
 
 
 def test_legacy_chains_run():
