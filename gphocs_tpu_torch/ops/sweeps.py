@@ -65,6 +65,7 @@ from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
 from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
 from gphocs_tpu_torch.ops import cuda_lib
+from gphocs_tpu_torch.profiling import span
 from gphocs_tpu_torch.rng import WhRngState
 from gphocs_tpu_torch.rng_fast import MASK32, FastRngState
 from gphocs_tpu_torch.state import GenState, Params, SeqData
@@ -328,8 +329,9 @@ def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
     if not _on_cuda(gen.age, cond, lnld, lnp, rng.key):
         return update_internal_node_ages(gen, params, seq, rng, ctx,
                                          finetune, lnld, lnp, cond)
-    p = prepare_node_age(gen, params, seq, rng, ctx, finetune, lnld, lnp,
-                         cond)
+    with span("prepare"):
+        p = prepare_node_age(gen, params, seq, rng, ctx, finetune, lnld,
+                             lnp, cond)
     p.launch(cond.device)
     LAUNCHES["node_age"] += 1
     o = p.out
@@ -369,7 +371,8 @@ def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
     if ctx.num_bands == 0:
         return gen, rng, lnp, torch.zeros(_chains(params), dtype=torch.int64,
                                           device=lnp.device)
-    p = prepare_mig_age(gen, params, rng, ctx, finetune, lnp)
+    with span("prepare"):
+        p = prepare_mig_age(gen, params, rng, ctx, finetune, lnp)
     p.launch(lnp.device)
     LAUNCHES["mig_age"] += 1
     o = p.out
@@ -425,8 +428,9 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
         return rubber_band_eval_plain(gen, params, seq, ctx, pop,
                                       is_sample_age, taub0, taub1, tauold,
                                       taunew, cond)
-    p = prepare_rubber_band(gen, params, seq, ctx, pop, is_sample_age, taub0,
-                            taub1, tauold, taunew, cond)
+    with span("prepare"):
+        p = prepare_rubber_band(gen, params, seq, ctx, pop, is_sample_age,
+                                taub0, taub1, tauold, taunew, cond)
     p.launch(cond.device)
     LAUNCHES["rubber_band_sample_age" if is_sample_age
              else "rubber_band"] += 1
@@ -477,7 +481,8 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     if not _on_cuda(gen.age, cond, lnld, rng.key):
         return update_spr(gen, params, seq, rng, ctx, lnld, cond,
                           sync_group=gen.num_loci, loci_axis=loci_axis)
-    p = prepare_spr(gen, params, seq, rng, ctx, lnld, cond)
+    with span("prepare"):
+        p = prepare_spr(gen, params, seq, rng, ctx, lnld, cond)
     p.launch(cond.device)
     LAUNCHES["spr"] += 1
     o = p.out

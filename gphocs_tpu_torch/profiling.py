@@ -18,15 +18,38 @@ Timing leaves the chain alone: every call takes the state's tensors and
 returns new ones, which are dropped, and the launch counts of
 ops/sweeps.LAUNCHES are put back as they were.  On a loci mesh each rank
 times its own loci, without collectives.
+
+`span(name)` marks where the same families run inside the iteration
+(sampler/bucketed.py, the kernel wrappers' argument blocks in
+ops/sweeps.py, the counter RNG's hash in rng_fast.py): while a
+torch.profiler runs, a range named "gphocs.<name>" among the trace's host
+events, on the clock the device's operations share; otherwise nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from typing import Callable, Dict
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the range "gphocs.<name>" while a profiler
+    runs, else the one shared null context: off, a span costs one check of
+    the profiler's state and keeps nothing.
+
+    The range is an operator-like host event (_RecordFunctionFast), not
+    torch.profiler.record_function's user annotation: on CUDA the profiler
+    mirrors each annotation onto the device's timeline as an event as long
+    as the range, which a trace's device time would count as busy."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast("gphocs." + name)
+    return _OFF
 
 
 def _families(s) -> Dict[str, Callable[[], object]]:

@@ -30,6 +30,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from gphocs_tpu_torch.profiling import span
+
 MASK32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
 # mixture-kernel constants (reference src/utils.c:437-441: m2s2 = 8)
@@ -123,7 +125,8 @@ def bits_to_unit(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def raw_bits(key: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
     """fmix32(key ^ fmix32(ctr * GOLDEN)); ctr broadcasts against key."""
-    return fmix32(key ^ fmix32(_mul32(ctr & MASK32, GOLDEN)))
+    with span("rng_hash"):
+        return fmix32(key ^ fmix32(_mul32(ctr & MASK32, GOLDEN)))
 
 
 def raw_u(state: FastRngState, offset, dtype) -> torch.Tensor:

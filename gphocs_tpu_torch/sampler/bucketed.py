@@ -73,6 +73,13 @@ buckets): SPR resamples their populations, the prior carries their terms,
 and the coefficients move after the sample ages.  A chunk also adds up,
 on the device, how often each admixed leaf of each locus sat in its
 second population (for admixture-trace.out).
+
+While a torch.profiler runs, the chunk's iterations are `profiling.span`s
+named iteration, and inside each every update sits in a span of its
+family's name: node_age, mig_age, spr, locus_rate and the prior refresh
+(full_stats) per bucket and genetree sample, then full_stats, theta,
+mig_rate, tau, sample_age, admix, mixing and the closing sums; the
+chunk's stacking of its totals and trace rows is chunk_totals.
 """
 
 from __future__ import annotations
@@ -99,6 +106,7 @@ from gphocs_tpu_torch.ops import sweeps
 from gphocs_tpu_torch.ops.coalstats import CoalStats
 from gphocs_tpu_torch.ops.likelihood_cache import full_build
 from gphocs_tpu_torch.parallel.mesh import gather_rows
+from gphocs_tpu_torch.profiling import span
 from gphocs_tpu_torch.sampler.step import ChunkTrace, Finetunes, StepStats
 
 
@@ -160,104 +168,124 @@ def mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps,
         for k in range(K):
             g, sq, r = gens[k], seqs[k], lrngs[k]
             if coal_time_on:
-                g, r, lnlds[k], lnps[k], conds[k], a = node_age(
-                    g, params, sq, r, ctx, ft.coal_time, lnlds[k], lnps[k],
-                    conds[k])
-                acc_ct = acc_ct + a
+                with span("node_age"):
+                    g, r, lnlds[k], lnps[k], conds[k], a = node_age(
+                        g, params, sq, r, ctx, ft.coal_time, lnlds[k],
+                        lnps[k], conds[k])
+                    acc_ct = acc_ct + a
             if mig_time_on and ctx.num_bands > 0:
-                g, r, lnps[k], a = mig_age(g, params, r, ctx, ft.mig_time,
-                                           lnps[k])
-                acc_mt = acc_mt + a
-            g, r, lnlds[k], conds[k], a = spr(g, params, sq, r, ctx,
-                                              lnlds[k], conds[k])
-            acc_spr = acc_spr + a
+                with span("mig_age"):
+                    g, r, lnps[k], a = mig_age(g, params, r, ctx,
+                                               ft.mig_time, lnps[k])
+                    acc_mt = acc_mt + a
+            with span("spr"):
+                g, r, lnlds[k], conds[k], a = spr(g, params, sq, r, ctx,
+                                                  lnlds[k], conds[k])
+                acc_spr = acc_spr + a
             # SPR tracks only the data likelihood; the prior refresh of the
             # last genetree sample is merged into the full_stats pass below
             if gs < genetree_samples - 1:
-                lnps[k] = gen_log_prior(g, params, ctx)
+                with span("full_stats"):
+                    lnps[k] = gen_log_prior(g, params, ctx)
             if var_rates and locus_rate_on:
-                if legacy:
-                    g, r, lnlds[k], a, dv = update_locus_rates(
-                        g, sq, r, ft.locus_rate, lnlds[k], var_alpha,
-                        chains=C or 1, loci_axis=loci_axis,
-                        ref_seq=ref_seq)
-                    # rate moves change edge lengths everywhere: rebuild
-                    conds[k] = full_build(g, sq)
-                else:
-                    g, r, lnlds[k], conds[k], a, dv = \
-                        update_locus_rates_paired(
+                with span("locus_rate"):
+                    if legacy:
+                        g, r, lnlds[k], a, dv = update_locus_rates(
                             g, sq, r, ft.locus_rate, lnlds[k], var_alpha,
-                            conds[k], loci_axis)
-                acc_lr = acc_lr + a
-                dvar = dvar + dv
+                            chains=C or 1, loci_axis=loci_axis,
+                            ref_seq=ref_seq)
+                        # rate moves change edge lengths everywhere:
+                        # rebuild
+                        conds[k] = full_build(g, sq)
+                    else:
+                        g, r, lnlds[k], conds[k], a, dv = \
+                            update_locus_rates_paired(
+                                g, sq, r, ft.locus_rate, lnlds[k],
+                                var_alpha, conds[k], loci_axis)
+                    acc_lr = acc_lr + a
+                    dvar = dvar + dv
             gens[k], lrngs[k] = g, r
 
-    stats_list = [full_stats(g, params, ctx) for g in gens]
-    lnps = [gen_log_prior_from_stats(st, g, params, ctx)
-            for st, g in zip(stats_list, gens)]
-    # theta and the migration rates read the totals over all loci
-    stats = CoalStats(*(_cat(f) for f in zip(*stats_list)))
-    lnp = _cat(lnps)
+    with span("full_stats"):
+        stats_list = [full_stats(g, params, ctx) for g in gens]
+        lnps = [gen_log_prior_from_stats(st, g, params, ctx)
+                for st, g in zip(stats_list, gens)]
+        # theta and the migration rates read the totals over all loci
+        stats = CoalStats(*(_cat(f) for f in zip(*stats_list)))
+        lnp = _cat(lnps)
     acc_th = acc_mr = zero
     if theta_on:
-        params, grng, lnp, acc_th = update_thetas(
-            gens[0], params, grng, ctx, ft.theta, lnp, stats, loci_axis)
+        with span("theta"):
+            params, grng, lnp, acc_th = update_thetas(
+                gens[0], params, grng, ctx, ft.theta, lnp, stats, loci_axis)
     if do_migrate and mig_rate_on and ctx.num_bands > 0:
-        params, grng, lnp, acc_mr = update_mig_rates(
-            gens[0], params, grng, ctx, ft.mig_rate, lnp, stats, loci_axis)
-    lnps = _split(lnp, [g.num_loci for g in gens])
-    gens, params, grng, lnlds, lnps, conds, acc_taus, conflicts = \
-        update_taus_buckets(gens, params, seqs, grng, ctx, ft.taus, lnlds,
-                            lnps, conds, num_pops, num_cur_pops, loci_axis)
+        with span("mig_rate"):
+            params, grng, lnp, acc_mr = update_mig_rates(
+                gens[0], params, grng, ctx, ft.mig_rate, lnp, stats,
+                loci_axis)
+    with span("tau"):
+        lnps = _split(lnp, [g.num_loci for g in gens])
+        gens, params, grng, lnlds, lnps, conds, acc_taus, conflicts = \
+            update_taus_buckets(gens, params, seqs, grng, ctx, ft.taus,
+                                lnlds, lnps, conds, num_pops, num_cur_pops,
+                                loci_axis)
     if any(sample_age_mask):
-        gens, params, grng, lnlds, lnps, conds, acc_sa, conf_sa = \
-            update_sample_ages_buckets(gens, params, seqs, grng, ctx,
-                                       ft.taus, lnlds, lnps, conds,
-                                       num_cur_pops, sample_age_mask,
-                                       loci_axis)
-        acc_taus = acc_taus + acc_sa
-        conflicts = conflicts + conf_sa
+        with span("sample_age"):
+            gens, params, grng, lnlds, lnps, conds, acc_sa, conf_sa = \
+                update_sample_ages_buckets(gens, params, seqs, grng, ctx,
+                                           ft.taus, lnlds, lnps, conds,
+                                           num_cur_pops, sample_age_mask,
+                                           loci_axis)
+            acc_taus = acc_taus + acc_sa
+            conflicts = conflicts + conf_sa
     acc_adm = zero
     if ctx.num_admixed > 0:
-        params, grng, lnp0, acc_adm = update_admix_coeffs(
-            gens[0], params, grng, ctx, ft.admix, lnps[0], loci_axis)
-        lnps = [lnp0]
+        with span("admix"):
+            params, grng, lnp0, acc_adm = update_admix_coeffs(
+                gens[0], params, grng, ctx, ft.admix, lnps[0], loci_axis)
+            lnps = [lnp0]
     acc_mix = zero
     if do_mixing and mixing_on:
         # mixing reads only event counts, which theta/mig-rate/tau moves
         # never change, so the stats pass above is reusable as-is
-        gens, params, grng, lnlds, lnps, conds, acc_mix = \
-            update_mixing_buckets(gens, params, seqs, grng, ctx, ft.mixing,
-                                  lnlds, lnps, conds, stats_list,
-                                  num_cur_pops, loci_axis)
+        with span("mixing"):
+            gens, params, grng, lnlds, lnps, conds, acc_mix = \
+                update_mixing_buckets(gens, params, seqs, grng, ctx,
+                                      ft.mixing, lnlds, lnps, conds,
+                                      stats_list, num_cur_pops, loci_axis)
 
     def total(x):  # over a bucket's loci (and slots), or per chain
         return x.sum() if C is None else x.reshape(C, -1).sum(dim=1)
 
-    # the sweeps' accepts and the sums over loci are the rank's own on a
-    # loci mesh; the counts of the global moves (and the rate update's,
-    # reduced or handed on where it ran) are every rank's already
-    if legacy and loci_axis is not None:
-        # the conformance mode's lnld and lnp sums add in one process's
-        # order: every rank sums the gathered [C * Lp] loci on its device
-        both = gather_rows(loci_axis, torch.stack([lnlds[0], lnps[0]], 1),
-                           C or 1).to(dev)
-        lnld_sum, lnp_sum = (total(both[:, j].contiguous()) for j in (0, 1))
-        acc_ct, acc_mt, acc_spr, num_migs = maybe_psum(
-            [acc_ct, acc_mt, acc_spr, total(gens[0].mig_branch >= 0)],
-            loci_axis)
-    else:
-        acc_ct, acc_mt, acc_spr, num_migs, lnld_sum, lnp_sum = maybe_psum(
-            [acc_ct, acc_mt, acc_spr,
-             sum(total(g.mig_branch >= 0) for g in gens),
-             sum(total(x) for x in lnlds), sum(total(x) for x in lnps)],
-            loci_axis)
-    out = StepStats(
-        acc_coal_time=acc_ct, acc_mig_time=acc_mt, acc_spr=acc_spr,
-        acc_theta=acc_th, acc_mig_rate=acc_mr, acc_taus=acc_taus,
-        acc_mixing=acc_mix, acc_locus_rate=acc_lr, rate_var_delta=dvar,
-        tau_conflicts=conflicts, num_migs_total=num_migs,
-        lnld_sum=lnld_sum, lnp_sum=lnp_sum, acc_admix=acc_adm)
+    with span("sums"):
+        # the sweeps' accepts and the sums over loci are the rank's own on
+        # a loci mesh; the counts of the global moves (and the rate
+        # update's, reduced or handed on where it ran) are every rank's
+        # already
+        if legacy and loci_axis is not None:
+            # the conformance mode's lnld and lnp sums add in one process's
+            # order: every rank sums the gathered [C * Lp] loci on its
+            # device
+            both = gather_rows(loci_axis,
+                               torch.stack([lnlds[0], lnps[0]], 1),
+                               C or 1).to(dev)
+            lnld_sum, lnp_sum = (total(both[:, j].contiguous())
+                                 for j in (0, 1))
+            acc_ct, acc_mt, acc_spr, num_migs = maybe_psum(
+                [acc_ct, acc_mt, acc_spr, total(gens[0].mig_branch >= 0)],
+                loci_axis)
+        else:
+            acc_ct, acc_mt, acc_spr, num_migs, lnld_sum, lnp_sum = \
+                maybe_psum([acc_ct, acc_mt, acc_spr,
+                            sum(total(g.mig_branch >= 0) for g in gens),
+                            sum(total(x) for x in lnlds),
+                            sum(total(x) for x in lnps)], loci_axis)
+        out = StepStats(
+            acc_coal_time=acc_ct, acc_mig_time=acc_mt, acc_spr=acc_spr,
+            acc_theta=acc_th, acc_mig_rate=acc_mr, acc_taus=acc_taus,
+            acc_mixing=acc_mix, acc_locus_rate=acc_lr, rate_var_delta=dvar,
+            tau_conflicts=conflicts, num_migs_total=num_migs,
+            lnld_sum=lnld_sum, lnp_sum=lnp_sum, acc_admix=acc_adm)
     return gens, params, lrngs, grng, lnlds, lnps, conds, out
 
 
@@ -271,9 +299,11 @@ def mcmc_chunk_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps, conds,
     stats, rows = [], []
     in2 = None
     for _ in range(n_iters):
-        gens, params, lrngs, grng, lnlds, lnps, conds, st = \
-            mcmc_iteration_buckets(gens, params, seqs, lrngs, grng, lnlds,
-                                   lnps, conds, ft, ctx=ctx, **flags)
+        with span("iteration"):
+            gens, params, lrngs, grng, lnlds, lnps, conds, st = \
+                mcmc_iteration_buckets(gens, params, seqs, lrngs, grng,
+                                       lnlds, lnps, conds, ft, ctx=ctx,
+                                       **flags)
         stats.append(st)
         rows.append((params.theta, params.tau, params.sample_age,
                      params.mig_rate, st.lnld_sum, st.lnp_sum,
@@ -281,6 +311,8 @@ def mcmc_chunk_buckets(gens, params, seqs, lrngs, grng, lnlds, lnps, conds,
         if ctx.num_admixed > 0:
             x = in_second_pop(gens[0], ctx).to(torch.int64)
             in2 = x if in2 is None else in2 + x
-    totals = StepStats(*(torch.stack(f).sum(dim=0) for f in zip(*stats)))
-    trace = ChunkTrace(*(torch.stack(f) for f in zip(*rows)))
+    with span("chunk_totals"):
+        totals = StepStats(*(torch.stack(f).sum(dim=0)
+                             for f in zip(*stats)))
+        trace = ChunkTrace(*(torch.stack(f) for f in zip(*rows)))
     return gens, params, lrngs, grng, lnlds, lnps, conds, totals, trace, in2

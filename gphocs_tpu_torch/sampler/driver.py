@@ -105,6 +105,7 @@ from gphocs_tpu_torch.kernels.common import (gen_log_prior, make_context,
 from gphocs_tpu_torch.model.poptree import PopTree, build_poptree
 from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.parallel.mesh import gather_rows, pad_bucket, pad_seq
+from gphocs_tpu_torch.profiling import span
 from gphocs_tpu_torch.rng_fast import FastRngState, init_fast
 from gphocs_tpu_torch.rng_host import HostRng
 from gphocs_tpu_torch.sampler.bucketed import mcmc_chunk_buckets
@@ -542,26 +543,27 @@ class Sampler:
         tree = self.tree
         sample_age_mask = tuple(
             bool(x) for x in tree.update_sample_age[:tree.num_cur_pops])
-        (gens, self.params, lrngs, self.grng, lnlds, lnps, conds, stats,
-         trace, self.chunk_in2) = mcmc_chunk_buckets(
-            self.gens, self.params, self.seqs, self.lrngs, self.grng,
-            self.lnlds, self.lnps, self.conds, self.ft, ctx=self.ctx,
-            n_iters=n_iters,
-            genetree_samples=cfg.mcmc.genetree_samples,
-            do_migrate=do_migrate,
-            do_mixing=cfg.mcmc.do_mixing,
-            num_pops=self.tree.num_pops,
-            num_cur_pops=self.tree.num_cur_pops,
-            sample_age_mask=sample_age_mask,
-            coal_time_on=self.ft_search["coal_time"].value > 0,
-            mig_time_on=self.ft_search["mig_time"].value > 0,
-            theta_on=self.ft_search["theta"].value > 0,
-            mig_rate_on=self.ft_search["mig_rate"].value > 0,
-            mixing_on=self.ft_search["mixing"].value > 0,
-            var_rates=cfg.mcmc.mut_rate_mode == 1,
-            locus_rate_on=self.ft_search["locus_rate"].value > 0,
-            var_alpha=cfg.mcmc.var_rates_alpha, loci_axis=self.mesh,
-            legacy=self.rng_mode == "legacy", ref_seq=self.ref_seq)
+        with span("chunk"):
+            (gens, self.params, lrngs, self.grng, lnlds, lnps, conds, stats,
+             trace, self.chunk_in2) = mcmc_chunk_buckets(
+                self.gens, self.params, self.seqs, self.lrngs, self.grng,
+                self.lnlds, self.lnps, self.conds, self.ft, ctx=self.ctx,
+                n_iters=n_iters,
+                genetree_samples=cfg.mcmc.genetree_samples,
+                do_migrate=do_migrate,
+                do_mixing=cfg.mcmc.do_mixing,
+                num_pops=self.tree.num_pops,
+                num_cur_pops=self.tree.num_cur_pops,
+                sample_age_mask=sample_age_mask,
+                coal_time_on=self.ft_search["coal_time"].value > 0,
+                mig_time_on=self.ft_search["mig_time"].value > 0,
+                theta_on=self.ft_search["theta"].value > 0,
+                mig_rate_on=self.ft_search["mig_rate"].value > 0,
+                mixing_on=self.ft_search["mixing"].value > 0,
+                var_rates=cfg.mcmc.mut_rate_mode == 1,
+                locus_rate_on=self.ft_search["locus_rate"].value > 0,
+                var_alpha=cfg.mcmc.var_rates_alpha, loci_axis=self.mesh,
+                legacy=self.rng_mode == "legacy", ref_seq=self.ref_seq)
         self.gens, self.lrngs = tuple(gens), tuple(lrngs)
         self.lnlds, self.lnps, self.conds = (tuple(lnlds), tuple(lnps),
                                              tuple(conds))
