@@ -1,6 +1,9 @@
 """Smoke run of gphocs_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(DIR: a checkout of another commit, such as the parent, whose phase-14b
+chunk must give the same trace rows.)
 
 Phases, in order (each prints its lines; any failure raises, and the
 script then exits non-zero without the final line):
@@ -217,7 +220,25 @@ script then exits non-zero without the final line):
      LEGACY_MESH_CKPT whose rows and final checkpoint ([C, Lp, ...],
      lrng_* [C, Lp], grng_* [C, 1]) must equal the uninterrupted meshed
      run's bitwise, rank 1 writing no file;
- 14. one JSON line per path with its it/s (the ragged ones with both
+ 14. the counter streams' draw kernel (csrc/counter_draw.cu,
+     counter_draw_phase): (14a) its uniforms bitwise equal to the CPU's
+     ATen chain (rng_fast.raw_bits) for one lane, 37 lanes and 3 chains
+     (per-lane and general streams, int and per-lane offsets, n and 3n
+     consecutive draws), counters low and wrapping past 2^32, f32 and f64, and every output (normals too)
+     bitwise equal to the ATen chain run on the card; the draw kernel's
+     device us, bound and host us beside the ATen chain's at two shapes
+     (draw_times); (14b) sample_1k's data and set-up (benchmark/, seed
+     DRAW_SEED) at f64: one chunk of DRAW_ITERS iterations run by this
+     checkout and by DIR (`--parent`) in processes of their own
+     (`chip_smoke.py --chunk-rows ROOT DATA SEED OUT`), trace rows and
+     counters bitwise equal; then DRAW_ITERS card iterations, each held
+     against one CPU iteration from the same state (SPR walking locus by
+     locus on both: accepts, counters and integers equal, reals within
+     2e-5 of each field's largest), 12 draw launches an iteration on the
+     card and none on the CPU, their rows bitwise equal to the chunk's;
+     with DIR, the same with the card's draws on the ATen chain, whose
+     rows and largest difference from the CPU must be the same;
+ 15. one JSON line per path with its it/s (the ragged ones with both
      readings and their pattern cells, the chains with their chain-it/s
      and device operations per iteration, the mesh with phase 9's
      readings, the legacy paths with phases 10e's and 11d's, the meshed
@@ -915,7 +936,8 @@ def check_schedule(iters, buckets, sample_age):
     """The launch counts since the last reset, which must equal the
     schedule of `iters` iterations: each sweep once per bucket and
     iteration, the tau rubber band TAU_PROPOSALS times, the sample-age mode
-    once where a sample age is estimated.  Returns the counts."""
+    once where a sample age is estimated, and the counter streams' draws
+    through their kernel (check_draws).  Returns the counts."""
     from gphocs_tpu_torch.ops import sweeps
 
     launches = dict(sweeps.LAUNCHES)
@@ -925,8 +947,24 @@ def check_schedule(iters, buckets, sample_age):
             "rubber_band_sample_age": n if sample_age else 0,
             **dict.fromkeys(PLAIN_SWEEPS, 0)}
     log(f"launches {launches} (expected {want})")
-    check(launches == want, "launch counts do not match the schedule")
+    check(sweep_launches(launches) == want,
+          "launch counts do not match the schedule")
+    check_draws(launches, iters, "the schedule")
     return launches
+
+
+def sweep_launches(launches):
+    """The sweeps' entries of a LAUNCHES dict (without rng_draw)."""
+    return {k: v for k, v in launches.items() if k != "rng_draw"}
+
+
+def check_draws(launches, iters, what):
+    """The fast path on the card draws through csrc/counter_draw.cu (the
+    exact count per iteration is phase 14's)."""
+    d = launches["rng_draw"]
+    log(f"  {what}: {d} counter draw launches in {iters} iterations "
+        f"({d / iters:.2f} an iteration)")
+    check(d > 0, f"{what}: the counter streams never drew on the card")
 
 
 def check_carried_lnld(s):
@@ -1827,7 +1865,9 @@ def two_ranks(tmp, data, chains):
                     "rubber_band": TAU_PROPOSALS * MESH_F64_ITERS,
                     "rubber_band_sample_age": 0,
                     **dict.fromkeys(PLAIN_SWEEPS, 0)}
-            check(by_rank == want, f"{what} {label}: launches {by_rank}")
+            check(sweep_launches(by_rank) == want,
+                  f"{what} {label}: launches {by_rank}")
+            check_draws(by_rank, MESH_F64_ITERS, f"{what} {label}")
     Lp = MESH_PAD_LOCI + 1
     check(got["f64_pad"]["loci"] == [chains * Lp // 2, Lp, 1],
           f"{what}: rows {got['f64_pad']['loci']}")
@@ -3135,7 +3175,390 @@ def legacy_mesh_phase(tmp, data, card):
     return launches, rec
 
 
-def main():
+# phase 14: the counter streams' draw kernel (csrc/counter_draw.cu)
+DRAW_LAYOUTS = ("one_lane", "lanes", "chains")
+DRAW_BATCHES = 9    # draw launches of draw_outputs on the card
+DRAW_SEED = 1700000017   # the benchmark seed of 14b's data and sampler
+DRAW_LOCI = 1000         # sample_1k: 1,000 loci of 1,000 bp
+DRAW_ITERS = 50          # 14b: one chunk of the benchmark
+# draw batches an iteration of sample_1k: theta 2, m 2, tau 3 x 2, mixing 2
+DRAW_PER_ITERATION = 12
+SAMPLE_1K_CTL = os.path.join(ROOT, "benchmark", "configs",
+                             "sample-control-file.ctl")
+
+
+def draw_streams(layout, wrap, device):
+    """(per-locus stream, general stream, per-lane offsets) of a layout:
+    "one_lane" (one lane, a 0-d counter), "lanes" (37 lanes, a 0-d
+    counter; the general stream one lane) or "chains" (3 chains of 5
+    lanes, [3] counters; the general stream [3]).  With `wrap` the
+    counters stand 1 to 3 below 2^32, so that the draws wrap."""
+    import torch
+    from gphocs_tpu_torch import rng_fast as RF
+
+    lanes, chains = {"one_lane": (1, 0), "lanes": (37, 0),
+                     "chains": (15, 3)}[layout]
+    base = 2 ** 32 - 3 if wrap else 7
+    ctr = torch.tensor([base + c for c in range(chains)] if chains else base,
+                       dtype=torch.int64, device=device)
+    per = RF.FastRngState(RF.init_fast(lanes, 4242, device).key, ctr)
+    gen = RF.FastRngState(RF.init_fast(max(chains, 1), 99, device).key,
+                          ctr.clone())
+    offs = torch.arange(lanes, dtype=torch.int64, device=device) * 5 % 11
+    return per, gen, offs
+
+
+def draw_outputs(per, gen, offs, dtype):
+    """Every draw function of rng_fast on the streams of draw_streams, by
+    name: uniforms at an int and at per-lane offsets, normals and uniforms
+    of every lane, of the general stream one by one and in batches (n and
+    3n consecutive draws), and the advanced counters (`<name>.ctr`), by
+    the kernel or the ATen chain as rng_fast routes them.  The normals'
+    names hold "normal".  DRAW_BATCHES launches on the card."""
+    from gphocs_tpu_torch import rng_fast as RF
+
+    out = {"raw_u": RF.raw_u(per, 1, dtype),
+           "raw_u_offsets": RF.raw_u(per, offs + 2, dtype)}
+    for draw in (RF.rnd2normal8, RF.rndnormal, RF.rndu):
+        out[draw.__name__], st = draw(per, dtype)
+        out[draw.__name__ + ".ctr"] = st.ctr
+    for draw in (RF.rndu, RF.rnd2normal8):
+        out["general_" + draw.__name__], st = draw(gen, dtype)
+        out[f"general_{draw.__name__}.ctr"] = st.ctr
+    for draw, n in ((RF.batch_u, 5), (RF.batch_2normal8, 4)):
+        out[draw.__name__], st = draw(gen, n, dtype)
+        out[draw.__name__ + ".ctr"] = st.ctr
+    return out
+
+
+def aten_route(fn, *args):
+    """fn(*args) with rng_fast's draws on the ATen chain on every device
+    (the route of CUDA draws before counter_draw.cu); the sweep wrappers
+    keep their kernels."""
+    from gphocs_tpu_torch import rng_fast as RF
+    from gphocs_tpu_torch.ops import cuda_lib
+
+    uniforms = RF._uniforms
+
+    def on_chain(*a):
+        on_cuda = cuda_lib.on_cuda
+        cuda_lib.on_cuda = lambda *tensors: False
+        try:
+            return uniforms(*a)
+        finally:
+            cuda_lib.on_cuda = on_cuda
+
+    RF._uniforms = on_chain
+    try:
+        return fn(*args)
+    finally:
+        RF._uniforms = uniforms
+
+
+def sample_1k_data(path, seed, num_loci=DRAW_LOCI):
+    """sample_1k's sequence file for `seed` (benchmark/datagen.py)."""
+    from benchmark import datagen
+    from benchmark.reference import control
+
+    with open(SAMPLE_1K_CTL) as f:
+        ctl = control.parse(f.read())
+    datagen.write_seq_file(path, ctl, num_loci, 1000, seed)
+
+
+def sample_1k_sampler(data, device, dtype, seed):
+    """The benchmark's set-up of sample_1k.c1 for `seed` (benchmark/
+    harness.py): initialized, iteration 0 without migration, the migration
+    rates drawn.  Uses only what every version of Sampler has."""
+    from gphocs_tpu_torch.config import parse_control_text
+    from gphocs_tpu_torch.sampler.driver import Sampler
+
+    with open(SAMPLE_1K_CTL) as f:
+        cfg = parse_control_text(f.read())
+    cfg.mcmc.random_seed = seed % (2 ** 31 - 1 - 7919)
+    cfg.mcmc.start_mig = 0
+    s = Sampler(cfg, seq_path=data, dtype=dtype, device=device)
+    s.initialize()
+    s.step_chunk(1, do_migrate=False)
+    s._sample_mig_rates_device()
+    return s
+
+
+def chunk_rows(root, data, seed, out):
+    """`chip_smoke.py --chunk-rows ROOT DATA SEED OUT`: the trace rows and
+    final counters of one f64 chunk of DRAW_ITERS iterations of sample_1k
+    on the card, run by the gphocs_tpu_torch of the checkout ROOT (14b's
+    parent comparison), saved to OUT."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    import gphocs_tpu_torch
+
+    here = os.path.dirname(os.path.abspath(gphocs_tpu_torch.__file__))
+    check(here == os.path.join(os.path.abspath(root), "gphocs_tpu_torch"),
+          f"imported {here}, not the package of {root}")
+    s = sample_1k_sampler(data, "cuda", torch.float64, int(seed))
+    _, tr = s.step_chunk(DRAW_ITERS, do_migrate=True)
+    torch.save({"rows": {f: getattr(tr, f).cpu() for f in tr._fields},
+                "lrng_ctr": s.lrng.ctr.cpu(), "grng_ctr": s.grng.ctr.cpu()},
+               out)
+    return 0
+
+
+def _spr_one_walk(update_spr):
+    """update_spr with every locus walking on its own (sync_group = 1),
+    the card's schedule: the CPU's spr_sweep then draws as the kernel."""
+    def one(*args, **kwargs):
+        kwargs["sync_group"] = 1
+        return update_spr(*args, **kwargs)
+    return one
+
+
+def fast_vs_cpu(card, cpu, iters, tol=2e-5, draws=DRAW_PER_ITERATION):
+    """Phase 14b: `iters` iterations of the card's sampler (fast RNG), each
+    held against one iteration of the CPU's from the same state, SPR
+    walking locus by locus on both: equal accept counts, counters and
+    integer arrays (every decision); every real within `tol` of its
+    field's largest value.  The reals are not bitwise: the kernels'
+    arithmetic and the card's libm differ from the plain versions' by an
+    ulp, and an iteration magnifies that (SPR's coalescence times on
+    segments of low hazard moved single ages by up to 5.17e-6 of the
+    largest age in 50 iterations of sample_1k at DRAW_SEED, by the draw
+    kernel's route and by the ATen chain's alike); a wrong draw moves a
+    value by its own size and changes decisions.  Each card iteration must
+    draw `draws` batches through the kernel (0 on the ATen route), the
+    CPU's none.  Returns (the card's trace rows, the largest difference
+    relative to its field's largest value)."""
+    import torch
+    from gphocs_tpu_torch.ops import sweeps
+
+    worst, rows = 0.0, []
+
+    def close(name, a, b):
+        nonlocal worst
+        a, b = a.double().cpu(), b.double().cpu()
+        if not a.numel():
+            return
+        scale = float(a.abs().max())
+        d = float((a - b).abs().max())
+        worst = max(worst, d / scale if scale else d)
+        check(d <= tol * scale, f"14b: {name} differs by {d:.3e}, beyond "
+              f"{tol:g} of its largest value {scale:.3e}")
+
+    def equal(name, a, b):
+        check(torch.equal(a.cpu(), b.cpu()), f"14b: {name} differs")
+
+    for it in range(iters):
+        legacy_copy(card, cpu)
+        sweeps.reset_launch_counts()
+        st_g, tr_g = card.step_chunk(1, do_migrate=True)
+        torch.cuda.synchronize()
+        check(sweeps.LAUNCHES["rng_draw"] == draws,
+              f"14b: {sweeps.LAUNCHES['rng_draw']} draw launches in "
+              f"iteration {it}")
+        plain_spr = sweeps.update_spr
+        sweeps.update_spr = _spr_one_walk(plain_spr)
+        try:
+            st_c, tr_c = cpu.step_chunk(1, do_migrate=True)
+        finally:
+            sweeps.update_spr = plain_spr
+        check(sweeps.LAUNCHES["rng_draw"] == draws,
+              "14b: the CPU's sampler drew through the kernel")
+        rows.append(tr_g)
+        for f in st_g._fields:
+            a, b = getattr(st_c, f), getattr(st_g, f)
+            (close if a.is_floating_point() else equal)(f"{f} ({it})", a, b)
+        for f in tr_g._fields:
+            close(f"trace {f} ({it})", getattr(tr_c, f), getattr(tr_g, f))
+        for f in card.gen._fields:
+            a, b = getattr(cpu.gen, f), getattr(card.gen, f)
+            if isinstance(a, torch.Tensor):
+                (close if a.is_floating_point() else equal)(
+                    f"{f} ({it})", a, b)
+        for name, a, b in (("lnld", cpu.lnld, card.lnld),
+                           ("lnp", cpu.lnp, card.lnp),
+                           ("cond", cpu.cond, card.cond)):
+            close(f"{name} ({it})", a, b)
+        for r_c, r_g in ((cpu.lrng, card.lrng), (cpu.grng, card.grng)):
+            equal(f"streams ({it})", r_c.ctr, r_g.ctr)
+    rows = type(rows[0])(*(torch.cat(x) for x in zip(*rows)))
+    return rows, worst
+
+
+def draw_times(dev):
+    """The draw kernel at f32 on two shapes: theta's batch of sample_1k
+    (batch_2normal8 of 7 populations: 21 draws of the general stream) and
+    one draw per lane of 1,000 lanes at 3 positions (rnd2normal8 of the
+    VAR rate update).  Per shape: the kernel's device us per launch
+    (torch.profiler; None where it traces no device event, as after the
+    mesh phases in one process), the least time its bytes take (key, counter and
+    output, each once, over 3.35 TB/s), and the host us of a call of
+    rng_fast._uniforms beside the ATen chain's (raw_bits + bits_to_unit on
+    the card, the parent's route)."""
+    import torch
+    from gphocs_tpu_torch import rng_fast as RF
+    from gphocs_tpu_torch.tools import kernel_times as KT
+
+    f32 = torch.float32
+    out = {}
+    for name, lanes, n in (("theta_batch", 1, 21), ("lanes_1000x3", 1000, 3)):
+        st = RF.init_fast(lanes, 5, dev)
+        st = st._replace(ctr=st.ctr + 12345)
+        pos = torch.arange(n, dtype=torch.int64, device=dev)
+
+        def kernel():
+            return RF._uniforms(st, 1, n, f32)
+
+        def chain():
+            return RF.bits_to_unit(
+                RF.raw_bits(st.key[:, None], st.ctr + 1 + pos), f32)
+
+        try:
+            us = KT._profiled(kernel, "counter_draw_kernel", 20)[0] * 1e3
+        except RuntimeError as e:  # the profiler traced no device event
+            log(f"  {name}: device time not measured ({e})")
+            us = None
+        nbytes = lanes * 8 + 8 + lanes * n * 4
+        out[name] = {"device_us": us,
+                     "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+                     "bytes": nbytes,
+                     "host_us_kernel": KT._host_us(kernel, 200),
+                     "host_us_aten_chain": KT._host_us(chain, 200)}
+    return out
+
+
+def counter_draw_phase(tmp, card, parent=None):
+    """Phase 14: (14a) the draw kernel's outputs bitwise equal to the ATen
+    chain on the card (the parent's route), and its uniforms and counters
+    to the CPU's (normals within 16 ulp: the card's libm), for every
+    layout of draw_streams, f32 and f64, the counters low and wrapping,
+    DRAW_BATCHES launches each; (14b)
+    sample_1k's data at f64 (seed DRAW_SEED, as benchmark/harness.py sets
+    the cell up): one chunk of DRAW_ITERS iterations in a process of this
+    checkout (`--chunk-rows`) and, with `parent` (a checkout of the parent
+    commit), of the parent, rows and counters bitwise equal; then
+    DRAW_ITERS card iterations each held against one CPU iteration
+    (fast_vs_cpu), DRAW_PER_ITERATION draw launches an iteration, their
+    rows bitwise equal to the chunk's; with `parent` the same again with
+    the card's draws on the ATen chain (aten_route, the parent's route),
+    whose largest difference from the CPU must equal the kernel's route's
+    bit for bit: the drift is the sweeps', not the draws'.  Returns a
+    record."""
+    import torch
+
+    dev = torch.device("cuda")
+    from gphocs_tpu_torch.ops import sweeps
+
+    t0 = time.perf_counter()
+    log(" -- 14a: the kernel's uniforms against the ATen chain on the CPU "
+        "and on the card")
+    worst_normal = 0.0
+    for layout in DRAW_LAYOUTS:
+        for wrap in (False, True):
+            for dt in (torch.float32, torch.float64):
+                cpu = draw_outputs(*draw_streams(layout, wrap, "cpu"), dt)
+                sweeps.reset_launch_counts()
+                chain = aten_route(draw_outputs,
+                                   *draw_streams(layout, wrap, dev), dt)
+                check(sweeps.LAUNCHES["rng_draw"] == 0, "the ATen route "
+                      "launched the draw kernel")
+                got = draw_outputs(*draw_streams(layout, wrap, dev), dt)
+                torch.cuda.synchronize()
+                what = f"14a {layout} {'wrap' if wrap else 'low'} {dt}"
+                check(sweeps.LAUNCHES["rng_draw"] == DRAW_BATCHES,
+                      f"{what}: {sweeps.LAUNCHES['rng_draw']} launches")
+                check(list(got) == list(cpu) == list(chain), what)
+                for k, b in got.items():
+                    a = cpu[k]
+                    check(b.is_cuda and a.dtype == b.dtype
+                          and a.shape == b.shape, f"{what}: {k}")
+                    check(torch.equal(chain[k], b),
+                          f"{what}: {k} differs from the card's ATen chain")
+                    if "normal" not in k or ".ctr" in k:
+                        check(torch.equal(a, b.cpu()),
+                              f"{what}: {k} differs from the CPU's")
+                    else:  # the card's log and cos against the CPU's
+                        d = float(((a - b.cpu()).abs()
+                                   / a.abs().clamp(min=1.0)).max())
+                        worst_normal = max(worst_normal, d)
+                        check(d <= 16 * torch.finfo(dt).eps,
+                              f"{what}: {k} {d:.2e} from the CPU's")
+    log(f"  {len(DRAW_LAYOUTS) * 4} cases, {DRAW_BATCHES} launches each: "
+        "every output bitwise equal to the ATen chain on the card; "
+        "uniforms and counters bitwise equal to the CPU's, normals within "
+        f"{worst_normal:.2e} relative (the card's libm) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    times = draw_times(dev)
+    for k, v in times.items():
+        log(f"  {k}: {v}")
+
+    log(f" -- 14b: sample_1k at f64 (seed {DRAW_SEED}): one chunk of "
+        f"{DRAW_ITERS} by this checkout and by the parent, then {DRAW_ITERS} "
+        "card iterations each against one CPU iteration")
+    data = os.path.join(tmp, "sample_1k.txt")
+    sample_1k_data(data, DRAW_SEED)
+    roots = {"change": ROOT}
+    if parent:
+        roots["parent"] = os.path.abspath(parent)
+    got = {}
+    for name, root in roots.items():
+        out = os.path.join(tmp, f"rows_{name}.pt")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--chunk-rows", root, data, str(DRAW_SEED), out],
+            capture_output=True, text=True, timeout=900, cwd=root)
+        check(proc.returncode == 0, f"14b {name}'s chunk failed:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        got[name] = torch.load(out)
+        log(f"  {name}'s chunk of {DRAW_ITERS} in a process of its own "
+            f"({time.perf_counter() - t0:.1f} s)")
+    if parent:
+        for f in got["change"]["rows"]:
+            check(torch.equal(got["parent"]["rows"][f],
+                              got["change"]["rows"][f]),
+                  f"14b: trace {f} differs from the parent's")
+        for k in ("lrng_ctr", "grng_ctr"):
+            check(torch.equal(got["parent"][k], got["change"][k]),
+                  f"14b: {k} differs from the parent's")
+        log(f"  trace rows and counters bitwise equal to the parent's "
+            f"({parent})")
+    else:
+        log("  no parent checkout given (--parent DIR): not compared")
+    t0 = time.perf_counter()
+    card_s = sample_1k_sampler(data, "cuda", torch.float64, DRAW_SEED)
+    cpu_s = sample_1k_sampler(data, "cpu", torch.float64, DRAW_SEED)
+    rows, worst = fast_vs_cpu(card_s, cpu_s, DRAW_ITERS)
+    log(f"  each iteration equal to the CPU's (accepts, counters, integers),"
+        f" reals within {worst!r} of each field's largest; "
+        f"{DRAW_PER_ITERATION} draw launches an iteration "
+        f"({time.perf_counter() - t0:.1f} s)")
+    worst_aten = None
+    if parent:
+        t0 = time.perf_counter()
+        card_a = sample_1k_sampler(data, "cuda", torch.float64, DRAW_SEED)
+        cpu_a = sample_1k_sampler(data, "cpu", torch.float64, DRAW_SEED)
+        rows_a, worst_aten = aten_route(
+            lambda: fast_vs_cpu(card_a, cpu_a, DRAW_ITERS, draws=0))
+        check(worst_aten == worst, f"14b: the ATen route's drift "
+              f"{worst_aten!r} is not the kernel route's {worst!r}")
+        for f in rows._fields:
+            check(torch.equal(getattr(rows_a, f), getattr(rows, f)),
+                  f"14b: trace {f} of the ATen route differs")
+        log(f"  the same with the card's draws on the ATen chain: reals "
+            f"within {worst_aten!r}, the same rows "
+            f"({time.perf_counter() - t0:.1f} s)")
+    for f in rows._fields:
+        check(torch.equal(got["change"]["rows"][f], getattr(rows, f).cpu()),
+              f"14b: trace {f} of one chunk differs from the iterations'")
+    check(torch.equal(got["change"]["lrng_ctr"], card_s.lrng.ctr.cpu()),
+          "14b: counters of one chunk differ")
+    return {"layouts": len(DRAW_LAYOUTS) * 4, "f64_iterations": DRAW_ITERS,
+            "times": times,
+            "worst_rel_vs_cpu": worst, "worst_rel_vs_cpu_aten": worst_aten,
+            "draws_per_iteration": DRAW_PER_ITERATION,
+            "parent_bitwise": bool(parent), "card": card}
+
+
+def main(parent=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -3445,6 +3868,11 @@ def main():
     all_launches.append(lm_launches)
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
+    log("== phase 14: the counter streams' draw kernel")
+    t_phase = time.perf_counter()
+    draw_rec = counter_draw_phase(tmp, card, parent)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
     src = {"node_age": ("node_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:215"),
            "mig_age": ("mig_age.cu", "gphocs_tpu/ops/sweeps_pallas.py:588"),
            "rubber_band": ("rubber_band.cu",
@@ -3502,6 +3930,7 @@ def main():
                     **mc_rec, "card": card}))
     log(json.dumps({"path": "legacy_mesh", "it_per_s": paths["legacy_mesh"],
                     **lm_rec, "card": card}))
+    log(json.dumps({"phase": "counter_draw", **draw_rec}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
@@ -3515,4 +3944,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 9b, 12b or 13b
         sys.path.insert(0, ROOT)
         sys.exit(mesh_rank(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--chunk-rows"]:  # a checkout's chunk of phase 14b
+        sys.exit(chunk_rows(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--parent"]:
+        sys.exit(main(parent=sys.argv[2]))
     sys.exit(main())

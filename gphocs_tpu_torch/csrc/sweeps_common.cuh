@@ -521,6 +521,12 @@ __host__ __device__ inline int locus_bytes(int reals, int ints) {
   K<<<dim3((a->Lc + a->block - 1) / a->block, a->C), 32 * a->block,         \
       a->smem_bytes, (cudaStream_t)stream>>>(*a)
 #endif
+// A plain one-dimensional grid without shared memory (counter_draw.cu);
+// the host build runs its threads one after another.
+#ifndef SWEEP_LAUNCH_GRID
+#define SWEEP_LAUNCH_GRID(K, blocks, threads, stream, ...)                 \
+  K<<<(blocks), (threads), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
+#endif
 
 // bytes_fn<T>(a): the dynamic shared memory the kernel's layout needs.
 // A size above 48 KB has to be allowed for the kernel first; a size the

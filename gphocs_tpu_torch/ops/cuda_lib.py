@@ -15,12 +15,27 @@ ptxas_<hash>.txt (`resource_report`).  -fmad=false keeps every multiply and add 
 on its own, as the plain versions' separate tensor ops are: the kernels
 then agree with them to the last bits at f64 (a contracted proposal moves
 ages by ~1e-13, and the prior, d lnP / d t ~ 2 n / theta ~ 1e5, by ~1e-8).
-Every entry point takes a pointer to one `SweepArgs` struct
-(csrc/sweeps_common.cuh) and the CUDA stream, launches one kernel, and
-returns cudaGetLastError(); `launch` raises on non-zero.  Every kernel runs
-a warp per locus with its tables in dynamic shared memory: its entry point
-first holds the caller's shared-memory size against its own layout, and
-allows the kernel more than 48 KB where it asks for that.
+Every entry point of the four sweep kernels takes a pointer to one
+`SweepArgs` struct (csrc/sweeps_common.cuh) and the CUDA stream, launches
+one kernel, and returns cudaGetLastError(); `launch` raises on non-zero.
+Every sweep kernel runs a warp per locus with its tables in dynamic shared
+memory: its entry point first holds the caller's shared-memory size
+against its own layout, and allows the kernel more than 48 KB where it
+asks for that.
+
+counter_draw.cu draws the counter streams' uniforms (rng_fast.py) in one
+launch per batch.  Its entry points, `counter_draw_f32` and
+`counter_draw_f64`, take plain pointers and ints (`DRAW_ARGTYPES`: key,
+counter, per-lane offsets or null, base offset, lanes, counters, draws per
+lane, output, stream), not a SweepArgs, so that a draw builds no struct;
+`launch_draw` raises on an error, and on a layout the kernel refuses
+(`ERR_DRAW_SHAPE`), and counts each launch in LAUNCHES["rng_draw"].
+
+LAUNCHES counts the kernel launches of this library since the last
+ops/sweeps.reset_launch_counts() (`-v` prints it), and `on_cuda` is the
+one test of where a launch would go: the sweep wrappers (ops/sweeps.py)
+and the draws (rng_fast.py) both take the kernel for CUDA tensors and
+their plain versions for CPU tensors.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without nvcc.
@@ -37,7 +52,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gphocs_tpu_torch"
-SOURCES = ("node_age.cu", "mig_age.cu", "rubber_band.cu", "spr.cu")
+SOURCES = ("node_age.cu", "mig_age.cu", "rubber_band.cu", "spr.cu",
+           "counter_draw.cu")
 HEADERS = ("sweeps_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -80,8 +96,33 @@ class SweepArgs(ctypes.Structure):
 ENTRY_POINTS = tuple(f"{k}_{t}" for k in ("node_age", "mig_age",
                                            "rubber_band", "spr")
                      for t in ("f32", "f64"))
+# the counter streams' uniforms (counter_draw.cu): key, ctr, offs, base, K,
+# C, n, out, stream; the error for a layout it does not take
+DRAW_ENTRY_POINTS = ("counter_draw_f32", "counter_draw_f64")
+DRAW_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+ERR_DRAW_SHAPE = 9003
+
+# kernel launches per wrapper; the rubber-band kernel's two modes (tau,
+# sample age) are counted apart, and so are the conformance mode's plain
+# sweeps (*_plain: calls, no kernel); rng_draw: the counter streams' draw
+# batches (launch_draw)
+LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0,
+            "rubber_band_sample_age": 0, "spr": 0, "node_age_plain": 0,
+            "mig_age_plain": 0, "spr_plain": 0, "rng_draw": 0}
 
 _LIB = None
+
+
+def on_cuda(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raise otherwise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on CUDA or CPU, not {dev}")
+    return dev.type == "cuda"
 
 
 def _nvcc() -> str:
@@ -151,16 +192,25 @@ def resource_report() -> list:
             or "Used" in ln]
 
 
+def bind(lib):
+    """Declare the argument and result types of every entry point of a
+    loaded library; returns it."""
+    for name in ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(SweepArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in DRAW_ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = DRAW_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library():
     """The loaded kernel library (built on first call)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ENTRY_POINTS:
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(SweepArgs), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(ctypes.CDLL(str(build())))
     return _LIB
 
 
@@ -178,3 +228,18 @@ def launch(entry: str, args: SweepArgs, stream: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")
+
+
+def launch_draw(entry: str, key: int, ctr: int, offs: int, base: int,
+                K: int, C: int, n: int, out: int, stream: int) -> None:
+    """Call a counter_draw entry point (pointers as ints, offs 0 for
+    none); raise if the launch reported an error, else count it."""
+    err = getattr(library(), entry)(key, ctr, offs, base, K, C, n, out,
+                                    stream)
+    if err == ERR_DRAW_SHAPE:
+        raise RuntimeError(f"CUDA kernel {entry}: no layout of {n} draws "
+                           f"over {K} lanes of {C} counters")
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES["rng_draw"] += 1

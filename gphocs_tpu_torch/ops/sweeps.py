@@ -15,6 +15,12 @@ in the [L, ...] layout of the state (no lanes-last transposes):
 A failed build or launch raises; nothing falls back from the kernel to
 the plain version or from CUDA to the CPU.
 
+LAUNCHES is ops/cuda_lib.LAUNCHES: besides the wrappers' entries it
+holds "rng_draw", the launches of the counter streams' draw kernel
+(csrc/counter_draw.cu), which rng_fast.py makes for CUDA streams and the
+CPU never does.  Which route a call takes, here and in rng_fast.py, is
+decided by cuda_lib.on_cuda.
+
 The node-age, migration-age and SPR kernels draw from the counter-based
 streams (rng_fast.py) only.  Their wrappers raise TypeError when handed
 the Wichmann-Hill streams of the conformance mode (rng.WhRngState), on
@@ -80,12 +86,9 @@ FORCE_COND_IN_DEVICE_MEMORY = False
 # static shared memory of a kernel (the population tables), rounded up
 STATIC_SMEM = 1024
 
-# kernel launches per wrapper since the last reset_launch_counts(); the
-# rubber-band kernel's two modes (tau, sample age) are counted apart, and
-# so are the conformance mode's plain sweeps (*_plain: calls, no kernel)
-LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0,
-            "rubber_band_sample_age": 0, "spr": 0, "node_age_plain": 0,
-            "mig_age_plain": 0, "spr_plain": 0}
+# kernel launches per wrapper since the last reset_launch_counts()
+# (cuda_lib.LAUNCHES, where its entries are described)
+LAUNCHES = cuda_lib.LAUNCHES
 
 
 def reset_launch_counts() -> None:
@@ -143,17 +146,6 @@ def smem_plan(kernel: str, N: int, M: int, PP: int, B: int, P: int,
     per = locus(cond_smem)
     lpb = max(1, min(int(block), 32, room // per))
     return SmemPlan(lpb, cond_smem, lpb * per)
-
-
-def _on_cuda(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raise otherwise."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"sweep inputs on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"sweep kernels run on CUDA or CPU, not {dev}")
-    return dev.type == "cuda"
 
 
 def _counter_streams(rng, kernel: str) -> None:
@@ -326,7 +318,7 @@ def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
     """Fused node-age sweep (gphocs_tpu's node_age_sweep_pallas).
     Returns (gen, rng, lnld, lnp, cond, acc)."""
     _counter_streams(rng, "node_age")
-    if not _on_cuda(gen.age, cond, lnld, lnp, rng.key):
+    if not cuda_lib.on_cuda(gen.age, cond, lnld, lnp, rng.key):
         return update_internal_node_ages(gen, params, seq, rng, ctx,
                                          finetune, lnld, lnp, cond)
     with span("prepare"):
@@ -366,7 +358,7 @@ def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
     """Fused migration-age sweep (gphocs_tpu's mig_age_sweep_pallas).
     Returns (gen, rng, lnp, acc)."""
     _counter_streams(rng, "mig_age")
-    if not _on_cuda(gen.age, lnp, rng.key):
+    if not cuda_lib.on_cuda(gen.age, lnp, rng.key):
         return update_mig_ages(gen, params, rng, ctx, finetune, lnp)
     if ctx.num_bands == 0:
         return gen, rng, lnp, torch.zeros(_chains(params), dtype=torch.int64,
@@ -424,7 +416,7 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
     (age_prop, mag_prop, cond_prop, lnld_prop, lnp_prop, ntj0 [], ntj1 [],
     any_conflict []), the last three [C] for C chains."""
     is_sample_age = bool(is_sample_age)
-    if not _on_cuda(gen.age, cond):
+    if not cuda_lib.on_cuda(gen.age, cond):
         return rubber_band_eval_plain(gen, params, seq, ctx, pop,
                                       is_sample_age, taub0, taub1, tauold,
                                       taunew, cond)
@@ -478,7 +470,7 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     on a loci mesh (`loci_axis`), where the counter advances by the
     largest draw offset over all ranks (sweeps_pallas.py:2011-2014)."""
     _counter_streams(rng, "spr")
-    if not _on_cuda(gen.age, cond, lnld, rng.key):
+    if not cuda_lib.on_cuda(gen.age, cond, lnld, rng.key):
         return update_spr(gen, params, seq, rng, ctx, lnld, cond,
                           sync_group=gen.num_loci, loci_axis=loci_axis)
     with span("prepare"):
@@ -518,3 +510,4 @@ def spr_sweep_plain(gen: GenState, params: Params, seq: SeqData, rng,
     LAUNCHES["spr_plain"] += 1
     return update_spr(gen, params, seq, rng, ctx, lnld, cond,
                       sync_group=gen.num_loci)
+

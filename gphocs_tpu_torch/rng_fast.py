@@ -8,12 +8,22 @@ uint32 arithmetic is carried in int64 under a 0xFFFFFFFF mask (torch has
 no uint32 shift/add on the CPU).  Products are split into 16-bit halves
 so that no int64 product overflows.
 
+Where the draws run: every uniform draw goes through `_uniforms`, which
+takes n consecutive counter positions of every lane at once.  For a
+stream whose keys are CUDA tensors that is one launch of the hand-written
+kernel csrc/counter_draw.cu (ops/cuda_lib.launch_draw, counted in
+LAUNCHES["rng_draw"]); on the CPU it is the chain of ATen integer
+operations below (`raw_bits`, `bits_to_unit`), which the JAX-held tests
+run.  Both give the same bits; cuda_lib.on_cuda decides, and nothing falls
+back from one to the other.
+
 Keys and counter are int64 tensors holding uint32 values; the counter is a
 0-d tensor on the sampler's device, so advancing it never synchronizes
-with the host.  A state of C chains (sampler/driver.py, `chains=C`) keeps
-one counter per chain, [C], over the keys of all chains, chain-major
-([C * K] for the per-locus streams, [C] for the general stream): lane l
-reads the counter of chain l // K.
+with the host (the kernel reads it on the device too).  A state of C
+chains (sampler/driver.py, `chains=C`) keeps one counter per chain, [C],
+over the keys of all chains, chain-major ([C * K] for the per-locus
+streams, [C] for the general stream): lane l reads the counter of chain
+l // K.
 
 `init_fast` gives gphocs_tpu's keys for the same seed: the raw per-lane
 bits are jax.random.bits(jax.random.key(seed), (n,), uint32) under JAX's
@@ -30,6 +40,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from gphocs_tpu_torch.ops import cuda_lib
 from gphocs_tpu_torch.profiling import span
 
 MASK32 = 0xFFFFFFFF
@@ -129,10 +140,42 @@ def raw_bits(key: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
         return fmix32(key ^ fmix32(_mul32(ctr & MASK32, GOLDEN)))
 
 
+_DRAW_ENTRY = {torch.float32: "counter_draw_f32",
+               torch.float64: "counter_draw_f64"}
+
+
+def _uniforms(state: FastRngState, offset, n: int, dtype) -> torch.Tensor:
+    """[K, n] U(0,1): lane l's draws at counter positions
+    ctr+offset+0..n-1 (mod 2^32), `offset` an int or a per-lane int64
+    tensor; one launch of csrc/counter_draw.cu for CUDA keys, the ATen
+    chain for CPU keys."""
+    key = state.key
+    if not cuda_lib.on_cuda(key):
+        pos = torch.arange(n, dtype=torch.int64, device=key.device)
+        c = (lane_ctr(state) + offset).expand(key.shape)[:, None] + pos
+        return bits_to_unit(raw_bits(key[:, None], c), dtype)
+    if dtype not in _DRAW_ENTRY:
+        raise TypeError(f"the draw kernel takes float32 or float64, not "
+                        f"{dtype}")
+    with span("rng_hash"):
+        K, ctr = key.shape[0], state.ctr.contiguous()
+        if isinstance(offset, torch.Tensor):
+            offs = offset.to(torch.int64).expand(K).contiguous()
+            offs_ptr, base = offs.data_ptr(), 0
+        else:
+            offs_ptr, base = 0, int(offset)
+        out = torch.empty((K, n), dtype=dtype, device=key.device)
+        cuda_lib.launch_draw(
+            _DRAW_ENTRY[dtype], key.contiguous().data_ptr(), ctr.data_ptr(),
+            offs_ptr, base, K, ctr.numel(), n, out.data_ptr(),
+            torch.cuda.current_stream(key.device).cuda_stream)
+        return out
+
+
 def raw_u(state: FastRngState, offset, dtype) -> torch.Tensor:
     """U(0,1) for every lane at counter position ctr+offset (stateless).
     `offset` may be an int or a per-lane int64 tensor."""
-    return bits_to_unit(raw_bits(state.key, lane_ctr(state) + offset), dtype)
+    return _uniforms(state, offset, 1, dtype)[:, 0]
 
 
 def bump(state: FastRngState, n) -> FastRngState:
@@ -146,19 +189,15 @@ def rndu(state: FastRngState, dtype) -> Tuple[torch.Tensor, FastRngState]:
 def rndnormal(state: FastRngState, dtype
               ) -> Tuple[torch.Tensor, FastRngState]:
     """Standard normal via Box-Muller — loop-free."""
-    u1 = raw_u(state, 1, dtype)
-    u2 = raw_u(state, 2, dtype)
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    return r * torch.cos(2.0 * math.pi * u2), bump(state, 2)
+    u = _uniforms(state, 1, 2, dtype)
+    r = torch.sqrt(-2.0 * torch.log(u[:, 0]))
+    return r * torch.cos(2.0 * math.pi * u[:, 1]), bump(state, 2)
 
 
 def rnd2normal8(state: FastRngState, dtype
                 ) -> Tuple[torch.Tensor, FastRngState]:
-    n, state = rndnormal(state, dtype)
-    zval = M2N + n * S2N
-    u = raw_u(state, 1, dtype)
-    state = bump(state, 1)
-    return torch.where(u < 0.5, zval, -zval), state
+    u = _uniforms(state, 1, 3, dtype)  # ctr+1..3: Box-Muller, then sign
+    return normal8(u[:, 0], u[:, 1], u[:, 2]), bump(state, 3)
 
 
 def rndexp(state: FastRngState, mean, dtype
@@ -168,12 +207,10 @@ def rndexp(state: FastRngState, mean, dtype
 
 
 def _raw_u_batch(state: FastRngState, n: int, offset: int, dtype):
-    """[n] uniforms from lane 0 at counter positions ctr+offset+0..n-1;
-    [C, n] from each chain's lane of a chains' general stream."""
-    c = state.ctr[..., None] + offset + torch.arange(
-        n, dtype=torch.int64, device=state.key.device)
-    key = state.key[0] if state.ctr.dim() == 0 else state.key[:, None]
-    return bits_to_unit(raw_bits(key, c), dtype)
+    """[n] uniforms from the one lane of a general stream at counter
+    positions ctr+offset+0..n-1; [C, n] from a chains' general stream."""
+    u = _uniforms(state, offset, n, dtype)
+    return u[0] if state.ctr.dim() == 0 else u
 
 
 def batch_u(state: FastRngState, n: int, dtype
@@ -194,8 +231,7 @@ def normal8(u1, u2, u3) -> torch.Tensor:
 def batch_2normal8(state: FastRngState, n: int, dtype
                    ) -> Tuple[torch.Tensor, FastRngState]:
     """[n] ([C, n]) mixture-kernel draws from the general stream in one
-    step."""
-    u1 = _raw_u_batch(state, n, 1, dtype)
-    u2 = _raw_u_batch(state, n, 1 + n, dtype)
-    u3 = _raw_u_batch(state, n, 1 + 2 * n, dtype)
-    return normal8(u1, u2, u3), bump(state, 3 * n)
+    step: its 3n consecutive draws in one batch."""
+    u = _raw_u_batch(state, 3 * n, 1, dtype)
+    return (normal8(u[..., :n], u[..., n:2 * n], u[..., 2 * n:]),
+            bump(state, 3 * n))

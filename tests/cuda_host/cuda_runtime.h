@@ -2,7 +2,9 @@
 // gphocs_tpu_torch/csrc/*.cu for tests/test_torch_csrc_host.py.
 //
 // The loci run one after another, chain after chain (the grid's second
-// axis).  Every kernel runs a warp per locus:
+// axis).  Every sweep kernel runs a warp per locus (the draw kernel of
+// counter_draw.cu is a plain grid, SWEEP_LAUNCH_GRID, whose threads run
+// one after another):
 // the stand-in runs each locus as one "warp" of a block of a->block loci,
 // with the block's dynamic shared memory an ordinary buffer (filled with
 // 0xA5, not zeros) carved up by the kernel as on the card.  That warp is a
@@ -80,4 +82,18 @@ using std::isfinite;
           threadIdx.x = 32 * w_;                                          \
           K(*(a));                                                        \
         }                                                                 \
+  } while (0)
+
+// A plain grid (counter_draw.cu): every thread of every block in turn.
+#define SWEEP_LAUNCH_GRID(K, blocks, threads, stream, ...)                \
+  do {                                                                    \
+    (void)(stream);                                                       \
+    for (unsigned b_ = 0; b_ < (unsigned)(blocks); ++b_)                  \
+      for (unsigned t_ = 0; t_ < (unsigned)(threads); ++t_) {             \
+        blockIdx.x = b_;                                                  \
+        blockIdx.y = 0;                                                   \
+        blockDim.x = (threads);                                           \
+        threadIdx.x = t_;                                                 \
+        K(__VA_ARGS__);                                                   \
+      }                                                                   \
   } while (0)

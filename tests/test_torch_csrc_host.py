@@ -9,7 +9,10 @@ the card's schedule.  A second build runs the lane loops backwards: a
 section that reads what another lane of it writes then gives another
 result.  The kernels are reached through the wrappers in ops/sweeps.py, so
 the SweepArgs layout shared by ctypes and C++ and the shared-memory plan
-are checked too.  No GPU is needed; the tests skip without a C++ compiler.
+are checked too.  The counter streams' draw kernel (counter_draw.cu, a
+plain grid whose threads the stand-in runs one after another) is reached
+through rng_fast.py's CUDA route and held bitwise against its ATen chain.
+No GPU is needed; the tests skip without a C++ compiler.
 """
 
 import ctypes
@@ -42,7 +45,9 @@ from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
                                           update_taus, update_taus_fused)
 from gphocs_tpu_torch.ops import cuda_lib, sweeps
 
-from chip_smoke import SAMPLE_AGE_STEPS
+from chip_smoke import (DRAW_BATCHES, DRAW_LAYOUTS, SAMPLE_AGE_STEPS,
+                        draw_outputs, draw_streams, sweep_launches)
+from gphocs_tpu_torch import rng_fast as RF
 
 SHIM = Path(__file__).resolve().parent / "cuda_host"
 
@@ -57,11 +62,7 @@ def _build(cxx, out, *flags):
          *(str(cuda_lib.CSRC / s) for s in cuda_lib.SOURCES),
          str(SHIM / "pop_tables_probe.cu"), "-o", str(out)],
         check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    for name in cuda_lib.ENTRY_POINTS:
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(cuda_lib.SweepArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib = cuda_lib.bind(ctypes.CDLL(str(out)))
     lib.pop_tables_probe_f64.argtypes = [ctypes.POINTER(cuda_lib.SweepArgs),
                                          ctypes.c_int, ctypes.c_void_p]
     lib.pop_tables_probe_f64.restype = None
@@ -144,8 +145,9 @@ def s32_bucket(tmp_path_factory):
 
 
 def _route(monkeypatch, lib, block=None, cond_in_device_memory=False):
-    """Route the ops/sweeps wrappers to a host build for CPU tensors."""
-    monkeypatch.setattr(sweeps, "_on_cuda", lambda *tensors: True)
+    """Route the ops/sweeps wrappers and rng_fast's draws to a host build
+    for CPU tensors."""
+    monkeypatch.setattr(cuda_lib, "on_cuda", lambda *tensors: True)
     monkeypatch.setattr(cuda_lib, "_LIB", lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
@@ -257,7 +259,7 @@ def test_rubber_band_sample_age_kernel_matches_plain(warm_sample_age,
     assert sweeps.LAUNCHES == {"node_age": 0, "mig_age": 0, "rubber_band": 0,
                                "rubber_band_sample_age": 1, "spr": 0,
                                "node_age_plain": 0, "mig_age_plain": 0,
-                               "spr_plain": 0}
+                               "spr_plain": 0, "rng_draw": 0}
     assert float(k[5]) == float(q[5]) and float(k[6]) == float(q[6])
     assert float(k[5]) + float(k[6]) > 0
     assert bool(k[7]) == bool(q[7]) == conflict
@@ -282,7 +284,7 @@ def test_sample_age_sweep_through_kernel(warm_sample_age, kernels_on_host,
             s.cond, s.tree.num_cur_pops, mask)
     k = update_sample_ages_fused(*args)
     assert sweeps.LAUNCHES["rubber_band_sample_age"] == 1
-    monkeypatch.setattr(sweeps, "_on_cuda", lambda *tensors: False)
+    monkeypatch.setattr(cuda_lib, "on_cuda", lambda *tensors: False)
     q = update_sample_ages_fused(*args)
     assert sweeps.LAUNCHES["rubber_band_sample_age"] == 1
     assert torch.equal(k[6], q[6]) and int(k[2].ctr) == int(q[2].ctr)
@@ -490,10 +492,11 @@ def test_s32_bucket_matches_plain(build, s32_bucket, host_libs, monkeypatch):
     _close(k[2] / scale, q[2] / scale, 1e-10)
     _close(k[3], q[3], 1e-9)
     _close(k[4], q[4], 1e-9)
-    assert sweeps.LAUNCHES == {"node_age": 1, "mig_age": 1, "spr": 1,
-                               "rubber_band": 1, "rubber_band_sample_age": 0,
-                               "node_age_plain": 0, "mig_age_plain": 0,
-                               "spr_plain": 0}
+    # the plain versions' draws take the host build's draw kernel too
+    assert sweep_launches(sweeps.LAUNCHES) == {
+        "node_age": 1, "mig_age": 1, "spr": 1, "rubber_band": 1,
+        "rubber_band_sample_age": 0, "node_age_plain": 0, "mig_age_plain": 0,
+        "spr_plain": 0}
 
 
 def test_counts_are_summed_over_the_valid_loci(warm, kernels_on_host):
@@ -754,3 +757,33 @@ def test_admixed_kernels_match_plain(chains, warm_admix, warm_admix_chains,
     assert len(fwd) == len(rev)
     for x, y in zip(fwd, rev):
         assert torch.equal(x, y)
+
+
+# ---- the counter streams' draw kernel (counter_draw.cu) --------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("wrap", [False, True], ids=["low", "wrap"])
+@pytest.mark.parametrize("layout", DRAW_LAYOUTS)
+def test_counter_draw_kernel_matches_aten_chain(layout, wrap, dtype,
+                                                host_libs, monkeypatch):
+    """rng_fast's CUDA route (one launch of counter_draw.cu per draw
+    batch) gives the ATen chain's bits: one lane, K lanes and 3 chains
+    ([C] counters, the general stream's [C, n]), int and per-lane offsets,
+    n and 3n consecutive draws, counters that wrap past 2^32.
+    LAUNCHES["rng_draw"] counts each batch on that route and stays 0 on
+    the CPU's."""
+    per, gen, offs = draw_streams(layout, wrap, torch.device("cpu"))
+    sweeps.reset_launch_counts()
+    want = draw_outputs(per, gen, offs, dtype)
+    assert sweeps.LAUNCHES["rng_draw"] == 0
+    _route(monkeypatch, host_libs["forward"])
+    got = draw_outputs(per, gen, offs, dtype)
+    assert sweeps.LAUNCHES["rng_draw"] == DRAW_BATCHES
+    assert list(got) == list(want)
+    for k, a in want.items():
+        assert a.dtype == got[k].dtype and torch.equal(a, got[k]), k
+    if layout == "chains":  # a layout the kernel refuses: 14 lanes, 3 chains
+        with pytest.raises(RuntimeError, match="no layout"):
+            RF._uniforms(RF.FastRngState(per.key[:14], per.ctr), 0, 1, dtype)
+        assert sweeps.LAUNCHES["rng_draw"] == DRAW_BATCHES

@@ -24,7 +24,7 @@ from gphocs_tpu_torch.config.samples import SAMPLE_AGE_VAR_CTL
 from gphocs_tpu_torch.io.simulate import simulate_seq_file
 from gphocs_tpu_torch.kernels.common import gen_log_prior
 from gphocs_tpu_torch.model import build_poptree
-from gphocs_tpu_torch.ops import sweeps
+from gphocs_tpu_torch.ops import cuda_lib, sweeps
 from gphocs_tpu_torch.sampler.driver import Sampler
 
 # one intra-op thread (tests/torch_twins.py says why)
@@ -171,7 +171,7 @@ def test_prepare_nested_in_the_calling_family(seqs, monkeypatch):
     """The wrappers' CUDA branch, its launches left out: each call makes
     one prepare range inside the family that called it."""
     s = _sampler(seqs)
-    monkeypatch.setattr(sweeps, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "on_cuda", lambda *t: True)
     monkeypatch.setattr(sweeps.Prepared, "launch", lambda self, device: None)
     g, sq, r, ctx = s.gens[0], s.seqs[0], s.lrngs[0], s.ctx
     lnld, lnp, cond = s.lnlds[0], s.lnps[0], s.conds[0]
