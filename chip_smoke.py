@@ -31,7 +31,13 @@ script then exits non-zero without the final line):
      rebuild); then (3c) every kernel at f64 on a 64-locus x 16,000 bp
      state of WIDE_CTL (16 samples: N = 31, SPR grid K = 51, more than 8
      patterns), where every lane loop of the kernels takes more than one
-     turn;
+     turn; then (3d) each kernel's static shared memory as the runtime
+     reports it, and every kernel at f32 and f64 at each pattern count P
+     whose planned dynamic shared memory lies within the static reserve
+     below 48 KiB (the plan entries in csrc/ say which), at S = 8 and at
+     S = 32 (N = 63): a warmed 64-locus x 300 bp state with its patterns
+     padded to P, each kernel once as planned and once with its
+     conditionals in device memory (forced), the two bitwise equal at f64;
   4. the main path on the standard workload (SAMPLE_CTL, 1000 loci x
      1000 bp simulated with seed 20260817) at f32: Sampler.initialize,
      run() with a trace file for 50 iterations, 3 warm-up iterations and a
@@ -620,6 +626,111 @@ def cast_state(s, dtype):
         lnp=gen_log_prior(g, pr, c))
 
 
+def padded_state(s, P, dtype):
+    """cast_state of s with its patterns padded to P as io/sequences pads
+    them (missing bases; each padding pattern a group of its own with no
+    sites), so that a kernel runs at P patterns on real trees."""
+    import types
+
+    import torch
+
+    sq = s.seq
+    L, n = sq.group_id.shape[0], P - sq.group_id.shape[1]
+
+    def pad(x, v):
+        return torch.cat([x, torch.full(x.shape[:-1] + (n,), v,
+                                        dtype=x.dtype, device=x.device)], -1)
+
+    ids = torch.arange(P - n, P, device=sq.group_id.device).expand(L, n)
+    seq = sq._replace(
+        leaf_base=pad(sq.leaf_base, 4),
+        group_id=torch.cat([sq.group_id, ids], -1),
+        group_count=pad(sq.group_count, 0), group_nphases=pad(
+            sq.group_nphases, 1), pattern_valid=pad(sq.pattern_valid, False),
+        group_members=None)
+    return cast_state(types.SimpleNamespace(
+        gen=s.gen, params=s.params, seq=seq, ft=s.ft, lrng=s.lrng,
+        grng=s.grng, tree=s.tree), dtype)
+
+
+def one_kernel(kernel, t):
+    """The outputs of one sweep kernel's wrapper on the state t (the
+    rubber band: its tau mode for the root population)."""
+    from gphocs_tpu_torch.ops import sweeps
+
+    g, pr, sq, c = t.gen, t.params, t.seq, t.ctx
+    if kernel == "node_age":
+        k = sweeps.node_age_sweep(g, pr, sq, t.lrng, c, t.ft.coal_time,
+                                  t.lnld, t.lnp, t.cond)
+        return [k[0].age, k[1].ctr, *k[2:]]
+    if kernel == "mig_age":
+        k = sweeps.mig_age_sweep(g, pr, t.lrng, c, t.ft.mig_time, t.lnp)
+        return [k[0].mig_age, k[1].ctr, *k[2:]]
+    if kernel == "spr":
+        k = sweeps.spr_sweep(g, pr, sq, t.lrng, c, t.lnld, t.cond)
+        return [*k[0], k[1].ctr, *k[2:]]
+    pop = t.tree.num_pops - 1
+    return list(sweeps.rubber_band_eval(g, pr, sq, c, pop, False,
+                                        *tau_bounds(t, pop), t.cond))
+
+
+def smem_window_phase(tmp, dev):
+    """Phase 3d: every kernel at each P whose planned dynamic shared
+    memory lies within the static reserve below 48 KiB, where a launch
+    needs the opt-in only once its static tables are counted."""
+    import torch
+    from gphocs_tpu_torch.config.samples import S32_CTL, SAMPLE_CTL
+    from gphocs_tpu_torch.ops import cuda_lib, sweeps
+
+    s32 = os.path.join(tmp, "window32.txt")
+    s32_ctl = S32_CTL.format(seq=s32, trace=os.path.join(tmp, "w32.log"))
+    for dt in (torch.float32, torch.float64):
+        log("  static shared memory, " + str(dt) + ": " + ", ".join(
+            f"{k} {sweeps.plan_for(k, dt, 15, 10, 7, 1, 6).static_bytes} B"
+            for k in cuda_lib.KERNELS))
+    launches = 0
+    for label, path, ctl in (("S = 8", os.path.join(tmp, "window8.txt"),
+                              SAMPLE_CTL), ("S = 32", s32, s32_ctl)):
+        s = warm_state(dev, torch.float64, path, ctl=ctl)
+        N, M = s.gen.num_nodes, s.gen.max_migs
+        PP, B, P0 = s.ctx.num_pops, s.ctx.num_bands, s.seq.group_id.shape[1]
+        log(f" -- {label}: N = {N}, M = {M}, P = {P0} before padding")
+        for kernel in cuda_lib.KERNELS:
+            for dt in (torch.float32, torch.float64):
+                P = P0
+                while True:
+                    try:
+                        plan = sweeps.plan_for(kernel, dt, N, M, PP, B, P)
+                    except ValueError:
+                        break
+                    if 47 * 1024 < plan.smem_bytes <= 48 * 1024:
+                        t = padded_state(s, P, dt)
+                        a = one_kernel(kernel, t)
+                        sweeps.FORCE_COND_IN_DEVICE_MEMORY = True
+                        try:
+                            b = one_kernel(kernel, t)
+                        finally:
+                            sweeps.FORCE_COND_IN_DEVICE_MEMORY = False
+                        torch.cuda.synchronize()
+                        bitwise = all(torch.equal(x, y)
+                                      for x, y in zip(a, b))
+                        log(f"  {kernel} {dt} P = {P}: "
+                            f"{plan.loci_per_block} loci/block, "
+                            f"{plan.smem_bytes} + {plan.static_bytes} B, "
+                            f"{'shared' if plan.cond_smem else 'device'}; "
+                            f"ran; equal to the device-memory variant: "
+                            f"{bitwise}")
+                        check(bitwise or dt == torch.float32,
+                              f"{kernel} P = {P}: the variants differ")
+                        launches += 1
+                    if kernel == "mig_age":
+                        break  # its layout holds no patterns
+                    P += 1
+        del s
+    check(launches > 0, "no plan in the window")
+    log(f"  {launches} planned launches in the window ran")
+
+
 def f32_checks(s):
     """Phase 3b: one f32 pass per kernel on the same state, cast."""
     import torch
@@ -1191,7 +1302,7 @@ def s32_phase(tmp, cmp):
     from gphocs_tpu_torch.config.samples import S32_CTL
     from gphocs_tpu_torch.io.simulate import simulate_seq_file
     from gphocs_tpu_torch.model import build_poptree
-    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.ops import cuda_lib, sweeps
     from gphocs_tpu_torch.sampler.driver import Sampler
 
     path = os.path.join(tmp, "s32.txt")
@@ -1221,12 +1332,12 @@ def s32_phase(tmp, cmp):
     in_device = 0
     for k in range(s.buckets):
         P = s.seqs[k].group_id.shape[1]
-        plans = {kn: sweeps.smem_plan(kn, N, M, s.ctx.num_pops,
-                                      s.ctx.num_bands, P, 8, sweeps.BLOCK)
-                 for kn in ("node_age", "mig_age", "rubber_band", "spr")}
+        plans = {kn: sweeps.plan_for(kn, torch.float64, N, M,
+                                     s.ctx.num_pops, s.ctx.num_bands, P)
+                 for kn in cuda_lib.KERNELS}
         in_device += sum(not p.cond_smem for kn, p in plans.items()
                          if kn != "mig_age")
-        log(f"  bucket {k}: {s.bucket_sizes[k]} loci, P = {P}; smem_plan "
+        log(f"  bucket {k}: {s.bucket_sizes[k]} loci, P = {P}; plan "
             + "; ".join(f"{kn} {p.loci_per_block} loci/block, "
                         f"{'shared' if p.cond_smem else 'device'}, "
                         f"{p.smem_bytes} B" for kn, p in plans.items()))
@@ -1494,7 +1605,8 @@ def admix_phase(tmp, data, card, cmp, times, bounds):
     d1 = time_cuda(lambda: prep.launch(dev), 20)
     times["spr_admix"] = {"ms": k1, "plain_ms": p1, "device_ms": d1,
                           "loci_per_block": prep.plan.loci_per_block,
-                          "smem_bytes_per_block": prep.plan.smem_bytes}
+                          "smem_bytes_per_block": prep.plan.smem_bytes,
+                          "static_smem_bytes": prep.plan.static_bytes}
     spr_draws = int(plain[1].ctr) - int(s.lrng.ctr)
     v = op_models(s, spr_draws)["spr"]
     bounds["spr_admix"] = bound(*v) + v
@@ -3628,6 +3740,8 @@ def main(parent=None):
     f32_sample_age_check(s64a)
     torch.cuda.synchronize()
     del s64, s64a
+    log("== phase 3d: the plans within the static reserve below 48 KiB")
+    smem_window_phase(tmp, dev)
 
     log("== phase 3c: kernels vs plain versions wider than a warp "
         "(f64, 64 loci x 16000 bp of WIDE_CTL)")
@@ -3715,7 +3829,8 @@ def main(parent=None):
             "ms": min(k1, k2), "plain_ms": p1, "device_ms": d1,
             "wrapper_device_ops": ops,
             "loci_per_block": plan.loci_per_block,
-            "smem_bytes_per_block": plan.smem_bytes}
+            "smem_bytes_per_block": plan.smem_bytes,
+            "static_smem_bytes": plan.static_bytes}
         log(f"  {name:24s} wrapper call {k1:.3f} / {k2:.3f} ms   launch "
             f"alone {d1:.4f} ms   plain {p1:.3f} ms   {ops} device "
             f"operations besides the kernel   "

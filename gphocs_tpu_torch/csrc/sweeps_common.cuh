@@ -39,13 +39,18 @@ typedef long long i64;
 #define MAXPP 16
 #define MAXB 8
 
-// what a block may use of an SM's shared memory, static part included
+// what a block may use of an SM's shared memory, static part included, and
+// what the plan keeps of it for a kernel's static tables (PopTables)
 #define SMEM_LIMIT 232448
-// returned by a warp-per-locus entry point whose caller's shared-memory
-// size (SweepArgs.smem_bytes) is not what the kernel's layout needs
+#define SMEM_STATIC_RESERVE 1024
+// The entry points' errors: a shared-memory size the kernel's layout does
+// not give, a chain layout that does not cover the loci (C * Lc != L); a
+// plan entry's: one locus's tables too large for a block, static shared
+// memory over the reserve.
 #define SWEEP_ERR_SMEM 9001
-// returned for a chain layout that does not cover the loci (C * Lc != L)
 #define SWEEP_ERR_CHAINS 9002
+#define SWEEP_ERR_TABLES 9004
+#define SWEEP_ERR_STATIC 9005
 
 // Must match gphocs_tpu_torch/ops/cuda_lib.py (PTR_FIELDS, INT_FIELDS).
 struct SweepArgs {
@@ -476,7 +481,7 @@ __device__ T admix_lnp(const SweepArgs& a, const int* npop, int c) {
 }
 
 // Bytes of one locus's shared-memory region: `reals` T's, then `ints`
-// ints, rounded up to 16.  ops/sweeps.py smem_plan computes the same.
+// ints, rounded up to 16.
 template <typename T>
 __host__ __device__ inline int locus_bytes(int reals, int ints) {
   return (reals * (int)sizeof(T) + ints * 4 + 15) / 16 * 16;
@@ -510,12 +515,9 @@ __host__ __device__ inline int locus_bytes(int reals, int ints) {
 #define SWEEP_PROF_END(extra)
 #endif
 
-// One C entry point per kernel and real type: hold the caller's
-// shared-memory size against the kernel's layout, launch on `stream` with
-// a->smem_bytes of dynamic shared memory, return cudaGetLastError().  The
-// CPU tests (tests/test_torch_csrc_host.py) compile these sources with a
-// host C++ compiler and define SWEEP_LAUNCH_WARP to run the loci one after
-// another.
+// The launch of a warp-per-locus kernel.  The CPU tests
+// (tests/test_torch_csrc_host.py) compile these sources with a host C++
+// compiler and define SWEEP_LAUNCH_WARP to run the loci one after another.
 #ifndef SWEEP_LAUNCH_WARP
 #define SWEEP_LAUNCH_WARP(K, a, stream)                                    \
   K<<<dim3((a->Lc + a->block - 1) / a->block, a->C), 32 * a->block,         \
@@ -528,15 +530,47 @@ __host__ __device__ inline int locus_bytes(int reals, int ints) {
   K<<<(blocks), (threads), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #endif
 
-// bytes_fn<T>(a): the dynamic shared memory the kernel's layout needs.
-// A size above 48 KB has to be allowed for the kernel first; a size the
-// card refuses comes back as the error of that call or of the launch.
+// The shared-memory plan of a launch, decided here and nowhere else, from
+// the kernel's layout bytes_fn<T>(a): the dynamic shared memory of a.block
+// loci with (a.cond_smem) or without their conditionals.  The conditionals
+// sit in shared memory where one locus with them fits beside the static
+// reserve (unless cond_in_device_memory); a block takes `block` loci, at
+// most 32 (1024 threads) and as many as fit.  Writes a->block, cond_smem
+// and smem_bytes; info = [the kernel's static bytes, the reserve, one
+// locus's tables alone, the room for the loci].
+template <typename F>
+static int plan_warp_kernel(F bytes_fn, int static_bytes, SweepArgs* a,
+                            int block, int cond_in_device_memory,
+                            int* info) {
+  const int room = SMEM_LIMIT - SMEM_STATIC_RESERVE;
+  a->block = 1;
+  a->cond_smem = 0;
+  const int tables = bytes_fn(*a);
+  info[0] = static_bytes, info[1] = SMEM_STATIC_RESERVE;
+  info[2] = tables, info[3] = room;
+  if (static_bytes < 0) return -static_bytes;
+  if (static_bytes > SMEM_STATIC_RESERVE) return SWEEP_ERR_STATIC;
+  if (tables > room) return SWEEP_ERR_TABLES;
+  a->cond_smem = 1;
+  a->cond_smem = !cond_in_device_memory && bytes_fn(*a) <= room;
+  const int per = bytes_fn(*a);
+  a->block = block < 32 ? block : 32;
+  a->block = a->block < room / per ? a->block : room / per;
+  a->block = a->block > 1 ? a->block : 1;
+  a->smem_bytes = a->block * per;
+  return 0;
+}
+
+// Refuse a plan the layout does not give (a caller that skipped the plan
+// entry or changed its plan); allow the kernel more than 48 KB of dynamic
+// shared memory where dynamic and static (at most the reserve, as the plan
+// entry made sure) together pass that.
 template <typename K, typename F>
-static int launch_warp_kernel(K kernel, F bytes_fn, const SweepArgs* a,
-                              void* stream) {
+static int launch_warp_kernel(K kernel, F bytes_fn, int static_bytes,
+                              const SweepArgs* a, void* stream) {
   if (a->block < 1 || bytes_fn(*a) != a->smem_bytes) return SWEEP_ERR_SMEM;
   if (a->C < 1 || a->Lc < 1 || a->C * a->Lc != a->L) return SWEEP_ERR_CHAINS;
-  if (a->smem_bytes > 48 * 1024) {
+  if (a->smem_bytes + static_bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
     if (err != 0) return err;
@@ -545,11 +579,29 @@ static int launch_warp_kernel(K kernel, F bytes_fn, const SweepArgs* a,
   return (int)cudaGetLastError();
 }
 
-#define SWEEP_ENTRY_WARP(name, kernel, bytes_fn)                           \
-  extern "C" int name##_f32(const SweepArgs* a, void* stream) {            \
-    return launch_warp_kernel(kernel<float>, bytes_fn<float>, a, stream);  \
+// Per kernel and real type t: the kernel's static shared memory as the
+// runtime reports it (a negative cudaError where it cannot), read once; the
+// plan entry <name>_plan_t(a, block, cond_in_device_memory, info); the
+// launch entry <name>_t(a, stream), which returns cudaGetLastError().
+#define SWEEP_ENTRY_WARP_T(name, kernel, bytes_fn, T, t)                   \
+  static int name##_static_##t() {                                         \
+    static const int bytes = [] {                                          \
+      cudaFuncAttributes f;                                                \
+      const int err = (int)cudaFuncGetAttributes(&f, kernel<T>);           \
+      return err != 0 ? -err : (int)f.sharedSizeBytes;                     \
+    }();                                                                   \
+    return bytes;                                                          \
   }                                                                        \
-  extern "C" int name##_f64(const SweepArgs* a, void* stream) {            \
-    return launch_warp_kernel(kernel<double>, bytes_fn<double>, a,         \
-                              stream);                                     \
+  extern "C" int name##_plan_##t(SweepArgs* a, int block,                  \
+                                 int cond_in_device_memory, int* info) {   \
+    return plan_warp_kernel(bytes_fn<T>, name##_static_##t(), a, block,    \
+                            cond_in_device_memory, info);                  \
+  }                                                                        \
+  extern "C" int name##_##t(const SweepArgs* a, void* stream) {            \
+    return launch_warp_kernel(kernel<T>, bytes_fn<T>, name##_static_##t(), \
+                              a, stream);                                  \
   }
+
+#define SWEEP_ENTRY_WARP(name, kernel, bytes_fn)                           \
+  SWEEP_ENTRY_WARP_T(name, kernel, bytes_fn, float, f32)                   \
+  SWEEP_ENTRY_WARP_T(name, kernel, bytes_fn, double, f64)

@@ -19,9 +19,11 @@ Every entry point of the four sweep kernels takes a pointer to one
 `SweepArgs` struct (csrc/sweeps_common.cuh) and the CUDA stream, launches
 one kernel, and returns cudaGetLastError(); `launch` raises on non-zero.
 Every sweep kernel runs a warp per locus with its tables in dynamic shared
-memory: its entry point first holds the caller's shared-memory size
-against its own layout, and allows the kernel more than 48 KB where it
-asks for that.
+memory.  Its plan entry, `<kernel>_plan_<t>` (`plan`), decides how much a
+block takes and where the conditionals live, from the kernel's own layout;
+its launch entry refuses a size that layout does not give, and allows the
+kernel more than 48 KB where the block's dynamic and static shared memory
+together pass that.
 
 counter_draw.cu draws the counter streams' uniforms (rng_fast.py) in one
 launch per batch.  Its entry points, `counter_draw_f32` and
@@ -59,14 +61,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # bounds of the kernels (MAXN... in sweeps_common.cuh: nodes, populations,
-# bands), what a block may use of an SM's shared memory (SMEM_LIMIT there),
-# and the error an entry point returns for a shared-memory size its layout
-# does not need
+# bands), and the entry points' errors (SWEEP_ERR_* there)
 MAXN, MAXPP, MAXB = 63, 16, 8
-SMEM_LIMIT = 232448
 ERR_SMEM = 9001
-# ... and for a chain layout that does not cover the loci (C * Lc != L)
 ERR_CHAINS = 9002
+ERR_TABLES = 9004
+ERR_STATIC = 9005
 
 # SweepArgs field order: must match struct SweepArgs in sweeps_common.cuh
 PTR_FIELDS = (
@@ -93,9 +93,10 @@ class SweepArgs(ctypes.Structure):
                 + [("oldage", ctypes.c_double)])
 
 
-ENTRY_POINTS = tuple(f"{k}_{t}" for k in ("node_age", "mig_age",
-                                           "rubber_band", "spr")
-                     for t in ("f32", "f64"))
+KERNELS = ("node_age", "mig_age", "rubber_band", "spr")
+ENTRY_POINTS = tuple(f"{k}_{t}" for k in KERNELS for t in ("f32", "f64"))
+PLAN_ENTRY_POINTS = tuple(f"{k}_plan_{t}" for k in KERNELS
+                          for t in ("f32", "f64"))
 # the counter streams' uniforms (counter_draw.cu): key, ctr, offs, base, K,
 # C, n, out, stream; the error for a layout it does not take
 DRAW_ENTRY_POINTS = ("counter_draw_f32", "counter_draw_f64")
@@ -199,6 +200,11 @@ def bind(lib):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(SweepArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in PLAN_ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(SweepArgs), ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     for name in DRAW_ENTRY_POINTS:
         fn = getattr(lib, name)
         fn.argtypes = DRAW_ARGTYPES
@@ -214,6 +220,32 @@ def library():
     return _LIB
 
 
+def plan(kernel: str, real: str, args: SweepArgs, block: int,
+         cond_in_device_memory: bool) -> int:
+    """Have the kernel's plan entry write its plan for the shape in `args`
+    (N, M, PP, B, P) into args.block, cond_smem and smem_bytes; return the
+    kernel's static shared memory in bytes."""
+    if kernel not in KERNELS:
+        raise ValueError(f"no kernel {kernel!r}")
+    info = (ctypes.c_int * 4)()
+    err = getattr(library(), f"{kernel}_plan_{real}")(
+        ctypes.byref(args), int(block), int(cond_in_device_memory), info)
+    static, reserve, tables, room = info
+    if err == ERR_TABLES:
+        raise ValueError(
+            f"{kernel}: one locus's tables take {tables} bytes of shared "
+            f"memory, a block has {room} (N={args.N}, M={args.M}, "
+            f"P={args.P})")
+    if err == ERR_STATIC:
+        raise ValueError(
+            f"{kernel}_{real}: {static} bytes of static shared memory, over "
+            f"the {reserve} the plan keeps for it")
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel}_{real}: no plan, "
+                           f"cudaError {err}")
+    return static
+
+
 def launch(entry: str, args: SweepArgs, stream: int) -> None:
     """Call one C entry point; raise if the launch reported an error."""
     err = getattr(library(), entry)(ctypes.byref(args),
@@ -221,7 +253,8 @@ def launch(entry: str, args: SweepArgs, stream: int) -> None:
     if err == ERR_SMEM:
         raise RuntimeError(f"CUDA kernel {entry}: {args.smem_bytes} bytes of "
                            f"shared memory for blocks of {args.block} loci "
-                           "is not what the kernel's layout needs")
+                           "is not what the kernel's layout gives: the "
+                           "arguments do not hold its plan entry's plan")
     if err == ERR_CHAINS:
         raise RuntimeError(f"CUDA kernel {entry}: {args.C} chains of "
                            f"{args.Lc} loci for {args.L} loci")

@@ -7,7 +7,8 @@ in the [L, ...] layout of the state (no lanes-last transposes):
   * CUDA tensors: launch the hand-written kernel in csrc/ on the current
     stream and add one to the wrapper's entry in LAUNCHES.  Every kernel
     runs one warp per locus, BLOCK loci per block, with the locus's tables
-    in shared memory (`smem_plan`);
+    in shared memory, as the kernel's plan entry in csrc/ decides
+    (`plan_for`);
   * CPU tensors: call the kernel's plain PyTorch version;
   * any other device, a dtype or shape the kernel does not take, or a
     non-contiguous tensor: raise.
@@ -83,8 +84,6 @@ BLOCK = 8
 # memory (chip_smoke.py and the tests set it to drive that variant at small
 # sizes)
 FORCE_COND_IN_DEVICE_MEMORY = False
-# static shared memory of a kernel (the population tables), rounded up
-STATIC_SMEM = 1024
 
 # kernel launches per wrapper since the last reset_launch_counts()
 # (cuda_lib.LAUNCHES, where its entries are described)
@@ -97,55 +96,21 @@ def reset_launch_counts() -> None:
 
 
 class SmemPlan(NamedTuple):
+    """A launch's shared-memory plan, as the kernel's plan entry made it."""
     loci_per_block: int
     cond_smem: bool     # the locus's conditionals live in shared memory
     smem_bytes: int     # dynamic shared memory of one block
+    static_bytes: int   # the kernel's static shared memory (PopTables)
 
 
-def smem_plan(kernel: str, N: int, M: int, PP: int, B: int, P: int,
-              itemsize: int, block: int,
-              cond_in_device_memory: bool = False) -> SmemPlan:
-    """Shared-memory budget of a kernel ("node_age", "mig_age",
-    "rubber_band" or "spr"): how many loci share a block and where the
-    conditionals live.  One locus takes its tables (the counts of
-    <kernel>_reals and <kernel>_ints in csrc/) and, where they fit, its
-    conditionals [N, P, 4] (SPR: and their proposal copy; node age: and the
-    kept rows of a root path, [N - S, P, 4]; migration age: none), rounded
-    up to 16 bytes.  A block holds `block` loci, or as many as fit beside
-    the static tables in the 232,448 bytes a block may use; at most 32
-    (1024 threads).
-    Where one locus with its conditionals does not fit, they stay in device
-    memory; where its tables alone do not fit, raise."""
-    NS = N + M
-    if kernel == "spr":
-        K = N + M + PP + 2 * B + 1
-        reals, ints = 3 * N + 4 * M + 4 * K + 3 * P, 9 * N + 7 * M + P
-        cond = 2 * N * P * 4
-    elif kernel == "rubber_band":
-        reals, ints = 3 * N + 2 * M + 5 * NS + 3 * P, 6 * N + 5 * M + 2 * NS + P
-        cond = N * P * 4
-    elif kernel == "node_age":
-        reals, ints = 3 * N + 2 * M + NS + 3 * P, 4 * N + 2 * M + P
-        cond = (N + N - (N + 1) // 2) * P * 4
-    elif kernel == "mig_age":
-        reals, ints = 2 * N + M + 2 * NS + PP * NS + PP, 2 * M + NS
-        cond = 0
-    else:
-        raise ValueError(f"no kernel {kernel!r}")
-
-    def locus(with_cond: bool) -> int:
-        n = (reals + (cond if with_cond else 0)) * itemsize + ints * 4
-        return -(-n // 16) * 16
-
-    room = cuda_lib.SMEM_LIMIT - STATIC_SMEM
-    if locus(False) > room:
-        raise ValueError(
-            f"{kernel}: one locus's tables take {locus(False)} bytes of "
-            f"shared memory, a block has {room} (N={N}, M={M}, P={P})")
-    cond_smem = not cond_in_device_memory and locus(True) <= room
-    per = locus(cond_smem)
-    lpb = max(1, min(int(block), 32, room // per))
-    return SmemPlan(lpb, cond_smem, lpb * per)
+def plan_for(kernel: str, dt, N: int, M: int, PP: int, B: int, P: int,
+             block: int | None = None,
+             cond_in_device_memory: bool | None = None) -> SmemPlan:
+    """The plan of a kernel (cuda_lib.KERNELS) at real type dt for a state
+    of this shape, at BLOCK and FORCE_COND_IN_DEVICE_MEMORY by default."""
+    a = cuda_lib.SweepArgs(N=N, M=M, PP=PP, B=B, P=P)
+    return _plan_into(a, kernel, _real_suffix(dt), block,
+                      cond_in_device_memory)
 
 
 def _counter_streams(rng, kernel: str) -> None:
@@ -240,14 +205,15 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
     return a
 
 
-def _plan_into(a: cuda_lib.SweepArgs, kernel: str, itemsize: int) -> SmemPlan:
-    """Choose the kernel's block and write it into a."""
-    plan = smem_plan(kernel, a.N, a.M, a.PP, a.B, a.P, itemsize, BLOCK,
-                     FORCE_COND_IN_DEVICE_MEMORY)
-    a.block, a.cond_smem, a.smem_bytes = (plan.loci_per_block,
-                                          int(plan.cond_smem),
-                                          plan.smem_bytes)
-    return plan
+def _plan_into(a: cuda_lib.SweepArgs, kernel: str, real: str,
+               block: int | None = None,
+               cond_in_device_memory: bool | None = None) -> SmemPlan:
+    """Ask the kernel's plan entry, which writes its plan into a."""
+    static = cuda_lib.plan(
+        kernel, real, a, BLOCK if block is None else block,
+        FORCE_COND_IN_DEVICE_MEMORY if cond_in_device_memory is None
+        else cond_in_device_memory)
+    return SmemPlan(a.block, bool(a.cond_smem), a.smem_bytes, static)
 
 
 def _scalar(x, dt, device, keep: list, shape=()) -> int:
@@ -297,7 +263,7 @@ def prepare_node_age(gen: GenState, params: Params, seq: SeqData,
     a.lnld_in = _check(lnld, "lnld", dt, (L,))
     a.lnp_in = _check(lnp, "lnp", dt, (L,))
     a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
-    plan = _plan_into(a, "node_age", cond.element_size())
+    plan = _plan_into(a, "node_age", _real_suffix(dt))
     if not plan.cond_smem:  # the kept rows of a step's root path
         keep.append(torch.empty((L, N - gen.num_samples, P, 4), dtype=dt,
                                 device=dev))
@@ -342,7 +308,7 @@ def prepare_mig_age(gen: GenState, params: Params, rng: FastRngState,
     a = _args(gen, params, ctx, None, rng)
     a.finetune = _scalar(finetune, dt, lnp.device, keep)
     a.lnp_in = _check(lnp, "lnp", dt, (L,))
-    plan = _plan_into(a, "mig_age", lnp.element_size())
+    plan = _plan_into(a, "mig_age", _real_suffix(dt))
     a.advance = 4 * gen.max_migs
     out = {"mig_age": torch.empty_like(gen.mig_age),
            "lnp": torch.empty_like(lnp),
@@ -393,7 +359,7 @@ def prepare_rubber_band(gen: GenState, params: Params, seq: SeqData,
     a.is_root = int(pop == ctx.root_pop and not is_sample_age)
     a.sample_age = int(is_sample_age)
     a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
-    plan = _plan_into(a, "rubber_band", cond.element_size())
+    plan = _plan_into(a, "rubber_band", _real_suffix(dt))
     out = {"cond": torch.empty_like(cond), "age": torch.empty_like(gen.age),
            "mig_age": torch.empty_like(gen.mig_age),
            "lnld": torch.empty((L,), dtype=dt, device=dev),
@@ -443,7 +409,7 @@ def prepare_spr(gen: GenState, params: Params, seq: SeqData,
     a = _args(gen, params, ctx, seq, rng)
     a.lnld_in = _check(lnld, "lnld", dt, (L,))
     a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
-    plan = _plan_into(a, "spr", cond.element_size())
+    plan = _plan_into(a, "spr", _real_suffix(dt))
     out = {f: torch.empty_like(getattr(gen, f))
            for f in ("age", "lson", "rson", "father", "node_pop", "root",
                      "mig_branch", "mig_band", "mig_age")}

@@ -13,7 +13,8 @@
 // with -DSWEEP_REVERSE_LANES the loops run backwards, which changes the
 // result of a section whose body reads what another index of it writes.
 // The block's static shared memory (the population tables) is a static that
-// every warp fills again.  Build with -ffp-contract=off, the host twin of
+// every warp fills again; the size the runtime reports for it is set by the
+// test.  Build with -ffp-contract=off, the host twin of
 // the kernels' -fmad=false.
 #pragma once
 
@@ -64,7 +65,26 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int cudaGetLastError() { return 0; }
-#define cudaFuncSetAttribute(...) 0
+
+// A kernel's attributes: its static shared memory is what the test set
+// (host_set_static_smem in pop_tables_probe.cu, 0 unless set), and each
+// read is counted; the last opt-in to more dynamic shared memory is kept.
+extern int host_static_smem, host_attr_reads, host_opt_in_bytes;
+struct cudaFuncAttributes {
+  size_t sharedSizeBytes;
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename K>
+inline int cudaFuncGetAttributes(cudaFuncAttributes* f, K) {
+  ++host_attr_reads;
+  f->sharedSizeBytes = (size_t)host_static_smem;
+  return 0;
+}
+template <typename K>
+inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
+  host_opt_in_bytes = bytes;
+  return 0;
+}
 using std::isfinite;
 
 #define SWEEP_LAUNCH_WARP(K, a, stream)                                   \

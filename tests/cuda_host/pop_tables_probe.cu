@@ -1,8 +1,20 @@
-// Test probe: fills the kernels' population tables (PopTables::load in
+// Test probes: fills the kernels' population tables (PopTables::load in
 // gphocs_tpu_torch/csrc/sweeps_common.cuh) from a SweepArgs on the host and
 // copies them out, so that tests/test_torch_csrc_host.py can hold pop_end
-// and the band windows against kernels/common.py.
+// and the band windows against kernels/common.py; and the stand-in
+// runtime's kernel attributes (cuda_runtime.h), which a test sets and reads.
 #include "sweeps_common.cuh"
+
+int host_static_smem = 0, host_attr_reads = 0, host_opt_in_bytes = 0;
+
+// every kernel's static shared memory from now on (a library reads it once
+// per kernel and real type)
+extern "C" void host_set_static_smem(int bytes) { host_static_smem = bytes; }
+// out = [reads of a kernel's attributes, the last opt-in's bytes (0: none)]
+extern "C" void host_attributes(int* out) {
+  out[0] = host_attr_reads;
+  out[1] = host_opt_in_bytes;
+}
 
 // out = [theta (PP), tau (PP), pop_end (PP), band start, end, rate (B each)]
 extern "C" void pop_tables_probe_f64(const SweepArgs* a, int proposal,

@@ -25,8 +25,8 @@ import pytest
 import torch
 
 from chip_smoke import (F64_TOL, Compare, admix_checks, kernel_checks,
-                        sample_age_bounds, sample_age_checks, tau_bounds,
-                        warm_state)
+                        padded_state, sample_age_bounds, sample_age_checks,
+                        tau_bounds, warm_state)
 from gphocs_tpu_torch.kernels.common import band_windows, pop_end
 from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
 from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
@@ -439,16 +439,16 @@ def test_wide_fixture_matches_plain(build, warm_wide, host_libs,
 @pytest.mark.parametrize("build", ["forward", "reverse"])
 def test_s32_bucket_matches_plain(build, s32_bucket, host_libs, monkeypatch):
     """N = 63 and P over a hundred, the conditionals in device memory
-    (chosen by smem_plan, not forced): every kernel against its plain
+    (chosen by the plan entry, not forced): every kernel against its plain
     version, with the lane loops forwards and backwards."""
     s = s32_bucket
     L, N, P, _ = s.cond.shape
     assert N == 63 and P > 100
-    for kernel in ("node_age", "rubber_band", "spr"):
-        assert not sweeps.smem_plan(kernel, N, s.gen.max_migs,
-                                    s.ctx.num_pops, s.ctx.num_bands, P, 8,
-                                    sweeps.BLOCK).cond_smem, kernel
     _route(monkeypatch, host_libs[build])
+    for kernel in ("node_age", "rubber_band", "spr"):
+        assert not sweeps.plan_for(kernel, torch.float64, N, s.gen.max_migs,
+                                   s.ctx.num_pops, s.ctx.num_bands,
+                                   P).cond_smem, kernel
     scale = float(s.cond.abs().max())  # 31 levels of the x4 rescale
     args = (s.gen, s.params, s.seq, s.lrng, s.ctx, s.ft.coal_time, s.lnld,
             s.lnp, s.cond)
@@ -582,60 +582,111 @@ def test_in_kernel_pop_tables_match_plain(proposal, warm, host_libs):
         assert torch.equal(out, want)
 
 
-def test_smem_plan():
-    """The shared-memory budget: loci per block, where the conditionals
-    live, and a raise where one locus's tables do not fit."""
-    limit = cuda_lib.SMEM_LIMIT - sweeps.STATIC_SMEM
+def test_smem_plan(host_libs, monkeypatch):
+    """The shared-memory budget, as the kernels' plan entries (csrc/) make
+    it: loci per block, where the conditionals live, and a raise where one
+    locus's tables do not fit."""
+    _route(monkeypatch, host_libs["forward"])
+    # what sweeps_common.cuh leaves for the loci: SMEM_LIMIT less the
+    # static reserve
+    limit = 232448 - 1024
+
+    def smem_plan(kernel, N, M, PP, B, P, itemsize, block,
+                  cond_in_device_memory=False):
+        dt = {4: torch.float32, 8: torch.float64}[itemsize]
+        return sweeps.plan_for(kernel, dt, N, M, PP, B, P, block,
+                               cond_in_device_memory)
+
     # the standard workload: N = 15, M = 10, PP = 7, B = 1, P = 6
     for kernel in ("node_age", "mig_age", "spr", "rubber_band"):
         for itemsize in (4, 8):
-            p = sweeps.smem_plan(kernel, 15, 10, 7, 1, 6, itemsize, 8)
+            p = smem_plan(kernel, 15, 10, 7, 1, 6, itemsize, 8)
             assert p.loci_per_block == 8 and p.cond_smem
             assert p.smem_bytes % (16 * 8) == 0 and p.smem_bytes < 96 * 1024
     # node age: tables 108 reals + 86 ints; its conditionals in place with
     # the kept rows of a root path, (15 + 7) * 24 reals: under 48 KB at f64
-    na = sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8)
+    na = smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8)
     assert na.smem_bytes == 8 * -(-((108 + 528) * 4 + 86 * 4) // 16) * 16
-    assert sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 8,
-                            8).smem_bytes < 48 * 1024
-    forced = sweeps.smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8, True)
+    assert smem_plan("node_age", 15, 10, 7, 1, 6, 8,
+                     8).smem_bytes < 48 * 1024
+    forced = smem_plan("node_age", 15, 10, 7, 1, 6, 4, 8, True)
     assert not forced.cond_smem and forced.smem_bytes < na.smem_bytes
-    assert not sweeps.smem_plan("node_age", 63, 32, 16, 8, 300, 8,
-                                8).cond_smem
+    assert not smem_plan("node_age", 63, 32, 16, 8, 300, 8,
+                         8).cond_smem
     # migration age holds no conditionals: 272 reals + 45 ints whatever P
-    ma = sweeps.smem_plan("mig_age", 15, 10, 7, 1, 0, 4, 8)
+    ma = smem_plan("mig_age", 15, 10, 7, 1, 0, 4, 8)
     assert ma.smem_bytes == 8 * -(-(272 * 4 + 45 * 4) // 16) * 16
-    assert sweeps.smem_plan("mig_age", 15, 10, 7, 1, 0, 4, 8,
-                            True).smem_bytes == ma.smem_bytes
-    f32 = sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 8)
+    assert smem_plan("mig_age", 15, 10, 7, 1, 0, 4, 8,
+                     True).smem_bytes == ma.smem_bytes
+    f32 = smem_plan("spr", 15, 10, 7, 1, 6, 4, 8)
     # tables 243 reals + 211 ints, conditionals 2 * 360 reals
     assert f32.smem_bytes == 8 * -(-((243 + 720) * 4 + 211 * 4) // 16) * 16
-    assert sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 3).loci_per_block == 3
-    assert sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 64).loci_per_block == 32
-    forced = sweeps.smem_plan("spr", 15, 10, 7, 1, 6, 4, 8, True)
+    assert smem_plan("spr", 15, 10, 7, 1, 6, 4, 3).loci_per_block == 3
+    assert smem_plan("spr", 15, 10, 7, 1, 6, 4, 64).loci_per_block == 32
+    forced = smem_plan("spr", 15, 10, 7, 1, 6, 4, 8, True)
     assert not forced.cond_smem and forced.smem_bytes < f32.smem_bytes
     # more patterns: fewer loci fit beside their conditionals ...
-    mid = sweeps.smem_plan("spr", 63, 32, 16, 8, 40, 8, 8)
+    mid = smem_plan("spr", 63, 32, 16, 8, 40, 8, 8)
     assert mid.cond_smem and 1 <= mid.loci_per_block < 8
     assert mid.smem_bytes <= limit
     # ... then the conditionals of one locus alone do not fit
-    big = sweeps.smem_plan("spr", 63, 32, 16, 8, 300, 8, 8)
+    big = smem_plan("spr", 63, 32, 16, 8, 300, 8, 8)
     assert not big.cond_smem and big.loci_per_block == 8
     # one copy of the conditionals (rubber band) fits where two (SPR) do not
-    one = sweeps.smem_plan("rubber_band", 63, 32, 16, 8, 150, 4, 8)
+    one = smem_plan("rubber_band", 63, 32, 16, 8, 150, 4, 8)
     assert one.cond_smem and one.loci_per_block == 1
-    assert not sweeps.smem_plan("spr", 63, 32, 16, 8, 150, 4, 8).cond_smem
+    assert not smem_plan("spr", 63, 32, 16, 8, 150, 4, 8).cond_smem
     with pytest.raises(ValueError, match="shared memory"):
-        sweeps.smem_plan("spr", 63, 32, 16, 8, 20000, 8, 8)
+        smem_plan("spr", 63, 32, 16, 8, 20000, 8, 8)
     with pytest.raises(ValueError, match="no kernel"):
-        sweeps.smem_plan("tau", 15, 10, 7, 1, 6, 4, 8)
+        smem_plan("tau", 15, 10, 7, 1, 6, 4, 8)
+
+
+@pytest.mark.parametrize("case", ["over_48k_with_static", "under_48k",
+                                  "static_over_reserve"])
+def test_opt_in_counts_the_static_tables(case, warm, host_libs, tmp_path,
+                                         monkeypatch):
+    """The rubber band at f32 on the warm state with its patterns padded:
+    at P = 18 its 8 loci take 49,024 bytes of dynamic shared memory, under
+    48 KiB, and with the kernel's 560 static bytes over it, so the launch
+    entry opts the kernel in for 49,024; at P = 17 (46,976 + 560 bytes) it
+    does not.  A kernel whose static bytes pass the plan's reserve is
+    refused with the numbers.  A fresh load of the library reads the
+    static bytes the test sets, once per kernel and real type."""
+    lib_path = tmp_path / "libsweeps_host.so"
+    shutil.copy(host_libs["forward"]._name, lib_path)
+    lib = cuda_lib.bind(ctypes.CDLL(str(lib_path)))
+    lib.host_set_static_smem(1025 if case == "static_over_reserve" else 560)
+    _route(monkeypatch, lib)
+    t = padded_state(warm, 17 if case == "under_48k" else 18, torch.float32)
+    pop = t.tree.num_pops - 1
+    rb = (t.gen, t.params, t.seq, t.ctx, pop, False, *tau_bounds(t, pop),
+          t.cond)
+    if case == "static_over_reserve":
+        with pytest.raises(ValueError, match="1025 bytes of static shared "
+                           "memory, over the 1024"):
+            sweeps.rubber_band_eval(*rb)
+        return
+    plan = sweeps.prepare_rubber_band(*rb).plan
+    out = sweeps.rubber_band_eval(*rb)
+    attrs = (ctypes.c_int * 2)()
+    lib.host_attributes(attrs)
+    reads, opt_in = attrs
+    assert reads == 1 and plan.static_bytes == 560
+    assert plan.loci_per_block == 8 and plan.cond_smem
+    if case == "under_48k":
+        assert plan.smem_bytes == 46976 and opt_in == 0
+    else:
+        assert plan.smem_bytes == 49024 and opt_in == 49024
+    assert bool(torch.isfinite(out[3]).all())
 
 
 @pytest.mark.parametrize("which", ["spr", "node_age", "mig_age"])
 def test_entry_refuses_a_wrong_smem_size(which, warm, kernels_on_host):
-    """The C entry point computes the layout's size itself and refuses a
-    launch whose shared-memory size differs: the Python plan and the
-    kernels' carve-up cannot drift apart unnoticed."""
+    """The launch entry computes the layout's size itself and refuses a
+    shared-memory size that its kernel's plan entry would not give: a
+    caller that skips the plan entry or changes its plan is caught before
+    the kernel carves its memory."""
     s = warm
     if which == "spr":
         p = sweeps.prepare_spr(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,

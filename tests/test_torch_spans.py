@@ -168,10 +168,12 @@ def test_sweeps_once_per_bucket(seqs):
 
 
 def test_prepare_nested_in_the_calling_family(seqs, monkeypatch):
-    """The wrappers' CUDA branch, its launches left out: each call makes
-    one prepare range inside the family that called it."""
+    """The wrappers' CUDA branch, its kernel library's plan entries and
+    launches left out: each call makes one prepare range inside the family
+    that called it."""
     s = _sampler(seqs)
     monkeypatch.setattr(cuda_lib, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "plan", lambda *args: 0)
     monkeypatch.setattr(sweeps.Prepared, "launch", lambda self, device: None)
     g, sq, r, ctx = s.gens[0], s.seqs[0], s.lrngs[0], s.ctx
     lnld, lnp, cond = s.lnlds[0], s.lnps[0], s.conds[0]
