@@ -313,6 +313,8 @@ SAMPLE_AGE_POP = 3  # population D of SAMPLE_AGE_CTL
 # sample-age proposals of the kernel checks: the share of the way from the
 # old age to 0 (negative) or to the upper bound (positive)
 SAMPLE_AGE_STEPS = (-0.9, -0.2, 0.01, 0.3)
+# mixing proposals of the full-rebuild checks: the factor c on every age
+MIXING_SCALES = (0.97, 1.0, 1.04)
 # phase 6: the ragged workload in pattern buckets; 6b: the command line
 RAGGED_BUCKETS = 4
 CHAINS = 4          # phase 7
@@ -502,8 +504,9 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     Conditionals are compared after division by cond_scale (deep trees
     carry the x4 rescale of every level).  A state of C chains compares
     every chain's counters, counts and flags ([C]).  Returns the kernels'
-    outputs (node age, migration age, SPR, then the rubber band per
-    population), for comparisons between launch shapes."""
+    outputs (node age, migration age, SPR, the rubber band per
+    population, then the full rebuild per mixing scale), for comparisons
+    between launch shapes."""
     from gphocs_tpu_torch.kernels.mig_age import update_mig_ages
     from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
     from gphocs_tpu_torch.kernels.spr import update_spr
@@ -571,6 +574,46 @@ def kernel_checks(s, cmp, tol, need_moves=True, cond_scale=1.0):
     check(same(k[2].ctr, q[2].ctr), "tau sweep: counter")
     cmp.close("rubber_band", "tau", k[1].tau, q[1].tau, tol["tau"])
     cmp.close("rubber_band", "sweep lnld", k[3], q[3], t_ld)
+    return outs + full_rebuild_checks(s, cmp, tol, cond_scale)
+
+
+def full_rebuild_checks(s, cmp, tol, cond_scale=1.0):
+    """Mixing's rebuild (ops/sweeps.full_rebuild) against the plain
+    full_rebuild_and_lnld on the state's ages scaled by each of
+    MIXING_SCALES, as a mixing proposal scales them.  On the card, where
+    both call CUDA's exp and log: the conditionals bit for bit, the lnld
+    bit for bit at f64 and within tol at f32.  The host build of the tests
+    calls the C library's exp and log, torch's CPU kernels their own
+    (they differ in the last bit, which 1 - exp(-x) magnifies): there the
+    conditionals (over cond_scale) and the lnld are held within tol, and
+    tests/test_torch_csrc_host.py holds the bits with the C library's
+    functions on both sides.  The leaf rows are those of s.cond, bit for
+    bit.  Returns the kernel's outputs."""
+    import torch
+    from gphocs_tpu_torch.ops import sweeps
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+
+    g, sq, cond = s.gen, s.seq, s.cond
+    S = g.num_samples
+    log("  full_rebuild")
+    outs = []
+    for scale in MIXING_SCALES:
+        c = torch.tensor(scale, dtype=g.age.dtype, device=g.age.device)
+        gp = g._replace(age=g.age * c)
+        k = sweeps.full_rebuild(gp, sq, cond)
+        q = full_rebuild_and_lnld(gp, sq)
+        log(f"    ages x {scale}")
+        cmp.equal("full_rebuild", "leaf rows", k[0][:, :S], cond[:, :S])
+        if g.age.is_cuda:
+            cmp.equal("full_rebuild", "cond", k[0], q[0])
+        else:
+            cmp.close("full_rebuild", "cond", k[0] / cond_scale,
+                      q[0] / cond_scale, tol["cond"])
+        if g.age.is_cuda and g.age.dtype == torch.float64:
+            cmp.equal("full_rebuild", "lnld", k[1], q[1])
+        else:
+            cmp.close("full_rebuild", "lnld", k[1], q[1], tol["lnld"])
+        outs += list(k)
     return outs
 
 
@@ -654,8 +697,9 @@ def padded_state(s, P, dtype):
 
 
 def one_kernel(kernel, t):
-    """The outputs of one sweep kernel's wrapper on the state t (the
-    rubber band: its tau mode for the root population)."""
+    """The outputs of one kernel's wrapper on the state t (the rubber
+    band: its tau mode for the root population; the full rebuild: on the
+    state's ages)."""
     from gphocs_tpu_torch.ops import sweeps
 
     g, pr, sq, c = t.gen, t.params, t.seq, t.ctx
@@ -669,6 +713,8 @@ def one_kernel(kernel, t):
     if kernel == "spr":
         k = sweeps.spr_sweep(g, pr, sq, t.lrng, c, t.lnld, t.cond)
         return [*k[0], k[1].ctr, *k[2:]]
+    if kernel == "full_rebuild":
+        return list(sweeps.full_rebuild(g, sq, t.cond))
     pop = t.tree.num_pops - 1
     return list(sweeps.rubber_band_eval(g, pr, sq, c, pop, False,
                                         *tau_bounds(t, pop), t.cond))
@@ -927,6 +973,7 @@ def op_models(s, spr_draws, proposal=None):
                  + (N - S) node + lnld
                  + 4 PP (N + m) + 5 sum_r n_r^2 (pairwise prior, n_r
                  segments present in population r) + 6 B (N + m)
+      full_rebuild  (N - S) node + lnld
       spr        per non-root node: K log2 K (grid sort, K = N + M + PP
                  + 2 B + 1) + 2 depth * node + lnld + 20; per walk trip:
                  K (10 + 2 N) (hazards) + K log2 K (prefix) + 2 N + 40;
@@ -1022,6 +1069,12 @@ def op_models(s, spr_draws, proposal=None):
                cond)
         + nbytes(cond, g.age, *topo, *migs, real_l) + 2 * int_l,
         float(ops))
+    # the full rebuild reads the leaf rows of the conditionals and writes
+    # them all
+    out["full_rebuild"] = (
+        nbytes(g.age, g.lson, g.rson, g.root, g.mut_rate, *seqs,
+               cond[:, :S]) + nbytes(cond, real_l),
+        float(L * ((N - S) * node + lnld)))
     return out
 
 
@@ -1045,10 +1098,11 @@ def timed_chunk(s):
 
 def check_schedule(iters, buckets, sample_age):
     """The launch counts since the last reset, which must equal the
-    schedule of `iters` iterations: each sweep once per bucket and
-    iteration, the tau rubber band TAU_PROPOSALS times, the sample-age mode
-    once where a sample age is estimated, and the counter streams' draws
-    through their kernel (check_draws).  Returns the counts."""
+    schedule of `iters` iterations: each sweep and mixing's full rebuild
+    once per bucket and iteration, the tau rubber band TAU_PROPOSALS times,
+    the sample-age mode once where a sample age is estimated, and the
+    counter streams' draws through their kernel (check_draws).  Returns the
+    counts."""
     from gphocs_tpu_torch.ops import sweeps
 
     launches = dict(sweeps.LAUNCHES)
@@ -1056,7 +1110,7 @@ def check_schedule(iters, buckets, sample_age):
     want = {"node_age": n, "mig_age": n, "spr": n,
             "rubber_band": TAU_PROPOSALS * n,
             "rubber_band_sample_age": n if sample_age else 0,
-            **dict.fromkeys(PLAIN_SWEEPS, 0)}
+            **dict.fromkeys(PLAIN_SWEEPS, 0), "full_rebuild": n}
     log(f"launches {launches} (expected {want})")
     check(sweep_launches(launches) == want,
           "launch counts do not match the schedule")
@@ -1330,6 +1384,7 @@ def s32_phase(tmp, cmp):
     log(f"  set up and heated in {time.perf_counter() - t0:.1f} s: N = {N}, "
         f"{s.buckets} buckets of {s.bucket_sizes} loci")
     in_device = 0
+    rebuild_in_device = 0
     for k in range(s.buckets):
         P = s.seqs[k].group_id.shape[1]
         plans = {kn: sweeps.plan_for(kn, torch.float64, N, M,
@@ -1337,6 +1392,7 @@ def s32_phase(tmp, cmp):
                  for kn in cuda_lib.KERNELS}
         in_device += sum(not p.cond_smem for kn, p in plans.items()
                          if kn != "mig_age")
+        rebuild_in_device += not plans["full_rebuild"].cond_smem
         log(f"  bucket {k}: {s.bucket_sizes[k]} loci, P = {P}; plan "
             + "; ".join(f"{kn} {p.loci_per_block} loci/block, "
                         f"{'shared' if p.cond_smem else 'device'}, "
@@ -1347,6 +1403,10 @@ def s32_phase(tmp, cmp):
         sample_age_checks(view, cmp, F64_TOL,
                           cond_scale=float(view.cond.abs().max()))
     check(in_device > 0, "no bucket keeps its conditionals in device memory")
+    check(rebuild_in_device > 0,
+          "no planned full rebuild keeps its conditionals in device memory")
+    log(f"  full rebuild: {rebuild_in_device} bucket(s) planned with the "
+        "conditionals in device memory, bitwise equal to the plain version")
     torch.cuda.synchronize()
 
 
@@ -1976,7 +2036,8 @@ def two_ranks(tmp, data, chains):
                     "spr": MESH_F64_ITERS,
                     "rubber_band": TAU_PROPOSALS * MESH_F64_ITERS,
                     "rubber_band_sample_age": 0,
-                    **dict.fromkeys(PLAIN_SWEEPS, 0)}
+                    **dict.fromkeys(PLAIN_SWEEPS, 0),
+                    "full_rebuild": MESH_F64_ITERS}
             check(sweep_launches(by_rank) == want,
                   f"{what} {label}: launches {by_rank}")
             check_draws(by_rank, MESH_F64_ITERS, f"{what} {label}")
@@ -2164,13 +2225,15 @@ PLAIN_SWEEPS = ("node_age_plain", "mig_age_plain", "spr_plain")
 
 def legacy_schedule(iters, sample_age):
     """The launches of `iters` legacy iterations: the sweeps as tensor
-    code, the rubber band 3 times an iteration (+1 with a sample age)."""
+    code, the rubber band 3 times an iteration (+1 with a sample age),
+    mixing's full rebuild once."""
     from gphocs_tpu_torch.ops import sweeps
 
     want = dict.fromkeys(sweeps.LAUNCHES, 0)
     want.update(dict.fromkeys(PLAIN_SWEEPS, iters),
                 rubber_band=TAU_PROPOSALS * iters,
-                rubber_band_sample_age=int(sample_age) * iters)
+                rubber_band_sample_age=int(sample_age) * iters,
+                full_rebuild=iters)
     return want
 
 
@@ -3688,6 +3751,7 @@ def main(parent=None):
     from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
     from gphocs_tpu_torch.model import build_poptree
     from gphocs_tpu_torch.ops import cuda_lib, sweeps
+    from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 
     dev = torch.device("cuda")
     t_script = time.perf_counter()
@@ -3780,6 +3844,9 @@ def main(parent=None):
     g, pr, sq, c = s.gen, s.params, s.seq, s.ctx
     b = tau_bounds(s, s.tree.num_pops - 1)
     pop = s.tree.num_pops - 1
+    g_mix = g._replace(age=g.age * torch.tensor(MIXING_SCALES[-1],
+                                                 dtype=g.age.dtype,
+                                                 device=dev))
     pairs = {
         "node_age": (
             lambda: sweeps.node_age_sweep(g, pr, sq, s.lrng, c,
@@ -3810,6 +3877,11 @@ def main(parent=None):
                                sync_group=1),
             lambda: sweeps.prepare_spr(g, pr, sq, s.lrng, c, s.lnld,
                                        s.cond)),
+        # mixing's rebuild, on a proposal's scaled ages
+        "full_rebuild": (
+            lambda: sweeps.full_rebuild(g_mix, sq, s.cond),
+            lambda: full_rebuild_and_lnld(g_mix, sq),
+            lambda: sweeps.prepare_full_rebuild(g_mix, sq, s.cond)),
     }
     times = {}
 
@@ -3869,7 +3941,7 @@ def main(parent=None):
     log(" -- the same state cast to f64")
     kernel_checks(cast_state(s, torch.float64), cmp, F64_TOL)
     torch.cuda.synchronize()
-    del s, g, pr, sq, c, pairs, prop
+    del s, g, pr, sq, c, pairs, prop, g_mix
 
     log(f"== phase 5: ancient-sample path ({WORKLOAD_LOCI} loci x "
         f"{WORKLOAD_BP} bp, f32, estimated sample age on D)")
@@ -3997,7 +4069,10 @@ def main(parent=None):
            "spr": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413"),
            # SPR's admixed mode: the Pallas SPR leaves admixture out, so
            # its semantics are those of gphocs_tpu/kernels/spr.py:504-531
-           "spr_admix": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413")}
+           "spr_admix": ("spr.cu", "gphocs_tpu/ops/sweeps_pallas.py:1413"),
+           "full_rebuild": ("full_rebuild.cu", "none: mixing's full "
+                            "rebuild, left to XLA in the JAX package "
+                            "(gphocs_tpu/ops/likelihood_cache.py)")}
     kernels = []
     for n in src:
         if n == "spr_admix":  # the admixed path's SPR launches
@@ -4011,7 +4086,7 @@ def main(parent=None):
             "source": f"gphocs_tpu_torch/csrc/{src[n][0]}",
             "replaces": src[n][1], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": cmp.err[n],
+            "max_abs_err": cmp.err.get(n, 0.0),
             **times[n], f"ms_chains{CHAINS}": chain_ms.get(n),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
             "bound_operations": nops, "library_ms": None})

@@ -7,9 +7,11 @@ ages; migration rates scale by 1/c.  The genealogy-prior delta reduces to
 -lnc * (total coals + total migs); the proposal Jacobian is
 lnc * (2 numPops - numCurPops - numMigBands + num_events)
 (reference src/GPhoCS.c:4688-4915).  The data delta needs a full rebuild
-of the conditionals, which is plain torch here as it is XLA code in the
-JAX package.  In a bucketed state every bucket is rebuilt and one joint
-accept covers them all.  C chains ([C, P] parameters, chain-major loci) each
+of the conditionals on the scaled ages, XLA code in the JAX package:
+here ops/sweeps.full_rebuild, one launch of csrc/full_rebuild.cu per
+bucket on CUDA tensors, the plain full_rebuild_and_lnld on CPU tensors.
+In a bucketed state every bucket is rebuilt and one joint accept covers
+them all.  C chains ([C, P] parameters, chain-major loci) each
 draw their own factor and decide on their own: the factors, sums and
 decisions are [C].
 """
@@ -22,7 +24,7 @@ from gphocs_tpu_torch import rng as R
 from gphocs_tpu_torch.kernels.common import (Context, chain_count,
                                              maybe_psum, per_chain, rows,
                                              scalar_mh_accept)
-from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
+from gphocs_tpu_torch.ops.sweeps import full_rebuild
 from gphocs_tpu_torch.state import Params
 
 
@@ -79,10 +81,10 @@ def update_mixing_buckets(gens, params: Params, seqs, rng, ctx: Context,
                                   sample_age=sa_new, mig_rate=m_new)
     props = []
     ddata = torch.zeros_like(lnc)
-    for g, sq, ld in zip(gens, seqs, lnlds):
+    for g, sq, ld, cd in zip(gens, seqs, lnlds, conds):
         c_l = rows(c, g.num_loci, 0)[:, None]
         gen_prop = g._replace(age=g.age * c_l, mig_age=g.mig_age * c_l)
-        cond_prop, lnld_prop = full_rebuild_and_lnld(gen_prop, sq)
+        cond_prop, lnld_prop = full_rebuild(gen_prop, sq, cd)
         ddata = ddata + per_chain(lnld_prop - ld, C)
         props.append((gen_prop, cond_prop, lnld_prop))
     lnacc = lnacc + maybe_psum(ddata, loci_axis)

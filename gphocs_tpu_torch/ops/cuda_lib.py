@@ -15,12 +15,14 @@ ptxas_<hash>.txt (`resource_report`).  -fmad=false keeps every multiply and add 
 on its own, as the plain versions' separate tensor ops are: the kernels
 then agree with them to the last bits at f64 (a contracted proposal moves
 ages by ~1e-13, and the prior, d lnP / d t ~ 2 n / theta ~ 1e5, by ~1e-8).
-Every entry point of the four sweep kernels takes a pointer to one
+Every entry point of the four sweep kernels and of full_rebuild.cu (the
+conditionals and lnld rebuilt on given ages) takes a pointer to one
 `SweepArgs` struct (csrc/sweeps_common.cuh) and the CUDA stream, launches
 one kernel, and returns cudaGetLastError(); `launch` raises on non-zero.
-Every sweep kernel runs a warp per locus with its tables in dynamic shared
-memory.  Its plan entry, `<kernel>_plan_<t>` (`plan`), decides how much a
-block takes and where the conditionals live, from the kernel's own layout;
+Each of these kernels runs a warp per locus with its tables in dynamic
+shared memory.  Its plan entry, `<kernel>_plan_<t>` (`plan`), decides how
+much a block takes and where the conditionals live, from the kernel's own
+layout;
 its launch entry refuses a size that layout does not give, and allows the
 kernel more than 48 KB where the block's dynamic and static shared memory
 together pass that.
@@ -55,7 +57,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gphocs_tpu_torch"
 SOURCES = ("node_age.cu", "mig_age.cu", "rubber_band.cu", "spr.cu",
-           "counter_draw.cu")
+           "full_rebuild.cu", "counter_draw.cu")
 HEADERS = ("sweeps_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -93,7 +95,7 @@ class SweepArgs(ctypes.Structure):
                 + [("oldage", ctypes.c_double)])
 
 
-KERNELS = ("node_age", "mig_age", "rubber_band", "spr")
+KERNELS = ("node_age", "mig_age", "rubber_band", "spr", "full_rebuild")
 ENTRY_POINTS = tuple(f"{k}_{t}" for k in KERNELS for t in ("f32", "f64"))
 PLAN_ENTRY_POINTS = tuple(f"{k}_plan_{t}" for k in KERNELS
                           for t in ("f32", "f64"))
@@ -106,11 +108,13 @@ ERR_DRAW_SHAPE = 9003
 
 # kernel launches per wrapper; the rubber-band kernel's two modes (tau,
 # sample age) are counted apart, and so are the conformance mode's plain
-# sweeps (*_plain: calls, no kernel); rng_draw: the counter streams' draw
-# batches (launch_draw)
+# sweeps (*_plain: calls, no kernel); full_rebuild: mixing's rebuilds of
+# the proposal (ops/sweeps.full_rebuild, one per bucket); rng_draw: the
+# counter streams' draw batches (launch_draw)
 LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0,
             "rubber_band_sample_age": 0, "spr": 0, "node_age_plain": 0,
-            "mig_age_plain": 0, "spr_plain": 0, "rng_draw": 0}
+            "mig_age_plain": 0, "spr_plain": 0, "full_rebuild": 0,
+            "rng_draw": 0}
 
 _LIB = None
 

@@ -1,5 +1,7 @@
 """The four sweep kernels' wrappers: node-age, migration-age, rubber-band
-evaluation and SPR (the port of gphocs_tpu/ops/sweeps_pallas.py).
+evaluation and SPR (the port of gphocs_tpu/ops/sweeps_pallas.py); and
+the full rebuild's (`full_rebuild`: the conditionals and lnld on given
+ages, which the JAX package leaves to XLA), which mixing calls.
 
 Each wrapper takes the Pallas wrapper's arguments and returns its outputs,
 in the [L, ...] layout of the state (no lanes-last transposes):
@@ -72,6 +74,7 @@ from gphocs_tpu_torch.kernels.node_age import update_internal_node_ages
 from gphocs_tpu_torch.kernels.spr import update_spr
 from gphocs_tpu_torch.kernels.tau import rubber_band_eval_plain
 from gphocs_tpu_torch.ops import cuda_lib
+from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 from gphocs_tpu_torch.profiling import span
 from gphocs_tpu_torch.rng import WhRngState
 from gphocs_tpu_torch.rng_fast import MASK32, FastRngState
@@ -160,30 +163,17 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
     C = ch[0] if ch else 1
     if L % C:
         raise ValueError(f"{L} loci are not {C} chains of equal length")
-    for name, v, cap in (("nodes", N, cuda_lib.MAXN),
-                         ("populations", PP, cuda_lib.MAXPP),
+    for name, v, cap in (("populations", PP, cuda_lib.MAXPP),
                          ("bands", B, cuda_lib.MAXB)):
         if v > cap:
             raise ValueError(f"{v} {name}: the kernels take at most {cap}")
-    a = cuda_lib.SweepArgs()
-    a.age = _check(gen.age, "age", dt, (L, N))
-    for f in ("lson", "rson", "father", "node_pop"):
-        setattr(a, f, _check(getattr(gen, f), f, i64, (L, N)))
-    a.root = _check(gen.root, "root", i64, (L,))
+    a = _tree_args(gen, seq)
+    a.father = _check(gen.father, "father", i64, (L, N))
+    a.node_pop = _check(gen.node_pop, "node_pop", i64, (L, N))
     a.mig_branch = _check(gen.mig_branch, "mig_branch", i64, (L, M))
     a.mig_band = _check(gen.mig_band, "mig_band", i64, (L, M))
     a.mig_age = _check(gen.mig_age, "mig_age", dt, (L, M))
-    a.mut_rate = _check(gen.mut_rate, "mut_rate", dt, (L,))
     a.valid = _check(gen.valid, "valid", torch.bool, (L,))
-    if seq is not None:
-        P = seq.group_id.shape[1]
-        a.group_id = _check(seq.group_id, "group_id", i64, (L, P))
-        a.group_count = _check(seq.group_count, "group_count", dt, (L, P))
-        a.group_nphases = _check(seq.group_nphases, "group_nphases", dt,
-                                 (L, P))
-        a.pattern_valid = _check(seq.pattern_valid, "pattern_valid",
-                                 torch.bool, (L, P))
-        a.P = P
     a.theta = _check(params.theta, "theta", dt, ch + (PP,))
     a.tau = _check(params.tau, "tau", dt, ch + (PP,))
     a.mig_rate = _check(params.mig_rate, "mig_rate", dt, ch + (B,))
@@ -198,10 +188,39 @@ def _args(gen: GenState, params: Params, ctx: Context, seq,
     if rng is not None:
         a.key = _check(rng.key, "key", i64, (L,))
         a.ctr = _check(rng.ctr, "ctr", i64, ch)
-    a.L, a.N, a.M, a.B, a.PP = L, N, M, B, PP
+    a.M, a.B, a.PP = M, B, PP
     a.C, a.Lc, a.A = C, L // C, A
     a.root_pop = ctx.root_pop
     a.oldage = ctx.oldage
+    return a
+
+
+def _tree_args(gen: GenState, seq) -> cuda_lib.SweepArgs:
+    """SweepArgs with the tree (ages, sons, root), the rates and the
+    sequence tables filled in and checked: one chain's layout (C = 1,
+    Lc = L)."""
+    L, N = gen.father.shape
+    dt = gen.age.dtype
+    i64 = torch.int64
+    if N > cuda_lib.MAXN:
+        raise ValueError(f"{N} nodes: the kernels take at most "
+                         f"{cuda_lib.MAXN}")
+    a = cuda_lib.SweepArgs()
+    a.age = _check(gen.age, "age", dt, (L, N))
+    a.lson = _check(gen.lson, "lson", i64, (L, N))
+    a.rson = _check(gen.rson, "rson", i64, (L, N))
+    a.root = _check(gen.root, "root", i64, (L,))
+    a.mut_rate = _check(gen.mut_rate, "mut_rate", dt, (L,))
+    if seq is not None:
+        P = seq.group_id.shape[1]
+        a.group_id = _check(seq.group_id, "group_id", i64, (L, P))
+        a.group_count = _check(seq.group_count, "group_count", dt, (L, P))
+        a.group_nphases = _check(seq.group_nphases, "group_nphases", dt,
+                                 (L, P))
+        a.pattern_valid = _check(seq.pattern_valid, "pattern_valid",
+                                 torch.bool, (L, P))
+        a.P = P
+    a.L, a.N, a.C, a.Lc = L, N, 1, L
     return a
 
 
@@ -449,6 +468,36 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     return (gen._replace(**moved),
             _advance(rng, maybe_pmax(stat[..., 1], loci_axis)), o["lnld"],
             o["cond"], stat[..., 0])
+
+
+def prepare_full_rebuild(gen: GenState, seq: SeqData, cond) -> Prepared:
+    """Check the inputs of the full-rebuild kernel and allocate its
+    outputs (CUDA tensors only).  The kernel reads no parameter, so the
+    loci of C chains are one axis."""
+    L, N, P, _ = cond.shape
+    dt = gen.age.dtype
+    a = _tree_args(gen, seq)
+    a.cond_in = _check(cond, "cond", dt, (L, N, P, 4))
+    plan = _plan_into(a, "full_rebuild", _real_suffix(dt))
+    out = {"cond": torch.empty_like(cond),
+           "lnld": torch.empty((L,), dtype=dt, device=cond.device)}
+    a.cond_out, a.lnld_out = out["cond"].data_ptr(), out["lnld"].data_ptr()
+    return Prepared(f"full_rebuild_{_real_suffix(dt)}", a, plan, out, [])
+
+
+def full_rebuild(gen: GenState, seq: SeqData, cond):
+    """The conditionals and the per-locus lnld rebuilt from scratch on
+    gen's ages (ops/likelihood_cache.full_rebuild_and_lnld, which the JAX
+    package leaves to XLA).  `cond` is a carried [L, N, P, 4] whose leaf
+    rows (the data's) the kernel copies; its internal rows are not read.
+    Returns (cond, lnld)."""
+    if not cuda_lib.on_cuda(gen.age, cond):
+        return full_rebuild_and_lnld(gen, seq)
+    with span("prepare"):
+        p = prepare_full_rebuild(gen, seq, cond)
+    p.launch(cond.device)
+    LAUNCHES["full_rebuild"] += 1
+    return p.out["cond"], p.out["lnld"]
 
 
 def node_age_sweep_plain(gen: GenState, params: Params, seq: SeqData, rng,

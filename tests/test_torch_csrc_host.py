@@ -16,6 +16,7 @@ No GPU is needed; the tests skip without a C++ compiler.
 """
 
 import ctypes
+import math
 import shutil
 import subprocess
 import types
@@ -44,9 +45,11 @@ from gphocs_tpu_torch.kernels.tau import (rubber_band_eval_plain,
                                           update_sample_ages_fused,
                                           update_taus, update_taus_fused)
 from gphocs_tpu_torch.ops import cuda_lib, sweeps
+from gphocs_tpu_torch.ops.likelihood_cache import full_rebuild_and_lnld
 
-from chip_smoke import (DRAW_BATCHES, DRAW_LAYOUTS, SAMPLE_AGE_STEPS,
-                        draw_outputs, draw_streams, sweep_launches)
+from chip_smoke import (DRAW_BATCHES, DRAW_LAYOUTS, MIXING_SCALES,
+                        SAMPLE_AGE_STEPS, draw_outputs, draw_streams,
+                        sweep_launches)
 from gphocs_tpu_torch import rng_fast as RF
 
 SHIM = Path(__file__).resolve().parent / "cuda_host"
@@ -259,7 +262,8 @@ def test_rubber_band_sample_age_kernel_matches_plain(warm_sample_age,
     assert sweeps.LAUNCHES == {"node_age": 0, "mig_age": 0, "rubber_band": 0,
                                "rubber_band_sample_age": 1, "spr": 0,
                                "node_age_plain": 0, "mig_age_plain": 0,
-                               "spr_plain": 0, "rng_draw": 0}
+                               "spr_plain": 0, "full_rebuild": 0,
+                               "rng_draw": 0}
     assert float(k[5]) == float(q[5]) and float(k[6]) == float(q[6])
     assert float(k[5]) + float(k[6]) > 0
     assert bool(k[7]) == bool(q[7]) == conflict
@@ -293,6 +297,74 @@ def test_sample_age_sweep_through_kernel(warm_sample_age, kernels_on_host,
     _close(k[0].age, q[0].age, 1e-12)
     _close(k[3], q[3], 1e-9)
     _close(k[4], q[4], 1e-9)
+
+
+def _libm(monkeypatch):
+    """torch.exp and torch.log by the C library's exp and log, element by
+    element, as the host build of the kernels calls them: torch's CPU
+    kernels compute their own (SLEEF), which differ in the last bit for
+    ~3% of the edge lengths here, and 1 - exp(-x) makes that ~1e-11 of an
+    edge probability.  On the card both sides call CUDA's."""
+    def elementwise(fn):
+        return lambda x: x.detach().clone().apply_(fn)
+
+    monkeypatch.setattr(torch, "exp", elementwise(math.exp))
+    monkeypatch.setattr(torch, "log", elementwise(
+        lambda v: math.log(v) if v > 0 else -math.inf if v == 0
+        else math.nan))
+
+
+def test_full_rebuild_kernel_matches_plain(warm, kernels_on_host,
+                                           monkeypatch):
+    """Mixing's rebuild on a proposal's scaled ages, through the kernel,
+    bit for bit the plain full_rebuild_and_lnld's with the same exp and
+    log (_libm): the conditionals, the lnld, and the leaf rows those of
+    the carried conditionals."""
+    s = warm
+    _libm(monkeypatch)
+    S = s.gen.num_samples
+    c = torch.tensor(MIXING_SCALES[0], dtype=torch.float64)
+    gp = s.gen._replace(age=s.gen.age * c)
+    cond, lnld = sweeps.full_rebuild(gp, s.seq, s.cond)
+    want_cond, want_lnld = full_rebuild_and_lnld(gp, s.seq)
+    assert sweeps.LAUNCHES["full_rebuild"] == 1
+    assert torch.equal(cond, want_cond)
+    assert torch.equal(lnld, want_lnld)
+    assert torch.equal(cond[:, :S], s.cond[:, :S])
+    assert not torch.equal(cond, s.cond)
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+def test_mixing_through_kernel_matches_plain(chains, warm, warm_chains,
+                                             host_libs, monkeypatch):
+    """update_mixing_buckets with its rebuild through the kernel (one
+    launch for all chains) against the same update on the plain version
+    (the wrapper on CPU tensors), both with the C library's exp and log:
+    every output bit for bit."""
+    from gphocs_tpu_torch.kernels.common import full_stats
+    from gphocs_tpu_torch.kernels.mixing import update_mixing_buckets
+
+    s = warm if chains == 1 else warm_chains
+    _libm(monkeypatch)
+    args = ([s.gen], s.params, [s.seq], s.grng, s.ctx, s.ft.mixing,
+            [s.lnld], [s.lnp], [s.cond],
+            [full_stats(s.gen, s.params, s.ctx)], s.tree.num_cur_pops)
+    _route(monkeypatch, host_libs["forward"])
+    k = update_mixing_buckets(*args)
+    assert sweeps.LAUNCHES["full_rebuild"] == 1
+    monkeypatch.setattr(cuda_lib, "on_cuda", lambda *tensors: False)
+    q = update_mixing_buckets(*args)
+    assert sweeps.LAUNCHES["full_rebuild"] == 1
+
+    def flat(out):
+        gens, params, rng, lnlds, lnps, conds, accepted = out
+        return _flat([gens[0], params, rng, lnlds[0], lnps[0], conds[0],
+                      accepted])
+
+    fk, fq = flat(k), flat(q)
+    assert len(fk) == len(fq) > 8
+    for x, y in zip(fk, fq):
+        assert torch.equal(x, y)
 
 
 # ---- lanes, blocks, shared memory -----------------------------------------
@@ -329,6 +401,14 @@ def _call(which, warm, warm_sample_age):
         s = warm
         return sweeps.spr_sweep(s.gen, s.params, s.seq, s.lrng, s.ctx, s.lnld,
                                 s.cond)
+    if which == "full_rebuild":  # mixing's proposals, down and up
+        s = warm
+        out = []
+        for scale in MIXING_SCALES:
+            c = torch.tensor(scale, dtype=torch.float64)
+            out += sweeps.full_rebuild(s.gen._replace(age=s.gen.age * c),
+                                       s.seq, s.cond)
+        return out
     if which == "rubber_band":
         s = warm
         pop = s.tree.num_pops - 2
@@ -340,7 +420,7 @@ def _call(which, warm, warm_sample_age):
 
 
 WARP_KERNELS = ("node_age", "mig_age", "spr", "rubber_band",
-                "rubber_band_sample_age")
+                "rubber_band_sample_age", "full_rebuild")
 # those that hold conditionals (migration age is prior arithmetic only)
 COND_KERNELS = tuple(k for k in WARP_KERNELS if k != "mig_age")
 
@@ -354,7 +434,8 @@ def test_reversed_lanes_give_equal_outputs(which, warm, warm_sample_age,
     fwd = _call(which, warm, warm_sample_age)
     _route(monkeypatch, host_libs["reverse"])
     rev = _call(which, warm, warm_sample_age)
-    assert sweeps.LAUNCHES[which] == 1
+    assert sweeps.LAUNCHES[which] == (len(MIXING_SCALES)
+                                      if which == "full_rebuild" else 1)
     _same(fwd, rev)
 
 
@@ -445,7 +526,7 @@ def test_s32_bucket_matches_plain(build, s32_bucket, host_libs, monkeypatch):
     L, N, P, _ = s.cond.shape
     assert N == 63 and P > 100
     _route(monkeypatch, host_libs[build])
-    for kernel in ("node_age", "rubber_band", "spr"):
+    for kernel in ("node_age", "rubber_band", "spr", "full_rebuild"):
         assert not sweeps.plan_for(kernel, torch.float64, N, s.gen.max_migs,
                                    s.ctx.num_pops, s.ctx.num_bands,
                                    P).cond_smem, kernel
@@ -492,11 +573,15 @@ def test_s32_bucket_matches_plain(build, s32_bucket, host_libs, monkeypatch):
     _close(k[2] / scale, q[2] / scale, 1e-10)
     _close(k[3], q[3], 1e-9)
     _close(k[4], q[4], 1e-9)
+    k = sweeps.full_rebuild(s.gen, s.seq, s.cond)
+    _libm(monkeypatch)
+    q = full_rebuild_and_lnld(s.gen, s.seq)
+    assert torch.equal(k[0], q[0]) and torch.equal(k[1], q[1])
     # the plain versions' draws take the host build's draw kernel too
     assert sweep_launches(sweeps.LAUNCHES) == {
         "node_age": 1, "mig_age": 1, "spr": 1, "rubber_band": 1,
         "rubber_band_sample_age": 0, "node_age_plain": 0, "mig_age_plain": 0,
-        "spr_plain": 0}
+        "spr_plain": 0, "full_rebuild": 1}
 
 
 def test_counts_are_summed_over_the_valid_loci(warm, kernels_on_host):
@@ -598,7 +683,8 @@ def test_smem_plan(host_libs, monkeypatch):
                                cond_in_device_memory)
 
     # the standard workload: N = 15, M = 10, PP = 7, B = 1, P = 6
-    for kernel in ("node_age", "mig_age", "spr", "rubber_band"):
+    for kernel in ("node_age", "mig_age", "spr", "rubber_band",
+                   "full_rebuild"):
         for itemsize in (4, 8):
             p = smem_plan(kernel, 15, 10, 7, 1, 6, itemsize, 8)
             assert p.loci_per_block == 8 and p.cond_smem
@@ -632,6 +718,14 @@ def test_smem_plan(host_libs, monkeypatch):
     # ... then the conditionals of one locus alone do not fit
     big = smem_plan("spr", 63, 32, 16, 8, 300, 8, 8)
     assert not big.cond_smem and big.loci_per_block == 8
+    # the full rebuild: tables 33 reals + 66 ints, conditionals 360 reals;
+    # at S = 32 and P = 300 one locus's conditionals alone pass the room
+    fr = smem_plan("full_rebuild", 15, 10, 7, 1, 6, 4, 8)
+    assert fr.smem_bytes == 8 * -(-((33 + 360) * 4 + 66 * 4) // 16) * 16
+    forced = smem_plan("full_rebuild", 15, 10, 7, 1, 6, 8, 8, True)
+    assert not forced.cond_smem and forced.loci_per_block == 8
+    assert not smem_plan("full_rebuild", 63, 32, 16, 8, 300, 8,
+                         8).cond_smem
     # one copy of the conditionals (rubber band) fits where two (SPR) do not
     one = smem_plan("rubber_band", 63, 32, 16, 8, 150, 4, 8)
     assert one.cond_smem and one.loci_per_block == 1

@@ -190,7 +190,10 @@ def test_prepare_nested_in_the_calling_family(seqs, monkeypatch):
         with profiling.span("tau"):
             sweeps.rubber_band_eval(g, s.params, sq, ctx, ctx.root_pop,
                                     False, tau, tau, tau, tau * 1.01, cond)
+        with profiling.span("mixing"):
+            sweeps.full_rebuild(g, sq, cond)
 
     _, spans = _profiled(calls)
     assert [(n, p) for n, p in spans if n == "prepare"] == [
-        ("prepare", f) for f in ("node_age", "mig_age", "spr", "tau")]
+        ("prepare", f) for f in ("node_age", "mig_age", "spr", "tau",
+                                 "mixing")]
