@@ -232,6 +232,7 @@ def _run(args, ap, mesh):
         from gphocs_tpu_torch.profiling import print_kernel_times
 
         print(f"kernel launches: {dict(sweeps.LAUNCHES)}", file=sys.stderr)
+        print(f"shared-memory plans: {sweeps.PLANS}", file=sys.stderr)
         # the reference's printMethodTimes (src/utils.c:233-326), as
         # gphocs_tpu prints it at the end of a verbose run
         print("method times (isolated, reference printMethodTimes "

@@ -36,7 +36,8 @@ lane, output, stream), not a SweepArgs, so that a draw builds no struct;
 (`ERR_DRAW_SHAPE`), and counts each launch in LAUNCHES["rng_draw"].
 
 LAUNCHES counts the kernel launches of this library since the last
-ops/sweeps.reset_launch_counts() (`-v` prints it), and `on_cuda` is the
+ops/sweeps.reset_launch_counts() (`-v` prints it), PLANS the launches of
+each warp kernel by the shared-memory plan it ran with, and `on_cuda` is the
 one test of where a launch would go: the sweep wrappers (ops/sweeps.py)
 and the draws (rng_fast.py) both take the kernel for CUDA tensors and
 their plain versions for CPU tensors.
@@ -115,6 +116,13 @@ LAUNCHES = {"node_age": 0, "mig_age": 0, "rubber_band": 0,
             "rubber_band_sample_age": 0, "spr": 0, "node_age_plain": 0,
             "mig_age_plain": 0, "spr_plain": 0, "full_rebuild": 0,
             "rng_draw": 0}
+# launches of each warp kernel by its plan (ops/sweeps.plan_kind): "smem",
+# the locus's tables and conditionals in shared memory within 48 KiB;
+# "smem_optin", there past 48 KiB, with the kernel opted in; "device", the
+# conditionals in device memory; and "smem_bytes", the largest dynamic
+# shared memory a block of the kernel asked for
+PLANS = {k: {"smem": 0, "smem_optin": 0, "device": 0, "smem_bytes": 0}
+         for k in KERNELS}
 
 _LIB = None
 

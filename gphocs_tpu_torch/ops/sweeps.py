@@ -18,6 +18,10 @@ in the [L, ...] layout of the state (no lanes-last transposes):
 A failed build or launch raises; nothing falls back from the kernel to
 the plain version or from CUDA to the CPU.
 
+PLANS is ops/cuda_lib.PLANS: each kernel's launches by the plan they ran
+with (`plan_kind`) and the largest block it asked for, counted on the host
+beside LAUNCHES, with no tensor operation.
+
 LAUNCHES is ops/cuda_lib.LAUNCHES: besides the wrappers' entries it
 holds "rng_draw", the launches of the counter streams' draw kernel
 (csrc/counter_draw.cu), which rng_fast.py makes for CUDA streams and the
@@ -91,11 +95,19 @@ FORCE_COND_IN_DEVICE_MEMORY = False
 # kernel launches per wrapper since the last reset_launch_counts()
 # (cuda_lib.LAUNCHES, where its entries are described)
 LAUNCHES = cuda_lib.LAUNCHES
+# each kernel's launches by shared-memory plan (cuda_lib.PLANS)
+PLANS = cuda_lib.PLANS
+# the dynamic and static shared memory of a block beyond which the launch
+# entry opts the kernel in (launch_warp_kernel in csrc/sweeps_common.cuh)
+OPT_IN_BYTES = 48 * 1024
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in PLANS.values():
+        for k in counts:
+            counts[k] = 0
 
 
 class SmemPlan(NamedTuple):
@@ -104,6 +116,23 @@ class SmemPlan(NamedTuple):
     cond_smem: bool     # the locus's conditionals live in shared memory
     smem_bytes: int     # dynamic shared memory of one block
     static_bytes: int   # the kernel's static shared memory (PopTables)
+
+
+def plan_kind(plan: SmemPlan) -> str:
+    """The key of PLANS a launch with this plan counts under."""
+    if not plan.cond_smem:
+        return "device"
+    return ("smem_optin" if plan.smem_bytes + plan.static_bytes > OPT_IN_BYTES
+            else "smem")
+
+
+def _count(kernel: str, plan: SmemPlan, entry: str | None = None) -> None:
+    """Count one launch of `kernel` in LAUNCHES[entry or kernel] and in
+    PLANS by its plan."""
+    LAUNCHES[entry or kernel] += 1
+    counts = PLANS[kernel]
+    counts[plan_kind(plan)] += 1
+    counts["smem_bytes"] = max(counts["smem_bytes"], plan.smem_bytes)
 
 
 def plan_for(kernel: str, dt, N: int, M: int, PP: int, B: int, P: int,
@@ -310,7 +339,7 @@ def node_age_sweep(gen: GenState, params: Params, seq: SeqData,
         p = prepare_node_age(gen, params, seq, rng, ctx, finetune, lnld,
                              lnp, cond)
     p.launch(cond.device)
-    LAUNCHES["node_age"] += 1
+    _count("node_age", p.plan)
     o = p.out
     return (gen._replace(age=o["age"]), rng._replace(ctr=o["ctr"]),
             o["lnld"], o["lnp"], o["cond"],
@@ -351,7 +380,7 @@ def mig_age_sweep(gen: GenState, params: Params, rng: FastRngState,
     with span("prepare"):
         p = prepare_mig_age(gen, params, rng, ctx, finetune, lnp)
     p.launch(lnp.device)
-    LAUNCHES["mig_age"] += 1
+    _count("mig_age", p.plan)
     o = p.out
     return (gen._replace(mig_age=o["mig_age"]), rng._replace(ctr=o["ctr"]),
             o["lnp"], per_chain(o["acc"], chain_count(params)))
@@ -409,8 +438,8 @@ def rubber_band_eval(gen: GenState, params: Params, seq: SeqData,
         p = prepare_rubber_band(gen, params, seq, ctx, pop, is_sample_age,
                                 taub0, taub1, tauold, taunew, cond)
     p.launch(cond.device)
-    LAUNCHES["rubber_band_sample_age" if is_sample_age
-             else "rubber_band"] += 1
+    _count("rubber_band", p.plan,
+           "rubber_band_sample_age" if is_sample_age else None)
     o = p.out
     ntj = o["stat"][..., :2].to(gen.age.dtype)
     return (o["age"], o["mig_age"], o["cond"], o["lnld"], o["lnp"],
@@ -461,7 +490,7 @@ def spr_sweep(gen: GenState, params: Params, seq: SeqData,
     with span("prepare"):
         p = prepare_spr(gen, params, seq, rng, ctx, lnld, cond)
     p.launch(cond.device)
-    LAUNCHES["spr"] += 1
+    _count("spr", p.plan)
     o = p.out
     stat = o["stat"].to(torch.int64)
     moved = {f: o[f] for f in o if f not in ("cond", "lnld", "stat")}
@@ -496,7 +525,7 @@ def full_rebuild(gen: GenState, seq: SeqData, cond):
     with span("prepare"):
         p = prepare_full_rebuild(gen, seq, cond)
     p.launch(cond.device)
-    LAUNCHES["full_rebuild"] += 1
+    _count("full_rebuild", p.plan)
     return p.out["cond"], p.out["lnld"]
 
 

@@ -16,8 +16,8 @@ CPU by the wall clock.
 
 Timing leaves the chain alone: every call takes the state's tensors and
 returns new ones, which are dropped, and the launch counts of
-ops/sweeps.LAUNCHES are put back as they were.  On a loci mesh each rank
-times its own loci, without collectives.
+ops/sweeps.LAUNCHES and PLANS are put back as they were.  On a loci mesh
+each rank times its own loci, without collectives.
 
 `span(name)` marks where the same families run inside the iteration
 (sampler/bucketed.py, the kernel wrappers' argument blocks in
@@ -121,11 +121,14 @@ def kernel_times(sampler, reps: int = 3) -> Dict[str, float]:
     from gphocs_tpu_torch.ops import sweeps
 
     launches = dict(sweeps.LAUNCHES)
+    plans = {k: dict(v) for k, v in sweeps.PLANS.items()}
     try:
         return {name: _seconds(fn, reps, sampler.device)
                 for name, fn in _families(sampler).items()}
     finally:
         sweeps.LAUNCHES.update(launches)
+        for k, v in plans.items():
+            sweeps.PLANS[k].update(v)
 
 
 def print_kernel_times(sampler, reps: int = 3):

@@ -775,6 +775,51 @@ def test_opt_in_counts_the_static_tables(case, warm, host_libs, tmp_path,
     assert bool(torch.isfinite(out[3]).all())
 
 
+def test_plans_count_each_launch_by_its_plan(warm, host_libs, tmp_path,
+                                            monkeypatch):
+    """PLANS counts every warp kernel's launches by plan, keeps the
+    largest block, and is zeroed with LAUNCHES.  Three shapes, at the
+    card's 560 static bytes: sample_1k's (N = 15, P = 6, f32) in shared
+    memory for all five kernels; the rubber band at P = 18, f32, whose
+    49,024 dynamic bytes pass 48 KiB with the static ones (the opt-in),
+    through a launch of the wrapper; S = 32 at P = 257, f64, the
+    conditionals in device memory."""
+    lib_path = tmp_path / "libsweeps_host.so"
+    shutil.copy(host_libs["forward"]._name, lib_path)
+    lib = cuda_lib.bind(ctypes.CDLL(str(lib_path)))
+    lib.host_set_static_smem(560)
+    _route(monkeypatch, lib)
+    assert set(sweeps.PLANS) == set(cuda_lib.KERNELS)
+    assert all(set(c) == {"smem", "smem_optin", "device", "smem_bytes"}
+               for c in sweeps.PLANS.values())
+    t = padded_state(warm, 18, torch.float32)
+    pop = t.tree.num_pops - 1
+    sweeps.rubber_band_eval(t.gen, t.params, t.seq, t.ctx, pop, False,
+                            *tau_bounds(t, pop), t.cond)
+    assert sweeps.LAUNCHES["rubber_band"] == 1
+    assert sweeps.PLANS["rubber_band"] == {"smem": 0, "smem_optin": 1,
+                                           "device": 0, "smem_bytes": 49024}
+    for kernel in cuda_lib.KERNELS:
+        plan = sweeps.plan_for(kernel, torch.float32, 15, 10, 7, 1, 6)
+        assert sweeps.plan_kind(plan) == "smem"
+        assert plan.smem_bytes < 49024
+        sweeps._count(kernel, plan)
+    big = {}
+    for kernel in ("node_age", "rubber_band", "spr", "full_rebuild"):
+        big[kernel] = sweeps.plan_for(kernel, torch.float64, 63, 32, 7, 1,
+                                      257)
+        assert sweeps.plan_kind(big[kernel]) == "device"
+        sweeps._count(kernel, big[kernel])
+    assert sweeps.PLANS["rubber_band"] == {
+        "smem": 1, "smem_optin": 1, "device": 1,
+        "smem_bytes": max(49024, big["rubber_band"].smem_bytes)}
+    assert sweeps.PLANS["mig_age"]["smem"] == 1
+    assert sweeps.PLANS["spr"]["device"] == 1
+    assert sweeps.LAUNCHES["spr"] == 2
+    sweeps.reset_launch_counts()
+    assert not any(any(c.values()) for c in sweeps.PLANS.values())
+
+
 @pytest.mark.parametrize("which", ["spr", "node_age", "mig_age"])
 def test_entry_refuses_a_wrong_smem_size(which, warm, kernels_on_host):
     """The launch entry computes the layout's size itself and refuses a
